@@ -1,0 +1,47 @@
+"""Architecture registry of the port: the dense family.
+
+``get_config(arch_id)`` returns the full published config;
+``get_smoke_config(arch_id)`` returns a reduced same-family config for CPU
+tests (small layers/width/vocab), exactly as the JAX package reduces it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs import gemma_2b, llama_13b, qwen1_5_0_5b
+
+ARCHS: dict[str, ModelConfig] = {
+    "gemma-2b": gemma_2b.CONFIG,
+    "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,
+    # the paper's own serving model (trace replay, §2.3)
+    "llama-13b": llama_13b.CONFIG,
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    try:
+        cfg = ARCHS[arch]
+    except KeyError:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}") from None
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config: tiny width/depth/vocab."""
+    cfg = get_config(arch)
+    n_kv = min(cfg.n_kv_heads, 2)
+    n_heads = n_kv * min(cfg.q_per_kv, 2)
+    d_model = 64
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=min(cfg.n_layers, 2),
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=d_model // n_heads if cfg.head_dim is None else 32,
+        d_ff=128,
+        vocab_size=256,
+    )

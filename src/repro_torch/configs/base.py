@@ -1,0 +1,42 @@
+"""Model configuration dataclass: the dense family's fields of the JAX
+package's ``ModelConfig``. Other families' fields come with the slice that
+ports the family."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Family = Literal["dense"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One dense decoder-only architecture; all attention is causal."""
+
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None          # default d_model // n_heads
+    qkv_bias: bool = False               # qwen1.5
+    act: Literal["silu", "gelu"] = "silu"  # gemma uses gelu (GeGLU)
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def validate(self) -> None:
+        if self.n_heads % max(self.n_kv_heads, 1):
+            raise ValueError("n_heads must be a multiple of n_kv_heads")

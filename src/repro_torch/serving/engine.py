@@ -1,0 +1,215 @@
+"""Live serving engine on PyTorch: continuous batching + execution-idle
+telemetry + the Algorithm-1 controller.
+
+Runs a real model with fixed decode slots: prefill admits a request (padded
+to a bucket), its KV cache is spliced into a free slot, and one batched
+``decode_step`` advances every slot per tick — inactive slots are computed
+and ignored. The engine drives the RuntimeSampler/Algorithm-1 controller
+stack, so the paper's technique runs in the real serving path.
+
+It follows the JAX package's engine tick for tick (the tests hold the greedy
+tokens to it), including the shared cache ``len``: a prefill does not move
+it, every tick with an active slot advances it, and it never resets.
+
+On the card each prefill and decode phase ends with a synchronisation, so
+the sampler's wall-clock phases — and hence the telemetry rows and the
+controller's decisions — cover the card's time, not just the launches.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.controller import ExecutionIdleController
+from repro_torch.core.power_model import SimulatedDevice, get_platform
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.models import api
+from repro_torch.serving.latency import LatencyStats, Request
+from repro_torch.telemetry.sampler import RuntimeSampler
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    n_slots: int = 4
+    max_seq_len: int = 256
+    prefill_bucket: int = 32
+    eos_token: int = 1
+    max_new_tokens: int = 32
+    controller: bool = False
+    platform: str = "h100"
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class SlotState:
+    active: bool = False
+    request: Request | None = None
+    generated: int = 0
+    last_token: int = 0
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, ec: EngineConfig):
+        self.torch_device = resolve_device(ec.device)
+        if self.torch_device.type == "cuda":
+            # build or load the kernels now, not inside the first prefill's
+            # telemetry phase
+            _build.library()
+        cfg.validate()
+        self.cfg = cfg
+        self.params = params
+        self.ec = ec
+        self.slots = [SlotState() for _ in range(ec.n_slots)]
+        self.cache = api.init_cache(cfg, ec.n_slots, ec.max_seq_len,
+                                    self.torch_device)
+        self.device = SimulatedDevice(get_platform(ec.platform))
+        self.sampler = RuntimeSampler(self.device, job_id=1)
+        self.controller = (ExecutionIdleController(self.device)
+                           if ec.controller else None)
+        self.completed: list[Request] = []
+        #: time of each prefill / decode phase in ms: CUDA events on the
+        #: card, the host clock on the CPU
+        self.phase_ms: dict[str, list[float]] = {"prefill": [], "decode": []}
+
+    # ------------------------------------------------------------------ #
+    @contextlib.contextmanager
+    def _phase(self, name: str, compute_util: float,
+               hbm_util: float) -> Iterator[None]:
+        """A sampler phase that ends only when the card's work has ended."""
+        with self.sampler.phase(name, compute_util=compute_util,
+                                hbm_util=hbm_util):
+            if self.torch_device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                end.synchronize()
+                self.phase_ms[name].append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self.phase_ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def _controller_signals(self) -> dict[str, float] | None:
+        """Full scaled signal row for Algorithm 1 (§5.3), or None before the
+        first telemetry row flushes.
+
+        Activity percentages become fractions in [0, 1]; communication stays
+        GB/s. NaN (signal unavailable on this platform) is dropped so the
+        controller omits it rather than treating it as violated.
+        """
+        row = self.sampler.last_row()
+        if row is None:
+            return None
+        signals: dict[str, float] = {}
+        for k in ("sm", "tensor", "fp16", "fp32", "fp64", "dram"):
+            v = float(row[k])
+            if not np.isnan(v):
+                signals[k] = v / 100.0
+        for k in ("pcie_tx", "pcie_rx", "nvlink_tx", "nvlink_rx",
+                  "ici_tx", "ici_rx"):
+            v = float(row[k])
+            if not np.isnan(v):
+                signals[k] = v
+        return signals
+
+    def _free_slot(self) -> int | None:
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                return i
+        return None
+
+    def _splice_cache(self, slot: int, new_cache: dict) -> None:
+        """Copy a single-sequence prefill cache into slot ``slot`` and zero the
+        rest of the slot, as the reference's zero-padded update does. The
+        shared ``len`` is left alone, as in the reference."""
+        for name in ("k", "v"):
+            dst, src = self.cache[name], new_cache[name]
+            dst[:, slot].zero_()
+            dst[:, slot, :src.shape[2]].copy_(src[:, 0])
+
+    def submit(self, request: Request, prompt_tokens: np.ndarray) -> bool:
+        """Prefill + admit into a slot. Returns False if no slot free."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        bucket = min(self.ec.prefill_bucket, self.ec.max_seq_len)
+        toks = np.zeros((1, bucket), np.int64)
+        n = min(len(prompt_tokens), bucket)
+        toks[0, -n:] = prompt_tokens[-n:]
+        tokens = torch.from_numpy(toks).to(self.torch_device)
+        with self._phase("prefill", compute_util=0.9, hbm_util=0.4):
+            new_cache, logits = api.prefill(self.params, tokens, self.cfg)
+        self._splice_cache(slot, new_cache)
+        s = self.slots[slot]
+        s.active = True
+        s.request = request
+        s.generated = 0
+        s.last_token = int(torch.argmax(logits[0, -1]))
+        request.start_s = self.sampler.now
+        return True
+
+    def decode_tick(self) -> int:
+        """One batched decode step over all slots. Returns #active slots."""
+        active = [i for i, s in enumerate(self.slots) if s.active]
+        if not active:
+            self.sampler.idle(1.0)
+            if self.controller is not None:
+                sig = self._controller_signals()
+                self.controller.step(self.sampler.now,
+                                     sig if sig is not None
+                                     else {"sm": 0.0, "dram": 0.0})
+            return 0
+        toks = np.array([[s.last_token] for s in self.slots], np.int64)
+        tokens = torch.from_numpy(toks).to(self.torch_device)
+        with self._phase("decode", compute_util=0.5, hbm_util=0.9):
+            self.cache, logits = api.decode_step(self.params, self.cache,
+                                                 tokens, self.cfg)
+        next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for i in active:
+            s = self.slots[i]
+            s.last_token = int(next_tokens[i])
+            s.generated += 1
+            done = (s.generated >= min(s.request.output_tokens,
+                                       self.ec.max_new_tokens)
+                    or s.last_token == self.ec.eos_token)
+            if done:
+                s.request.finish_s = self.sampler.now
+                self.completed.append(s.request)
+                s.active = False
+                s.request = None
+        if self.controller is not None:
+            sig = self._controller_signals()
+            # sig is None before the first row flushes (sub-second warm
+            # decode ticks): skip — fabricated zeros would read as low
+            # activity and downscale clocks mid-decode
+            if sig is not None:
+                self.controller.step(self.sampler.now, sig)
+        return len(active)
+
+    # ------------------------------------------------------------------ #
+    def run(self, requests: list[Request], prompts: dict[int, np.ndarray],
+            max_ticks: int = 10_000) -> LatencyStats:
+        """Replay: submit on arrival (engine time), decode until drained."""
+        self.sampler.load_program()
+        pending = sorted(requests, key=lambda r: r.arrival_s)
+        idx = 0
+        for _ in range(max_ticks):
+            while idx < len(pending) and pending[idx].arrival_s <= self.sampler.now:
+                if self.submit(pending[idx], prompts[pending[idx].req_id]):
+                    idx += 1
+                else:
+                    break
+            n_active = self.decode_tick()
+            if idx >= len(pending) and n_active == 0:
+                break
+        self.sampler.unload_program()
+        return LatencyStats.of(self.completed)

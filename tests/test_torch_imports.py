@@ -1,0 +1,67 @@
+"""The port stands alone: no module of ``repro_torch`` imports JAX or the
+JAX package, and its entry points run on the card unless asked for the
+CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", re.M)
+
+
+def _modules():
+    mods = []
+    for f in sorted(PKG.rglob("*.py")):
+        parts = f.relative_to(SRC).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_no_module_imports_jax_or_repro():
+    offenders = []
+    for f in sorted(PKG.rglob("*.py")):
+        for m in FORBIDDEN.finditer(f.read_text()):
+            offenders.append(f"{f.relative_to(SRC)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    """Import each module in a fresh interpreter where ``jax`` and ``repro``
+    cannot be imported."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')"
+        " and sys.modules[m] is not None]\n"
+        "assert not leaked, leaked\n"
+        "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(get_smoke_config("llama-13b"), {}, EngineConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,169 @@
+"""The port's serving stack against the JAX package's.
+
+* Both engines, on the same float32 weights, are driven tick by tick on the
+  same requests; greedy tokens, slot states and the shared cache length must
+  agree after every tick, past the end of the cache as well.
+* Sampler rows and ``analyze_job``, driven by explicit busy/idle durations,
+  and the Algorithm-1 controller on seeded signal sequences must agree
+  exactly.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core import controller as jctl
+from repro.core.power_model import SimulatedDevice as JSimDevice
+from repro.core.power_model import get_platform as jget_platform
+from repro.models import api as japi
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import ServingEngine as JServingEngine
+from repro.serving.latency import Request as JRequest
+from repro.telemetry import RuntimeSampler as JSampler
+from repro.telemetry import analyze_job as janalyze_job
+from repro.traces import generate_trace as jgenerate_trace
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core import controller as tctl
+from repro_torch.core.power_model import SimulatedDevice, get_platform
+from repro_torch.launch import serve
+from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.latency import Request
+from repro_torch.telemetry import RuntimeSampler, analyze_job
+from repro_torch.traces import TRACES, generate_trace
+
+ENGINE = dict(n_slots=2, max_seq_len=16, prefill_bucket=8, max_new_tokens=6,
+              controller=True, platform="h100")
+
+
+def _engines(arch):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    np_params = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(0), jcfg))
+    jeng = JServingEngine(jcfg, jax.tree.map(jnp.asarray, np_params),
+                          JEngineConfig(**ENGINE))
+    teng = ServingEngine(tcfg, params_from_jax(np_params, tcfg, "cpu"),
+                         EngineConfig(**ENGINE, device="cpu"))
+    return jeng, teng
+
+
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b"])
+def test_engine_tokens_match_jax_tick_by_tick(arch):
+    jeng, teng = _engines(arch)
+    rng = np.random.default_rng(0)
+    n_req = 12
+    prompts = [rng.integers(2, 256, int(rng.integers(3, 12))) for _ in range(n_req)]
+    outputs = [int(rng.integers(2, 8)) for _ in range(n_req)]
+    nxt, past_end = 0, False
+    for tick in range(50):
+        # admit in order while a slot is free (same decision for both)
+        while nxt < n_req and any(not s.active for s in teng.slots):
+            ok_t = teng.submit(Request(nxt, 0.0, len(prompts[nxt]), outputs[nxt]),
+                               prompts[nxt])
+            ok_j = jeng.submit(JRequest(nxt, 0.0, len(prompts[nxt]), outputs[nxt]),
+                               prompts[nxt].astype(np.int32))
+            assert ok_t and ok_j
+            if tick == 0 and nxt == 0:
+                # a prefill leaves the shared length alone
+                assert int(teng.cache["len"]) == int(jeng.cache["len"]) == 0
+            nxt += 1
+        n_t, n_j = teng.decode_tick(), jeng.decode_tick()
+        assert n_t == n_j
+        assert [s.last_token for s in teng.slots] == [s.last_token for s in jeng.slots]
+        assert [s.active for s in teng.slots] == [s.active for s in jeng.slots]
+        assert int(teng.cache["len"]) == int(jeng.cache["len"])
+        past_end |= int(teng.cache["len"]) > ENGINE["max_seq_len"]
+    assert past_end, "the run should carry the shared length past the cache"
+    assert len(teng.completed) == len(jeng.completed) > 0
+    assert [r.req_id for r in teng.completed] == [r.req_id for r in jeng.completed]
+
+
+def _drive(sampler, seed):
+    rng = np.random.default_rng(seed)
+    sampler.load_program()
+    for _ in range(300):
+        u = rng.random()
+        if u < 0.4:
+            sampler.idle(float(rng.uniform(0.1, 3.0)))
+        else:
+            sampler.busy(float(rng.uniform(0.01, 1.5)),
+                         compute_util=float(rng.uniform(0.0, 1.0)),
+                         hbm_util=float(rng.uniform(0.0, 1.0)),
+                         ici_gbs=float(rng.uniform(0.0, 2.0)) if u > 0.9 else 0.0)
+    sampler.unload_program()
+    sampler.idle(5.0)
+
+
+@pytest.mark.parametrize("platform,seed", [("h100", 0), ("l40s", 1), ("tpu_v5e", 2)])
+def test_sampler_rows_and_analyze_job_match_jax(platform, seed):
+    tsamp = RuntimeSampler(SimulatedDevice(get_platform(platform)), job_id=1)
+    jsamp = JSampler(JSimDevice(jget_platform(platform)), job_id=1)
+    _drive(tsamp, seed)
+    _drive(jsamp, seed)
+    tf, jf = tsamp.frame(), jsamp.frame()
+    assert len(tf) == len(jf) > 100
+    assert set(tf.columns) == set(jf.columns)
+    for name in jf.columns:
+        a, b = tf[name], jf[name]
+        assert a.dtype == b.dtype, name
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), name
+    for min_s in (1.0, 5.0):
+        ta, ja = analyze_job(tf, 1, min_s), janalyze_job(jf, 1, min_s)
+        assert np.array_equal(ta.states, ja.states)
+        assert {int(k): v for k, v in ta.breakdown.time_s.items()} == \
+            {int(k): v for k, v in ja.breakdown.time_s.items()}
+        assert {int(k): v for k, v in ta.breakdown.energy_j.items()} == \
+            {int(k): v for k, v in ja.breakdown.energy_j.items()}
+        assert [(int(i.state), i.start, i.end) for i in ta.intervals] == \
+            [(int(i.state), i.start, i.end) for i in ja.intervals]
+        assert ta.exec_idle_time_fraction == ja.exec_idle_time_fraction
+        assert ta.exec_idle_energy_fraction == ja.exec_idle_energy_fraction
+
+
+@pytest.mark.parametrize("mode", ["sm_only", "sm_and_mem"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_controller_matches_jax(mode, seed):
+    rng = np.random.default_rng(seed)
+    tdev, jdev = SimulatedDevice(get_platform("h100")), JSimDevice(jget_platform("h100"))
+    tc = tctl.ExecutionIdleController(tdev, tctl.ControllerConfig(
+        threshold_x_s=2.0, cooldown_y_s=4.0, mode=tctl.DownscaleMode(mode)))
+    jc = jctl.ExecutionIdleController(jdev, jctl.ControllerConfig(
+        threshold_x_s=2.0, cooldown_y_s=4.0, mode=jctl.DownscaleMode(mode)))
+    names = ["sm", "tensor", "dram", "pcie_rx", "nvlink_tx", "ici_rx"]
+    t = 0.0
+    for _ in range(2000):
+        # long quiet stretches with bursts, so both branches fire often
+        quiet = rng.random() < 0.8
+        sample = {k: float(rng.uniform(0, 0.04 if quiet else 0.5)) for k in names
+                  if rng.random() < 0.8}
+        if quiet and rng.random() < 0.05:
+            sample["pcie_rx"] = 2.0
+        t += 1.0
+        assert tc.step(t, sample) == jc.step(t, sample)
+        assert tdev.clocks() == tuple(jdev.clocks())
+    assert dataclasses.asdict(tc.stats) == dataclasses.asdict(jc.stats)
+    assert tc.stats.downscale_events > 5 and tc.stats.restore_events > 5
+    assert tdev.switch_count == jdev.switch_count
+
+
+def test_traces_match_jax():
+    for name in TRACES:
+        a = generate_trace(TRACES[name], 600.0, n_devices=2, seed=3)
+        b = jgenerate_trace(TRACES[name], 600.0, n_devices=2, seed=3)
+        assert [dataclasses.astuple(r) for r in a] == [dataclasses.astuple(r) for r in b]
+
+
+def test_serve_launcher_runs_past_cache_end_on_cpu():
+    """``launch.serve`` end to end on the CPU; with a 32-slot cache the
+    shared length runs past its end and serving goes on."""
+    out = serve.main(["--arch", "llama-13b", "--smoke", "--device", "cpu",
+                      "--duration", "60", "--max-seq", "32", "--controller"])
+    assert out["completed"] >= 1
+    assert out["cache_len"] > 32
+    tel = out["telemetry"]
+    assert 0.0 <= tel["exec_idle_time_fraction"] <= 1.0
+    assert out["controller_downscales"] >= 1
+
