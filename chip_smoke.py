@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the serving path's CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version at the serving path's shapes, times
-each beside its bound, its plain version and a PyTorch yardstick call,
-compares full-width llama-13b logits between the kernel path and the plain
-path, then serves llama-13b at full width (random weights from a seed, bf16)
-through ``ServingEngine`` with the Algorithm-1 controller on, and checks that
-every kernel was launched the expected number of times.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives its
+two paths:
+
+* serving: holds K1-K3 against their plain PyTorch versions at the serving
+  path's shapes, times each beside its bound, its plain version and a
+  PyTorch yardstick call, compares full-width llama-13b logits between the
+  kernel path and the plain path, then serves llama-13b at full width
+  (random weights from a seed, bf16) through ``ServingEngine`` with the
+  Algorithm-1 controller on, and checks every kernel's launch count;
+* what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
+  seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
+  the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
+  scan, K7 cooldown chain), holds the outcomes against the NumPy oracle
+  (time and count fields exact, energies and penalties within 1e-9
+  relative), checks K4 and K7 against their plain versions at the largest
+  padding bucket and times them.
 
 Output: one line per phase; before the last, a ``{"kernels": [...]}`` JSON
 line and the card's name and power limit from nvidia-smi; last, the
@@ -23,6 +32,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,12 +43,24 @@ BF16_TOL = 2e-2                    # kernel vs plain, bf16 (tests/test_kernels.p
 F32_TOL = 2e-5                     # kernel vs plain, f32
 LOGITS_BF16_TOL = 5e-2             # normwise, 40 layers of bf16 rounding
 LOGITS_F32_TOL = 1e-4              # normwise, two f32 layers
+#: no float64 or int64 rate in the H100 table; the float32 rate (outside the
+#: tensor cores) is above both, so ops / this rate stays a lower bound on time
+F32_OPS_PER_S = 67e12
+WHATIF_RTOL = 1e-9                 # the what-if oracle contract (energies, penalties)
+#: the reference benchmark's what-if deployment (benchmarks/whatif_bench.py:71-74)
+WHATIF_DEPLOYMENT = dict(n_devices=64, horizon_s=3 * 3600, seed=3, shard_s=3 * 3600)
+#: its host counts in BENCH_whatif_sweep.json (counts, not speeds)
+WHATIF_REF_COUNTS = {"rows": 691_200, "runs": 27_460}
+WHATIF_SAMPLE = 1000
 
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:16",
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
     "decode_attention": "src/repro/kernels/decode_attention.py:22",
+    "cap_bucket_scan": "src/repro/kernels/run_replay.py:42",
+    "downscale_replay": "src/repro/whatif/backend.py:428",
 }
+SERVING_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 
 
 def log(msg: str) -> None:
@@ -102,9 +124,10 @@ def timed(fn, iters: int = 100) -> dict[str, float]:
     return {"ms": graph_ms(fn, iters), "call_ms": cuda_ms(fn, iters)}
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, ops: float,
+             ops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -120,7 +143,7 @@ def check_close(name: str, got, want, tol: float) -> float:
     import torch
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
-    g, w = got.float(), want.float()
+    g, w = got.double(), want.double()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
     diff = (g - w).abs()
@@ -351,7 +374,8 @@ def serve(cfg, params, dev) -> dict:
     n_decode = len(engine.phase_ms["decode"])
     expect = {"rmsnorm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode),
               "flash_attention": cfg.n_layers * n_prefill,
-              "decode_attention": cfg.n_layers * n_decode}
+              "decode_attention": cfg.n_layers * n_decode,
+              "cap_bucket_scan": 0, "downscale_replay": 0}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if stats.n < 4:
@@ -380,6 +404,347 @@ def serve(cfg, params, dev) -> dict:
     }
     log("serve " + json.dumps(result))
     return result, engine.cache
+
+
+# --------------------------------------------------------------------------- #
+# the what-if replay
+# --------------------------------------------------------------------------- #
+def grid_10k():
+    """The reference benchmark's 10^4-config grid (benchmarks/whatif_bench.py
+    ``_grid_10k``), built from the port's classes: 1 no-op + 2048 Algorithm-1
+    downscale (32 X x 32 Y x 2 modes) + 50 consolidation pools + 7901 caps."""
+    import numpy as np
+    from repro_torch.core.controller import ControllerConfig, DownscaleMode
+    from repro_torch.core.imbalance import PoolConfig, PoolPolicy
+    from repro_torch.whatif import (DownscalePolicy, NoOpPolicy, ParkingPolicy,
+                                    PowerCapPolicy)
+    grid = [NoOpPolicy()]
+    for x in np.linspace(0.5, 16.0, 32):
+        for y in np.linspace(1.0, 12.0, 32):
+            for mode in (DownscaleMode.SM_ONLY, DownscaleMode.SM_AND_MEM):
+                grid.append(DownscalePolicy(config=ControllerConfig(
+                    threshold_x_s=round(float(x), 4),
+                    cooldown_y_s=round(float(y), 4), mode=mode)))
+    for n_devices in (4, 8):
+        for k in range(1, n_devices):
+            for resume_s in (2.0, 5.0, 10.0, 30.0, 60.0):
+                grid.append(ParkingPolicy(
+                    pool=PoolConfig(n_devices=n_devices,
+                                    policy=PoolPolicy.CONSOLIDATED, n_active=k),
+                    resume_latency_s=resume_s))
+    for frac in np.linspace(0.2, 0.99, 10_000 - len(grid)):
+        grid.append(PowerCapPolicy(cap_fraction=round(float(frac), 6)))
+    return grid
+
+
+def sample_indices(grid, n: int, seed: int = 0) -> list[int]:
+    """A seeded sample of ``n`` configs that holds every family: the no-op,
+    every parking pool, and the rest drawn from downscale and caps."""
+    import numpy as np
+    names = [p.name for p in grid]
+    keep = [i for i, nm in enumerate(names) if nm in ("noop", "parking")]
+    rest = np.array([i for i, nm in enumerate(names) if nm not in ("noop", "parking")])
+    drawn = np.random.default_rng(seed).choice(rest, n - len(keep), replace=False)
+    return sorted(keep + [int(i) for i in drawn])
+
+
+WHATIF_EXACT = ("name", "params", "n_jobs", "wake_events", "downscale_events",
+                "throttled_time_s")
+WHATIF_FLOAT = ("baseline_energy_j", "counterfactual_energy_j", "energy_saved_j",
+                "saved_fraction", "penalty_s", "penalty_fraction",
+                "exec_idle_energy_fraction_baseline", "exec_idle_energy_fraction_cf")
+
+
+def compare_outcomes(ref, out, label: str) -> dict:
+    """The oracle contract of tests/test_whatif_backend.py: time and count
+    fields equal, float fields and per-job CDFs within 1e-9 (rtol = atol =
+    1e-9, as ``np.isclose``). Returns, per float field, the worst relative
+    error, and under "limit_share" the worst element's share of its
+    ``np.isclose`` limit (the atol part covers fields near zero, such as a
+    saving that is a small difference of two large energies)."""
+    import numpy as np
+    if len(ref) != len(out):
+        raise AssertionError(f"{label}: {len(out)} outcomes, want {len(ref)}")
+    fields = WHATIF_FLOAT + ("per_job_saved_fraction", "per_job_penalty_s")
+    worst = dict.fromkeys(fields + ("limit_share",), 0.0)
+    for a, b in zip(ref, out):
+        for f in WHATIF_EXACT:
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{label}: {a.name} {a.params} {f}: "
+                                     f"{getattr(b, f)} != oracle {getattr(a, f)}")
+        for f in fields:
+            x = np.atleast_1d(np.asarray(getattr(a, f), dtype=np.float64))
+            y = np.atleast_1d(np.asarray(getattr(b, f), dtype=np.float64))
+            if x.shape != y.shape:
+                raise AssertionError(f"{label}: {a.name} {a.params} {f}: shape")
+            diff = np.abs(y - x)
+            share = diff / (WHATIF_RTOL + WHATIF_RTOL * np.abs(x))
+            if not (share <= 1.0).all():
+                raise AssertionError(f"{label}: {a.name} {a.params} {f}: differs "
+                                     f"from the oracle beyond rtol = atol = 1e-9")
+            worst["limit_share"] = max(worst["limit_share"], float(share.max(initial=0.0)))
+            nz = diff > 0
+            if nz.any():
+                worst[f] = max(worst[f], float((diff[nz] / np.abs(x[nz])).max()))
+    return worst
+
+
+def cap_scan_edge_cases(dev) -> None:
+    """K4 exactly equal to its plain version and to NumPy on ties, -inf
+    padded rows, Np = 1 and a non-power-of-two Np."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import run_replay
+    rng = np.random.default_rng(5)
+    for rows, n, c, pad in ((1, 1, 7, 0), (3, 17, 5, 4), (4, 1000, 33, 40),
+                            (2, 6, 5, 0)):
+        sp = np.sort(rng.integers(-40, 40, (rows, n)).astype(np.float64) * 2.5, axis=1)
+        sp[:, :pad] = -np.inf
+        caps = rng.integers(-45, 45, (rows, c)).astype(np.float64) * 2.5
+        want = np.stack([n - np.searchsorted(sp[r], caps[r], side="right")
+                         for r in range(rows)])
+        sp_t = torch.from_numpy(sp).to(dev)
+        caps_t = torch.from_numpy(caps).to(dev)
+        got = run_replay.cap_bucket_scan(sp_t, caps_t)
+        if not (torch.equal(got, run_replay.cap_bucket_scan_plain(sp_t, caps_t))
+                and np.array_equal(got.cpu().numpy(), want)):
+            raise AssertionError(f"cap_bucket_scan rows={rows} n={n} c={c} pad={pad}: "
+                                 "kernel != plain/numpy")
+
+
+def profile_evaluate(grid, store, kw) -> dict:
+    """One 10^4-config ``evaluate`` under torch.profiler: the card's busy
+    time against the wall time, and the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.whatif import evaluate
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate(grid, store, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    result = {"wall_ms_profiled": wall_ms, "card_busy_ms": busy_ms,
+              "card_idle_share": 1.0 - busy_ms / wall_ms,
+              "device_ops": sum(e.count for e in on_card),
+              "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+    log("profile what-if evaluate " + json.dumps(result))
+    return result
+
+
+def replay_kernels(dev, grid, packed) -> dict:
+    """K4 and K7 at the largest padding bucket of the 10^4 run (the most
+    streams x padded low runs): kernel against plain, then times."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import downscale_replay as k7
+    from repro_torch.kernels import run_replay as k4
+    from repro_torch.whatif.policies import DownscaleBatch, PowerCapBatch, make_batches
+
+    bucket = max(packed.buckets, key=lambda b: b.key[0] * b.idx.size)
+    a = bucket.device_tensors(dev)
+    s_dim = bucket.idx.size
+    batches = [b for b, _ in make_batches(grid)]
+    cap_batch = next(b for b in batches if isinstance(b, PowerCapBatch))
+    ds_batch = next(b for b in batches if isinstance(b, DownscaleBatch))
+
+    # K4, as the power-cap family calls it: [S, 4, Np] rows, [S, C] caps
+    # expanded over the 4 buckets
+    caps = torch.from_numpy(np.asarray(cap_batch._fracs)[None, :]
+                            * packed.tdp[bucket.idx][:, None]).to(dev)
+    sp = a["cap_sorted"]
+    n_b, n_p = sp.shape[1], sp.shape[2]
+    c4 = caps.shape[1]
+    view = caps[:, None, :].expand(s_dim, n_b, c4)
+    got = k4.cap_bucket_scan(sp, view)
+    want = k4.cap_bucket_scan_plain(sp, view)
+    if not torch.equal(got, want):
+        raise AssertionError("cap_bucket_scan: kernel != plain at the main shape")
+    k4_err = float((got - want).abs().max())
+    cap_scan_edge_cases(dev)
+    rows = sp.reshape(s_dim * n_b, n_p)
+    caps_rows = view.reshape(s_dim * n_b, c4)           # materialised for searchsorted
+    yard = n_p - torch.searchsorted(rows, caps_rows, right=True)
+    if not torch.equal(yard.to(torch.int32).reshape(got.shape), got):
+        raise AssertionError("cap_bucket_scan: kernel != torch.searchsorted")
+    iters = max(n_p.bit_length(), 1)
+    k4_row = dict(
+        shape=f"sorted_p ({s_dim}, 4, {n_p}) f64, caps ({s_dim}, {c4}) f64 "
+              f"expanded over 4 buckets",
+        kernel=timed(lambda: k4.cap_bucket_scan(sp, view)),
+        plain=timed(lambda: k4.cap_bucket_scan_plain(sp, view), 20),
+        library=timed(lambda: torch.searchsorted(rows, caps_rows, right=True)),
+        bound=bound_ms(sp.numel() * 8 + caps.numel() * 8 + got.numel() * 4,
+                       got.numel() * iters * 5, F32_OPS_PER_S),
+        max_abs_err=k4_err)
+
+    # K7, as the downscale family calls it: the unique (trigger, cooldown) pairs
+    key = np.stack([ds_batch._trig.astype(np.float64), ds_batch._y], axis=1)
+    _, uniq = np.unique(key, axis=0, return_index=True)
+    trig = torch.from_numpy(ds_batch._trig[uniq].astype(np.int64)).to(dev)
+    y = torch.from_numpy(ds_batch._y[uniq].astype(np.float64)).to(dev)
+    args = (a["lr_s0"], a["lr_len"], a["lr_busy"], a["lr_valid"], a["lr_trail"],
+            a["cum_res"], a["ds_cum"], a["ts_first"], packed.dt_s, trig, y)
+    got = k7.downscale_replay(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    want = k7.downscale_replay_plain(*args)
+    torch.cuda.synchronize()
+    plain_gib = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    for i, (g, w) in enumerate(zip(got[:3], want[:3])):
+        if not torch.equal(g, w):
+            raise AssertionError(f"downscale_replay: integer output {i} kernel != plain")
+    k7_err = 0.0
+    for g, w in zip(got[3:], want[3:]):
+        k7_err = max(k7_err, check_close("downscale_replay savings", g, w, WHATIF_RTOL))
+    c7 = trig.numel()
+    k_dim = a["lr_s0"].shape[1]
+    in_bytes = sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
+    valid_runs = int(a["lr_valid"].sum())
+    fired = int(got[0].sum())
+    k7_row = dict(
+        shape=f"lr_* ({s_dim}, {k_dim}), ds_cum ({s_dim}, 4, {a['ds_cum'].shape[2]}) "
+              f"f64, {c7} (trigger, cooldown) pairs",
+        kernel=timed(lambda: k7.downscale_replay(*args), 20),
+        plain=timed(lambda: k7.downscale_replay_plain(*args), 2),
+        library=None,
+        bound=bound_ms(in_bytes + 7 * s_dim * c7 * 8,
+                       3 * valid_runs * c7 + 40 * fired, F32_OPS_PER_S),
+        max_abs_err=k7_err, plain_peak_gib=plain_gib, fired=fired,
+        valid_runs=valid_runs, pairs=c7)
+    return {"cap_bucket_scan": k4_row, "downscale_replay": k7_row}
+
+
+def whatif(dev) -> dict:
+    """The what-if main path: the reference benchmark's fleet into a store,
+    the dense and 10^4 grids replayed on the card through ``run_sweep``, the
+    oracle checks, the counted run and the kernel checks."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.cluster import generate_cluster
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.whatif import (default_policy_grid, evaluate, get_ir,
+                                    ir_config_for, ir_supported, run_sweep)
+    from repro_torch.whatif import backend as B
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        t0 = time.perf_counter()
+        store = TelemetryStore(d, shard_format="npy_dir")
+        generate_cluster(store=store, **WHATIF_DEPLOYMENT)
+        gen_s = time.perf_counter() - t0
+        dense = default_policy_grid()
+        t0 = time.perf_counter()
+        ir = get_ir(store, ir_config_for(dense))
+        ir_s = time.perf_counter() - t0
+        counts = {"rows": store.total_rows, "runs": ir.n_runs}
+        log(f"what-if fleet {WHATIF_DEPLOYMENT}: {counts['rows']} rows, "
+            f"{len(ir.streams)} streams, {counts['runs']} IR runs (reference host "
+            f"counts {WHATIF_REF_COUNTS}: "
+            f"{'match' if counts == WHATIF_REF_COUNTS else 'DIFFER'}); simulated "
+            f"in {gen_s:.2f} s, IR built in {ir_s:.2f} s on the host")
+
+        kw = dict(min_job_duration_s=0.0)
+        front_np = run_sweep(store, dense, backend="numpy", **kw)
+        front = run_sweep(store, dense, **kw)
+        worst_dense = compare_outcomes(front_np.outcomes, front.outcomes, "dense grid")
+        if [o.pareto for o in front.outcomes] != [o.pareto for o in front_np.outcomes]:
+            raise AssertionError("dense grid: Pareto flags differ from the oracle")
+        log(f"what-if dense grid ({len(dense)} configs): torch on the card == numpy "
+            f"oracle (time and count fields exact; worst relative error per float "
+            f"field, rtol = atol = {WHATIF_RTOL}: {json.dumps(worst_dense)})")
+
+        grid = grid_10k()
+        n_ir = sum(ir_supported(p, ir_config_for(grid)) for p in grid)
+        # the replay (evaluate, which run_sweep wraps): warm-up, min of 3
+        evaluate(grid, store, **kw)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate(grid, store, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        card_s = min(times)
+
+        # the counted main-path run
+        obs.reset()
+        obs.enable()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        front10 = run_sweep(store, grid, **kw)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stages = obs.stage_totals(obs.spans())
+        fam = obs.REGISTRY.family("repro_replay_configs_total")
+        by_path = {dict(k).get("path"): m.value for k, m in fam.metrics.items()}
+        obs.disable()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0:
+            raise AssertionError(f"the 10^4 run did not launch K4 and K7: {launches}")
+        if any(launches[k] for k in SERVING_KERNELS):
+            raise AssertionError(f"the 10^4 run launched serving kernels: {launches}")
+        if by_path != {"torch": float(n_ir)}:
+            raise AssertionError(f"configs by path {by_path}, want torch = {n_ir}")
+        outs = front10.outcomes
+        if len(outs) != len(grid) or not all(np.isfinite(o.counterfactual_energy_j)
+                                             for o in outs):
+            raise AssertionError("10^4 grid: missing or non-finite outcomes")
+
+        idx = sample_indices(grid, WHATIF_SAMPLE)
+        t0 = time.perf_counter()
+        ref = evaluate([grid[i] for i in idx], store, backend="numpy", **kw)
+        host_s = time.perf_counter() - t0
+        worst_10k = compare_outcomes(ref, [outs[i] for i in idx], "10^4 grid sample")
+        families = sorted({grid[i].name for i in idx})
+        log(f"what-if 10^4 grid sample ({len(idx)} configs, {families}): torch on "
+            f"the card == numpy oracle (time and count fields exact; worst relative "
+            f"error per float field: {json.dumps(worst_10k)})")
+        idle = profile_evaluate(grid, store, kw)
+
+        packed = B.pack_ir(get_ir(store, ir_config_for(grid)), 5, **kw)
+        krows = replay_kernels(dev, grid, packed)
+
+    result = {
+        "deployment": WHATIF_DEPLOYMENT, **counts, "streams": len(ir.streams),
+        "kept_streams": packed.n_streams, "buckets": [list(b.key) + [int(b.idx.size)]
+                                                     for b in packed.buckets],
+        "dense_worst_limit_share": worst_dense["limit_share"],
+        "grid": len(grid), "ir_capable": n_ir,
+        "card_s_min_of_3": card_s, "card_s_runs": times,
+        "configs_per_s_card": len(grid) / card_s,
+        "run_sweep_s": counted_s,
+        "frontier_s": counted_s - stages.get("whatif.evaluate", {}).get("total_s", 0.0),
+        "sample": len(idx), "sample_families": families,
+        "sample_worst_limit_share": worst_10k["limit_share"],
+        "evaluate_profile": idle,
+        "host_numpy_s_sample": host_s,
+        "configs_per_s_host_numpy_sample": len(idx) / host_s,
+        "stages_s": {k: stages.get(k, {}).get("total_s") for k in
+                     ("whatif.evaluate", "backend.pack", "backend.kernels",
+                      "backend.assembly")},
+        "peak_memory_gib": peak_gib,
+        "launches": launches, "configs_by_path": by_path,
+    }
+    log("what-if " + json.dumps(result))
+    log(f"what-if 10^4 grid: {result['configs_per_s_card']:.1f} configs/s on the card "
+        f"(torch backend, {torch.cuda.get_device_name(0)}, evaluate, min of 3; the "
+        f"counted run_sweep took {counted_s:.2f} s, {result['frontier_s']:.2f} s of "
+        f"it the host's Pareto frontier); "
+        f"{result['configs_per_s_host_numpy_sample']:.1f} configs/s on the host "
+        f"(numpy backend, this machine's CPU, the {len(idx)}-config sample)")
+    return result, krows
 
 
 def main() -> int:
@@ -444,19 +809,38 @@ def main() -> int:
 
     result, cache = serve(cfg, params, dev)
     profile_decode(cfg, params, cache, dev, result["mean_decode_step_ms"])
+    del params, cache
+    torch.cuda.empty_cache()
+
+    wresult, wtimes = whatif(dev)
+    for name, t in wtimes.items():
+        lib = t["library"]
+        log(f"time {name} [{t['shape']}] card ms (per call with host ms): kernel "
+            f"{t['kernel']['ms']:.5f} ({t['kernel']['call_ms']:.5f}), plain "
+            f"{t['plain']['ms']:.5f} ({t['plain']['call_ms']:.5f}), torch "
+            + (f"{lib['ms']:.5f} ({lib['call_ms']:.5f})" if lib else "none")
+            + f", bound {t['bound'][0]:.5f} ({t['bound'][1]})")
+    k7 = wtimes["downscale_replay"]
+    log(f"downscale_replay plain version at the main shape used "
+        f"{k7['plain_peak_gib']:.3f} GiB of device memory; {k7['fired']} of "
+        f"{k7['valid_runs'] * k7['pairs']} (valid run, pair) lanes fired")
+    errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
+    launches = {**result["launches"],
+                **{k: wresult["launches"][k] for k in wtimes}}
     rows = []
-    for name, t in times.items():
+    for name, t in {**times, **wtimes}.items():
+        lib = t["library"]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": result["launches"][name],
+            "launches": launches[name],
             "max_abs_err": errs[name],
             "ms": t["kernel"]["ms"], "plain_ms": t["plain"]["ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": t["library"]["ms"],
+            "library_ms": lib["ms"] if lib else None,
             "call_ms": t["kernel"]["call_ms"], "plain_call_ms": t["plain"]["call_ms"],
-            "library_call_ms": t["library"]["call_ms"],
+            "library_call_ms": lib["call_ms"] if lib else None,
             "shape": t["shape"],
         })
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}

@@ -6,12 +6,13 @@ Two roles:
    (Table 4 power limits; Fig 2/4 deep-idle vs execution-idle gaps; §5.3
    downscaled powers on L40S; §4.4 kWh anchors on B200/L40S).
 2. **Runtime model** — the serving engine's simulated device. The actuator
-   here is a *model* that counts clock switches; the controller (Algorithm
-   1) is written against the ``ClockActuator`` protocol so a real actuator
-   can be substituted on hardware that has one.
+   here is a *model* (with the 1–500 ms frequency-switch latency of Velicka
+   et al. [52]); the controller (Algorithm 1) is written against the
+   ``ClockActuator`` protocol so a real actuator can be substituted on
+   hardware that has one.
 
-The platform table is the JAX package's, row for row; its perf-scaling and
-roofline terms are left out (the serving path does not read them).
+The platform table is the JAX package's, row for row, so telemetry from
+either package prices the same.
 
 Power decomposition (per platform, program resident):
 
@@ -52,8 +53,17 @@ class PlatformSpec:
     sm_clk_mhz: tuple[float, float] = (210.0, 2520.0)
     mem_clk_mhz: tuple[float, float] = (405.0, 9001.0)
     #: perf multiplier at f_min for compute-bound work (throughput ratio;
-    #: ~210/2520 MHz with some latency hiding); scales the active power term
+    #: ~210/2520 MHz with some latency hiding)
     perf_at_min_compute: float = 0.15
+    #: perf multiplier at f_min-memory for memory-bound work (~405/9001 MHz
+    #: effective bandwidth ratio; LLM decode is memory-bound, so this is the
+    #: §5.3 SM+mem latency cliff)
+    perf_at_min_memory: float = 0.09
+    #: roofline terms (TPU platform only; None for GPUs we never dry-run on)
+    peak_bf16_tflops: float | None = None
+    hbm_gbps: float | None = None
+    ici_gbps_per_link: float | None = None
+    hbm_capacity_gib: float | None = None
 
     def residency_floor_w(self, sm: ClockLevel, mem: ClockLevel) -> float:
         if sm == ClockLevel.MAX and mem == ClockLevel.MAX:
@@ -84,6 +94,20 @@ class PlatformSpec:
         util = float(np.clip(util, 0.0, 1.0))
         # sub-linear power-vs-util (activity counters saturate before power):
         return floor + headroom * clock_scale * util ** 0.9
+
+    def perf_scale(
+        self,
+        sm: ClockLevel,
+        mem: ClockLevel,
+        compute_bound_fraction: float = 0.7,
+    ) -> float:
+        """Throughput multiplier under the given clocks, for a workload that
+        is ``compute_bound_fraction`` compute-bound and the rest memory-bound.
+        """
+        c = 1.0 if sm == ClockLevel.MAX else self.perf_at_min_compute
+        m = 1.0 if mem == ClockLevel.MAX else self.perf_at_min_memory
+        return 1.0 / (compute_bound_fraction / c + (1.0 - compute_bound_fraction) / m)
+
 
 # --------------------------------------------------------------------------- #
 # Platform registry.
@@ -130,14 +154,16 @@ B200 = _register(PlatformSpec(
     exec_idle_w=218.0, exec_idle_sm_min_w=160.0, exec_idle_all_min_w=135.0,
 ))
 
-#: TPU-v5e-class platform of the JAX package's runtime (kept so telemetry
-#: from either package can be compared on one table).
+#: TPU-v5e-class platform for the framework's own runtime and roofline math.
+#: Peak 197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI (assignment spec).
 #: Power envelope modeled (no public per-state figures): residency floor
 #: chosen to preserve the paper's qualitative exec-idle ≫ deep-idle gap.
 TPU_V5E = _register(PlatformSpec(
     name="tpu_v5e", tdp_w=250.0, deep_idle_w=55.0,
     exec_idle_w=140.0, exec_idle_sm_min_w=90.0, exec_idle_all_min_w=60.0,
     sm_clk_mhz=(400.0, 1700.0), mem_clk_mhz=(600.0, 3200.0),
+    peak_bf16_tflops=197.0, hbm_gbps=819.0, ici_gbps_per_link=50.0,
+    hbm_capacity_gib=16.0,
 ))
 
 
@@ -160,22 +186,37 @@ class ClockActuator(Protocol):
 
 @dataclasses.dataclass
 class SimulatedDevice:
-    """A DVFS-capable device simulation: clock levels, the power they give,
-    and a count of switches."""
+    """A DVFS-capable device simulation with frequency-switch latency.
+
+    Velicka et al. [52] measure 1–500 ms per switch; during the switch the
+    device stalls (no useful progress), which is how downscaling converts
+    into the latency penalty the paper reports.
+    """
 
     platform: PlatformSpec
+    switch_latency_s: float = 0.2
     _sm: ClockLevel = ClockLevel.MAX
     _mem: ClockLevel = ClockLevel.MAX
+    _switch_done_t: float = 0.0
     switch_count: int = 0
 
     def set_clocks(self, t_s: float, sm: ClockLevel, mem: ClockLevel) -> None:
         if (sm, mem) == (self._sm, self._mem):
             return
         self._sm, self._mem = sm, mem
+        self._switch_done_t = t_s + self.switch_latency_s
         self.switch_count += 1
 
     def clocks(self) -> tuple[ClockLevel, ClockLevel]:
         return self._sm, self._mem
 
+    def switching(self, t_s: float) -> bool:
+        return t_s < self._switch_done_t
+
     def power_w(self, t_s: float, util: float, resident: bool = True) -> float:
         return self.platform.power_w(util, self._sm, self._mem, resident)
+
+    def perf_scale(self, t_s: float, compute_bound_fraction: float = 0.7) -> float:
+        if self.switching(t_s):
+            return 0.0  # stalled mid-switch
+        return self.platform.perf_scale(self._sm, self._mem, compute_bound_fraction)

@@ -12,8 +12,7 @@ Three states, mutually exclusive and collectively exhaustive:
                         its threshold.
 
 Signals that are unavailable on a given platform are *omitted from the rule*
-rather than treated as violated (paper §2.2). This is the subset of the JAX
-package's classifier that the serving path reaches.
+rather than treated as violated (paper §2.2).
 """
 from __future__ import annotations
 
@@ -34,8 +33,8 @@ class DeviceState(enum.IntEnum):
 
 #: Signals treated as "compute or memory activity", in percent [0, 100].
 COMPUTE_MEMORY_SIGNALS: tuple[str, ...] = (
-    "sm",        # streaming-multiprocessor activity
-    "tensor",    # tensor-core activity
+    "sm",        # streaming-multiprocessor / scalar-core activity
+    "tensor",    # tensor-core / MXU activity
     "fp16",
     "fp32",
     "fp64",
@@ -43,7 +42,10 @@ COMPUTE_MEMORY_SIGNALS: tuple[str, ...] = (
 )
 
 #: Algorithm 1's split of the activity signals: ``a_comp`` is the max over
-#: the compute counters, ``a_mem`` is dram.
+#: the compute counters, ``a_mem`` is dram. Derived from
+#: COMPUTE_MEMORY_SIGNALS so the classifier, the step controller
+#: (core.controller) and its vectorized re-derivation (repro_torch.whatif)
+#: can never drift apart when the Table-1 schema grows.
 COMPUTE_SIGNALS: tuple[str, ...] = tuple(
     s for s in COMPUTE_MEMORY_SIGNALS if s != "dram")
 
@@ -53,7 +55,7 @@ COMMUNICATION_SIGNALS: tuple[str, ...] = (
     "pcie_rx",
     "nvlink_tx",
     "nvlink_rx",
-    "ici_tx",
+    "ici_tx",    # TPU inter-chip interconnect (framework-native analogue)
     "ici_rx",
 )
 
@@ -75,6 +77,37 @@ class ClassifierConfig:
 
 
 DEFAULT_CLASSIFIER = ClassifierConfig()
+
+
+def _available(sample: Mapping[str, object], key: str) -> bool:
+    value = sample.get(key)
+    if value is None:
+        return False
+    if isinstance(value, float) and np.isnan(value):
+        return False
+    return True
+
+
+def classify_sample(
+    sample: Mapping[str, object],
+    config: ClassifierConfig = DEFAULT_CLASSIFIER,
+) -> DeviceState:
+    """Classify one telemetry sample (a mapping of signal name -> value).
+
+    The sample must carry ``program_resident`` (bool). Missing activity /
+    communication signals are omitted from the rule per the paper.
+    """
+    config.validate()
+    if not sample.get("program_resident", False):
+        return DeviceState.DEEP_IDLE
+
+    for key in config.compute_memory_signals:
+        if _available(sample, key) and float(sample[key]) >= config.activity_threshold_pct:
+            return DeviceState.ACTIVE
+    for key in config.communication_signals:
+        if _available(sample, key) and float(sample[key]) >= config.comm_threshold_gbs:
+            return DeviceState.ACTIVE
+    return DeviceState.EXECUTION_IDLE
 
 
 def classify_series(
@@ -99,8 +132,7 @@ def classify_series(
     n = resident.shape[0]
     active = np.zeros(n, dtype=bool)
 
-    def _accumulate(signals: Mapping[str, np.ndarray] | None,
-                    names: Sequence[str], thr: float) -> None:
+    def _accumulate(signals: Mapping[str, np.ndarray] | None, names: Sequence[str], thr: float) -> None:
         nonlocal active
         if not signals:
             return
@@ -121,3 +153,19 @@ def classify_series(
     out[resident & active] = int(DeviceState.ACTIVE)
     out[resident & ~active] = int(DeviceState.EXECUTION_IDLE)
     return out
+
+
+def state_time_fractions(states: np.ndarray, dt_s: float = 1.0) -> dict[DeviceState, float]:
+    """Fraction of total sampled time spent in each state."""
+    states = np.asarray(states)
+    total = states.size * dt_s
+    if total == 0:
+        return {s: 0.0 for s in DeviceState}
+    return {s: float(np.sum(states == int(s)) * dt_s / total) for s in DeviceState}
+
+
+def in_execution_mask(states: np.ndarray) -> np.ndarray:
+    """Samples counted in the paper's *in-execution* denominator (§4):
+    execution-idle + active; deep-idle excluded."""
+    states = np.asarray(states)
+    return (states == int(DeviceState.EXECUTION_IDLE)) | (states == int(DeviceState.ACTIVE))

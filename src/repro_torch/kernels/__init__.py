@@ -1,17 +1,24 @@
-"""The serving path's kernels: hand-written CUDA for Hopper (``csrc/``),
-each beside its plain PyTorch version (``ref``).
+"""The port's kernels: hand-written CUDA for Hopper (``csrc/``), each beside
+its plain PyTorch version.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version. Each kernel module counts its launches in
 a plain integer ``LAUNCHES``.
-"""
-from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
 
-#: the kernel modules of the serving path, by kernel name
+The serving path runs RMSNorm, prefill attention and decode attention; the
+what-if replay (:mod:`repro_torch.whatif.backend`) runs the cap-bucket scan
+and the Algorithm-1 cooldown chain.
+"""
+from repro_torch.kernels import (decode_attention, downscale_replay,
+                                 flash_attention, rmsnorm, run_replay)
+
+#: the kernel modules, by kernel name
 KERNEL_MODULES = {
     "rmsnorm": rmsnorm,
     "flash_attention": flash_attention,
     "decode_attention": decode_attention,
+    "cap_bucket_scan": run_replay,
+    "downscale_replay": downscale_replay,
 }
 
 

@@ -32,6 +32,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
+_D = ctypes.c_double
 #: argument types of each exported C function (all return a cudaError_t)
 SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
@@ -39,6 +41,9 @@ SIGNATURES = {
                               _I, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                _I, _P],
+    "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _P],
+    "repro_downscale_replay": [_P, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P,
+                               _L, _L, _L, _L, _P, _P, _P],
 }
 #: element type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,4 +1,5 @@
-"""The kernels in the model's layout, (B, S, H, d).
+"""The kernels in their callers' layouts: attention in the model's (B, S, H,
+d), the cap-bucket scan in the run-level replay's (rows, width).
 
 The head-major kernels read and write through strides, so these wrappers
 only take views: no transpose copy of q, k, v or the KV cache. ``plain=True``
@@ -12,6 +13,7 @@ import torch
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import run_replay as _rr
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -36,3 +38,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     fn = _da.decode_attention_plain if plain else _da.decode_attention
     out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), cache_len)
     return out[:, None]
+
+
+def cap_bucket_scan(sorted_p: torch.Tensor, caps: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
+    """``#{sorted_p[r] > caps[r, c]}`` per row, int32 — the run-replay cap
+    scan. ``sorted_p`` rows ascending (``-inf`` front padding allowed)."""
+    fn = _rr.cap_bucket_scan_plain if plain else _rr.cap_bucket_scan
+    return fn(sorted_p, caps)

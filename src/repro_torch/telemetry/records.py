@@ -7,7 +7,7 @@ platform (the classifier omits them rather than treating them as violated).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Mapping
+from typing import Iterable, Iterator, Mapping
 
 import numpy as np
 
@@ -76,6 +76,56 @@ class TelemetryFrame:
     def __getitem__(self, field: str) -> np.ndarray:
         return self.columns[field]
 
+    def row(self, i: int) -> dict[str, object]:
+        out: dict[str, object] = {k: v[i] for k, v in self.columns.items()}
+        out["program_resident"] = bool(out["program_resident"])
+        return out
+
+    def select(self, mask: np.ndarray) -> "TelemetryFrame":
+        return TelemetryFrame({k: v[mask] for k, v in self.columns.items()})
+
+    def iter_chunks(self, chunk_rows: int) -> Iterator["TelemetryFrame"]:
+        """Yield consecutive row-slices of at most ``chunk_rows`` rows.
+
+        Slices are zero-copy views; useful for exercising / benchmarking the
+        streaming analysis path against an in-memory frame.
+        """
+        if chunk_rows <= 0:
+            raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+        n = len(self)
+        for s in range(0, n, chunk_rows):
+            yield TelemetryFrame(
+                {k: v[s:s + chunk_rows] for k, v in self.columns.items()})
+
+    def group_streams(
+        self,
+    ) -> Iterator[tuple[tuple[int, int, int], "TelemetryFrame"]]:
+        """Yield per-(job_id, hostname, device_id) streams, time-sorted.
+
+        One lexsort + one gather per column replaces the O(groups x rows)
+        per-group boolean masking: after sorting by (job, host, device,
+        timestamp) every stream is a contiguous block, so each yielded frame
+        is a zero-copy slice view of the sorted columns. Groups arrive in
+        ascending (job_id, hostname, device_id) order; rows within a group are
+        sorted by timestamp (stable, so equal timestamps keep input order).
+        """
+        n = len(self)
+        if n == 0:
+            return
+        jid = self.columns["job_id"]
+        host = self.columns["hostname"]
+        dev = self.columns["device_id"]
+        order = np.lexsort((self.columns["timestamp"], dev, host, jid))
+        cols = {k: v[order] for k, v in self.columns.items()}
+        sj, sh, sd = cols["job_id"], cols["hostname"], cols["device_id"]
+        change = np.flatnonzero(
+            (np.diff(sj) != 0) | (np.diff(sh) != 0) | (np.diff(sd) != 0)) + 1
+        starts = np.concatenate([[0], change])
+        ends = np.concatenate([change, [n]])
+        for s, e in zip(starts, ends):
+            key = (int(sj[s]), int(sh[s]), int(sd[s]))
+            yield key, TelemetryFrame({k: v[s:e] for k, v in cols.items()})
+
     def activity_pct(self) -> dict[str, np.ndarray]:
         return {k: self.columns[k] for k in ACTIVITY_FIELDS}
 
@@ -91,3 +141,11 @@ class TelemetryFrame:
             default = np.nan if dt.startswith("f") else 0
             cols[f] = np.array([r.get(f, default) for r in rows], dtype=dt)
         return TelemetryFrame(cols)
+
+    @staticmethod
+    def concat(frames: list["TelemetryFrame"]) -> "TelemetryFrame":
+        if not frames:
+            return TelemetryFrame({f: np.empty(0, dtype=_DTYPES[f]) for f in FIELDS})
+        return TelemetryFrame({
+            f: np.concatenate([fr.columns[f] for fr in frames]) for f in FIELDS
+        })

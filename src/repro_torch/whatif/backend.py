@@ -1,0 +1,749 @@
+"""PyTorch execution backend for the run-level replay path.
+
+The port of the JAX package's ``whatif/backend.py``: the run-level IR
+(:mod:`repro_torch.whatif.ir`) replayed for a whole policy grid on the card.
+
+* :func:`pack_ir` packs the ragged per-stream run tables into padded,
+  **power-of-two bucketed** dense arrays with validity masks (verbatim from
+  the reference, cached on the IR under its own key); each bucket uploads
+  its tensors once per device (:meth:`PackedBucket.device_tensors`), so
+  repeat sweeps never upload them again;
+* the downscale family runs the Algorithm-1 cooldown chain kernel
+  (:func:`repro_torch.kernels.downscale_replay.downscale_replay`, K7) over
+  the family's unique (trigger, cooldown) pairs;
+* the power-cap family runs the cap-bucket scan kernel
+  (:func:`repro_torch.kernels.run_replay.cap_bucket_scan`, K4), then O(1)
+  gathers into the prefix tables in plain PyTorch;
+* the parking tables come from the run-weighted integrator in plain
+  PyTorch (a segment sum by ``index_add_``).
+
+Oracle contract (the NumPy path stays the bit-exactness oracle, enforced by
+tests/test_torch_whatif.py and by chip_smoke.py on the card): **time and
+count metrics are bit-identical** to :func:`repro_torch.whatif.replay.replay_ir`
+— per-state times are integer sample sums, Algorithm-1 decision sequences
+reduce to the same trigger indices, event and throttle counts are exact
+int64 — while **energies and penalties agree to <= 1e-9 relative** (float
+summation order differs).
+
+Host/device split: decisions, gathers and reductions over ``(n_streams,
+n_configs)`` run on the device; per-stream prefix-sum construction, pair
+deduplication and the fleet assembly stay on the host, verbatim from the
+reference, so the fleet fold is :func:`repro_torch.core.energy.merge`'s
+left fold in sorted-stream order. The port is single-device: the
+reference's config-axis mesh is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+import repro_torch.obs as obs
+from repro_torch.core.energy import EnergyBreakdown
+from repro_torch.core.power_model import ClockLevel, PlatformSpec
+from repro_torch.core.states import ClassifierConfig, DEFAULT_CLASSIFIER, DeviceState
+from repro_torch.device import resolve_device
+from repro_torch.kernels.downscale_replay import downscale_replay
+from repro_torch.kernels.run_replay import cap_bucket_scan
+from repro_torch.whatif.policies import (CompositeBatch, DownscaleBatch, NoOpBatch,
+                                         ParkingBatch, PowerCapBatch, make_batches)
+from repro_torch.whatif.replay import _resolve_platform
+from repro_torch.whatif.sweep import PolicyOutcome
+
+_DEEP = int(DeviceState.DEEP_IDLE)
+_EXEC = int(DeviceState.EXECUTION_IDLE)
+_ACTIVE = int(DeviceState.ACTIVE)
+_STATES = (_DEEP, _EXEC, _ACTIVE)
+
+
+def _pow2(n: int, floor: int) -> int:
+    return max(int(floor), 1 << max(int(n) - 1, 0).bit_length())
+
+
+# --------------------------------------------------------------------------- #
+# Packed IR
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class PackedBucket:
+    """Streams sharing one padded shape ``(K_pad, R_pad, N_pad, P_pad)``.
+
+    All arrays are dense ``[S_b, ...]`` with per-stream validity carried
+    by masks/sizes, so one kernel launch serves the whole bucket:
+
+    * ``lr_*``: the controller's low-activity runs (the downscale axis) —
+      start offset, length, following-busy-run timestamp, valid mask and
+      the trailing-run flag (a fired trailing low run never restores);
+    * ``cum_res``: resident-sample prefix counts, edge-padded;
+    * ``ds_cum``: downscale clip-saving prefix sums, 4 planes per stream
+      (clock mode x accounting bucket), sharing the
+      :meth:`StreamIR.downscale_cums` memo with the NumPy path;
+    * ``pk_*``: the run table under the parking counterfactual (state
+      padded ``-1`` so padded runs never match a real state);
+    * ``cap_sorted`` / ``cap_top``: sorted-power cap buckets (3 states +
+      the cube-law penalty bucket), ``-inf`` **front**-padded so
+      ``#{p > cap}`` stays exact, prefix ``top`` tables end-padded.
+    """
+
+    key: tuple[int, int, int, int]
+    idx: np.ndarray                  # [S_b] positions in the packed stream list
+    arrays: dict[str, np.ndarray]
+    _dev: dict[str, dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+
+    def device_tensors(self, device: torch.device) -> dict[str, torch.Tensor]:
+        """The arrays as tensors on ``device``, uploaded at the first call
+        for that device and cached (repeat sweeps must not upload again)."""
+        key = str(device)
+        hit = self._dev.get(key)
+        if hit is None:
+            hit = self._dev[key] = {k: torch.from_numpy(v).to(device)
+                                    for k, v in self.arrays.items()}
+        return hit
+
+
+@dataclasses.dataclass
+class PackedIR:
+    """A kept-stream set packed for the device evaluators (see
+    :func:`pack_ir`). Stream order is the IR's sorted-key order, so host
+    folds over ``[S]`` axes mirror the NumPy fleet merge exactly."""
+
+    streams: list                    # kept StreamIR objects, sorted-key order
+    platforms: list[PlatformSpec]    # [S] resolved per stream
+    buckets: list[PackedBucket]
+    min_samples: int
+    dt_s: float
+    # per-stream scalars, [S]-aligned with ``streams``
+    base_time: np.ndarray            # [S, 3] f8 per-state baseline seconds
+    base_energy: np.ndarray          # [S, 3] f8 per-state baseline joules
+    devs: np.ndarray                 # [S] i8 device ids (parking membership)
+    tdp: np.ndarray                  # [S] f8
+    pk_wakes: np.ndarray             # [S] i8 parking wake events
+    pk_idle: np.ndarray              # [S] i8 parked/throttled samples
+    # real (unpadded) sizes, for unpack and the property tests
+    lr_n: np.ndarray                 # [S] low-run counts
+    n_runs: np.ndarray               # [S]
+    n_rows: np.ndarray               # [S]
+    cap_n: np.ndarray                # [S, 4] cap-bucket sample counts
+    bucket_of: np.ndarray            # [S] bucket index per stream
+    pos_in_bucket: np.ndarray        # [S] row within the bucket
+    #: parking counterfactual tables (config-independent) per device:
+    #: device -> ([S, 3] f8 seconds, [S, 3] f8 joules), filled lazily
+    park: dict[str, tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def n_streams(self) -> int:
+        return len(self.streams)
+
+    def unpack(self) -> list[dict[str, np.ndarray]]:
+        """Per-stream real-sized views of the packed tensors (padding
+        stripped) — the round-trip side of :func:`pack_ir`, property-
+        tested bit-identical against the StreamIR memos."""
+        out = []
+        for s in range(self.n_streams):
+            b = self.buckets[int(self.bucket_of[s])]
+            r = int(self.pos_in_bucket[s])
+            k = int(self.lr_n[s])
+            nr = int(self.n_runs[s])
+            n = int(self.n_rows[s])
+            a = b.arrays
+            caps = {}
+            for j, name in enumerate((_DEEP, _EXEC, _ACTIVE, "penalty")):
+                p_real = int(self.cap_n[s, j])
+                p_pad = a["cap_sorted"].shape[2]
+                caps[name] = (a["cap_sorted"][r, j, p_pad - p_real:],
+                              a["cap_top"][r, j, :p_real + 1])
+            out.append({
+                "lr_s0": a["lr_s0"][r, :k],
+                "lr_len": a["lr_len"][r, :k],
+                "lr_busy": a["lr_busy"][r, :k],
+                "lr_trail": a["lr_trail"][r, :k],
+                "cum_res": a["cum_res"][r, :n + 1],
+                "ds_cum": a["ds_cum"][r, :, :n + 1],
+                "pk_state": a["pk_state"][r, :nr],
+                "pk_energy": a["pk_energy"][r, :nr],
+                "pk_len": a["pk_len"][r, :nr],
+                "cap_buckets": caps,
+                "ts_first": a["ts_first"][r],
+            })
+        return out
+
+
+def _platform_cache_key(platform_of) -> object:
+    if platform_of is None or isinstance(platform_of, str):
+        return platform_of
+    return tuple(sorted(platform_of.items()))
+
+
+def pack_ir(ir, min_samples: int, min_job_duration_s: float = 2 * 3600.0,
+            hosts: Iterable[str] | None = None,
+            platform_of: str | Mapping[int, str] | None = None,
+            pad_floor: int = 8) -> PackedIR:
+    """Pack a :class:`repro_torch.whatif.ir.RunIR` for the device evaluators.
+
+    Streams are duration-filtered exactly like
+    :func:`repro_torch.whatif.replay.replay_ir` and grouped into power-of-two
+    padding buckets on the low-run count — one kernel launch per family
+    per bucket, O(log n) launches in the largest stream, not
+    O(n_streams). All per-sample prefix
+    structures come from the :class:`StreamIR` memos (``cum_resident``,
+    ``downscale_cums``, ``cap_buckets``, ``parking_counterfactual``,
+    ``baseline``), so they are *bitwise the same arrays* the NumPy
+    oracle gathers from. ``pad_floor`` sets the minimum padded size per
+    axis (tests raise it to force bucket merging).
+
+    The result is cached on the ``ir`` object keyed by every argument
+    that shapes it, so sweep + search rounds pack once.
+    """
+    cache = ir.__dict__.setdefault("_torch_packed", {})
+    key = (int(min_samples), float(min_job_duration_s),
+           None if hosts is None else tuple(sorted(set(hosts))),
+           _platform_cache_key(platform_of), int(pad_floor))
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+
+    dt = float(ir.config.dt_s)
+    kept = [s for s in ir.select(hosts)
+            if s.ts_last - s.ts_first + dt >= min_job_duration_s]
+    plat_cache: dict[int, PlatformSpec] = {}
+    plats = [_resolve_platform(platform_of, plat_cache, s.platform_id)
+             for s in kept]
+
+    per_stream = []
+    for s, plat in zip(kept, plats):
+        off, low_flags = s.controller_runs()
+        low_j = np.flatnonzero(low_flags)
+        k = int(low_j.size)
+        s0 = off[low_j]
+        e0 = off[low_j + 1]
+        trail = np.zeros(k, dtype=bool)
+        if k and int(low_j[-1]) == low_flags.shape[0] - 1:
+            trail[-1] = True
+        planes = []
+        for sm, mem in ((ClockLevel.MIN, ClockLevel.MAX),
+                        (ClockLevel.MIN, ClockLevel.MIN)):
+            delta = plat.exec_idle_w - plat.residency_floor_w(sm, mem)
+            ce, ca = s.downscale_cums(float(delta), plat.deep_idle_w,
+                                      min_samples)
+            planes.extend((ce, ca))
+        cap = s.cap_buckets(min_samples)
+        cap_rows = [cap[_DEEP], cap[_EXEC], cap[_ACTIVE],
+                    (cap["penalty"][0], cap["penalty"][2])]
+        pk = s.parking_counterfactual(min_samples)
+        base = s.baseline(min_samples)
+        per_stream.append({
+            "s0": s0, "e0": e0, "trail": trail,
+            "busy": s.ts_first + dt * e0.astype(np.float64),
+            "cum_res": s.cum_resident(),
+            "planes": planes,
+            "cap_rows": cap_rows,
+            "pk_state": s.state.astype(np.int32),
+            "pk_cf_state": pk["cf_state"].astype(np.int32),
+            "pk_energy": pk["keep_sum"] + pk["idle_len"] * plat.deep_idle_w,
+            "pk_len": s.length.astype(np.int64),
+            "pk_wakes": pk["wakes"], "pk_idle": pk["idle_samples"],
+            "base": base, "ts_first": float(s.ts_first),
+            "sizes": (k, s.n_runs, s.n_rows,
+                      max(r[0].shape[0] for r in cap_rows)),
+        })
+
+    n = len(kept)
+    # bucket on the *chain* axis only (the low-run count): the downscale
+    # kernel walks every padded low run in order, so that axis sets its
+    # step count. The passive axes
+    # (runs, rows, cap width) are merely gathered into — padding them to
+    # the group max costs memory, not time — and folding them into the
+    # key would explode 96 streams into dozens of kernel launches
+    groups: dict[int, list[int]] = {}
+    for i, d in enumerate(per_stream):
+        groups.setdefault(_pow2(d["sizes"][0], pad_floor), []).append(i)
+
+    buckets = []
+    bucket_of = np.zeros(n, dtype=np.int64)
+    pos_in_bucket = np.zeros(n, dtype=np.int64)
+    for kp in sorted(groups):
+        idx = np.array(groups[kp], dtype=np.int64)
+        rp, npad, pp = (
+            _pow2(max(per_stream[i]["sizes"][ax] for i in idx), pad_floor)
+            for ax in (1, 2, 3))
+        bk = (kp, rp, npad, pp)
+        sb = idx.size
+        arrays = {
+            "lr_s0": np.zeros((sb, kp), np.int64),
+            "lr_len": np.zeros((sb, kp), np.int64),
+            "lr_busy": np.zeros((sb, kp), np.float64),
+            "lr_valid": np.zeros((sb, kp), bool),
+            "lr_trail": np.zeros((sb, kp), bool),
+            "cum_res": np.zeros((sb, npad + 1), np.int64),
+            "ds_cum": np.zeros((sb, 4, npad + 1), np.float64),
+            "pk_state": np.full((sb, rp), -1, np.int32),
+            "pk_energy": np.zeros((sb, rp), np.float64),
+            "pk_len": np.zeros((sb, rp), np.int64),
+            "cap_sorted": np.full((sb, 4, pp), -np.inf, np.float64),
+            "cap_top": np.zeros((sb, 4, pp + 1), np.float64),
+            "ts_first": np.zeros(sb, np.float64),
+        }
+        for r, i in enumerate(idx):
+            d = per_stream[i]
+            k, nr, nrow, _ = d["sizes"]
+            arrays["lr_s0"][r, :k] = d["s0"]
+            arrays["lr_len"][r, :k] = d["e0"] - d["s0"]
+            arrays["lr_busy"][r, :k] = d["busy"]
+            arrays["lr_valid"][r, :k] = True
+            arrays["lr_trail"][r, :k] = d["trail"]
+            arrays["cum_res"][r, :nrow + 1] = d["cum_res"]
+            arrays["cum_res"][r, nrow + 1:] = d["cum_res"][-1]
+            for j, plane in enumerate(d["planes"]):
+                arrays["ds_cum"][r, j, :nrow + 1] = plane
+                arrays["ds_cum"][r, j, nrow + 1:] = plane[-1]
+            arrays["pk_state"][r, :nr] = d["pk_cf_state"]
+            arrays["pk_energy"][r, :nr] = d["pk_energy"]
+            arrays["pk_len"][r, :nr] = d["pk_len"]
+            for j, (sp, top) in enumerate(d["cap_rows"]):
+                p_real = sp.shape[0]
+                arrays["cap_sorted"][r, j, pp - p_real:] = sp
+                arrays["cap_top"][r, j, :p_real + 1] = top
+                arrays["cap_top"][r, j, p_real + 1:] = top[-1]
+            arrays["ts_first"][r] = d["ts_first"]
+            bucket_of[i] = len(buckets)
+            pos_in_bucket[i] = r
+        buckets.append(PackedBucket(key=bk, idx=idx, arrays=arrays))
+
+    if obs.enabled():
+        obs.counter("repro_backend_pack_total",
+                    help="pack_ir cache misses (full repacks)")
+        obs.gauge("repro_backend_pack_buckets", float(len(buckets)),
+                  help="padding buckets in the most recent pack")
+        real = sum(d["sizes"][0] for d in per_stream)
+        padded = sum(b.key[0] * b.idx.size for b in buckets)
+        obs.gauge("repro_backend_pack_padding_waste_ratio",
+                  1.0 - real / padded if padded else 0.0,
+                  help="scan-axis cells lost to pow2 padding, most recent "
+                       "pack")
+        for b in buckets:
+            obs.observe("repro_backend_pack_bucket_occupancy",
+                        float(b.idx.size),
+                        help="streams sharing one padding bucket")
+
+    packed = PackedIR(
+        streams=kept, platforms=plats, buckets=buckets,
+        min_samples=int(min_samples), dt_s=dt,
+        base_time=np.array([[d["base"].time_s[DeviceState(st)]
+                             for st in _STATES] for d in per_stream]
+                           ).reshape(n, 3),
+        base_energy=np.array([[d["base"].energy_j[DeviceState(st)]
+                               for st in _STATES] for d in per_stream]
+                             ).reshape(n, 3),
+        devs=np.array([s.key[2] for s in kept], dtype=np.int64),
+        tdp=np.array([p.tdp_w for p in plats], dtype=np.float64),
+        pk_wakes=np.array([d["pk_wakes"] for d in per_stream], np.int64),
+        pk_idle=np.array([d["pk_idle"] for d in per_stream], np.int64),
+        lr_n=np.array([d["sizes"][0] for d in per_stream], np.int64),
+        n_runs=np.array([d["sizes"][1] for d in per_stream], np.int64),
+        n_rows=np.array([d["sizes"][2] for d in per_stream], np.int64),
+        cap_n=np.array([[r[0].shape[0] for r in d["cap_rows"]]
+                        for d in per_stream], np.int64).reshape(n, 4),
+        bucket_of=bucket_of, pos_in_bucket=pos_in_bucket,
+    )
+    cache[key] = packed
+    return packed
+
+
+
+# --------------------------------------------------------------------------- #
+# Run-weighted integrator (plain PyTorch)
+# --------------------------------------------------------------------------- #
+def _integrate_runs_kernel(state: torch.Tensor, energy: torch.Tensor,
+                           lengths: torch.Tensor, min_samples: int):
+    """:meth:`BatchedStreamingIntegrator.update_runs` as one pass over
+    ``[rows, runs]``: merge consecutive equal-state runs by a segment sum
+    (``index_add_``; integer, so exact in any order), relabel short
+    EXECUTION_IDLE merges ACTIVE, reduce per state. Times are exact integer
+    sums (bit-identical to the streaming integrator); energies agree to
+    summation order."""
+    s_dim, r_dim = state.shape
+    dev = state.device
+    prev = torch.cat([torch.full((s_dim, 1), -2, dtype=state.dtype, device=dev),
+                      state[:, :-1]], dim=1)
+    seg = torch.cumsum((state != prev).to(torch.int64), dim=1) - 1
+    gid = (seg + (torch.arange(s_dim, device=dev) * r_dim)[:, None]).reshape(-1)
+    seg_len = torch.zeros(s_dim * r_dim, dtype=lengths.dtype, device=dev)
+    seg_len.index_add_(0, gid, lengths.reshape(-1))
+    merged = seg_len[gid].reshape(s_dim, r_dim)
+    final = torch.where((state == _EXEC) & (merged < min_samples), _ACTIVE, state)
+    times = []
+    energies = []
+    for st in _STATES:
+        m = final == st
+        times.append(torch.where(m, lengths, 0).sum(dim=1))
+        energies.append(torch.where(m, energy, 0.0).sum(dim=1))
+    return torch.stack(times, dim=1), torch.stack(energies, dim=1)
+
+
+def torch_integrate_runs(states: np.ndarray, energy: np.ndarray,
+                         lengths: np.ndarray, min_samples: int,
+                         dt_s: float = 1.0,
+                         device: str | torch.device = "cuda") -> list[EnergyBreakdown]:
+    """Drop-in port of :func:`repro_torch.core.energy.integrate_runs` on
+    ``device``: per-state times bit-identical, energies <= 1e-9 relative."""
+    dev = resolve_device(device)
+    energy = np.asarray(energy, dtype=np.float64)
+    if energy.ndim == 1:
+        energy = energy[None, :]
+    c, r = energy.shape
+    st = np.broadcast_to(np.asarray(states, np.int32)[None, :], (c, r))
+    ln = np.broadcast_to(np.asarray(lengths, np.int64)[None, :], (c, r))
+    t, e = _integrate_runs_kernel(
+        torch.from_numpy(np.ascontiguousarray(st)).to(dev),
+        torch.from_numpy(energy).to(dev),
+        torch.from_numpy(np.ascontiguousarray(ln)).to(dev), int(min_samples))
+    t = t.cpu().numpy()
+    e = e.cpu().numpy()
+    return [
+        EnergyBreakdown(
+            time_s={DeviceState(st): float(t[i, j] * dt_s)
+                    for j, st in enumerate(_STATES)},
+            energy_j={DeviceState(st): float(e[i, j] * dt_s)
+                      for j, st in enumerate(_STATES)})
+        for i in range(c)
+    ]
+
+
+# --------------------------------------------------------------------------- #
+# Family evaluators (fill [S, C_family] blocks)
+# --------------------------------------------------------------------------- #
+def _price_rows(policies, platforms) -> np.ndarray:
+    """[S, C] per-event prices: ``event_penalty_s`` per distinct platform."""
+    rows: dict[str, np.ndarray] = {}
+    out = np.empty((len(platforms), len(policies)))
+    for i, plat in enumerate(platforms):
+        row = rows.get(plat.name)
+        if row is None:
+            row = rows[plat.name] = np.array(
+                [p.event_penalty_s(plat) for p in policies])
+        out[i] = row
+    return out
+
+
+def _parked_mask(pools, devs: np.ndarray) -> np.ndarray:
+    """[S, C] bool — is each stream's device outside each pool config's
+    active set (``device_id % n_devices not in active_set``)?"""
+    out = np.empty((devs.shape[0], len(pools)), dtype=bool)
+    for c, (nd, act) in enumerate(pools):
+        out[:, c] = ~np.isin(devs % nd, list(act))
+    return out
+
+
+def _run_downscale_family(packed: PackedIR, batch, device: torch.device,
+                          dt: float):
+    """Run the cooldown-chain kernel over every bucket; returns
+    ``(n_down, n_rest, throttled, sav_exec, sav_act)`` as [S, C] host
+    arrays (savings in W·samples, exactly the NumPy kernel's units).
+
+    The kernel's config axis is the family's unique (trigger, cooldown)
+    pairs — the decision sequence is clock-mode independent, so a dense
+    x/y grid swept at both clock modes replays each pair once. The
+    kernel prices both modes; this expands pairs back to configs and
+    selects the mode's savings planes."""
+    mode_lo = np.array(
+        [p._min_clocks() == (ClockLevel.MIN, ClockLevel.MIN)
+         for p in batch.policies], dtype=bool)
+    pair_key = np.stack(
+        [np.asarray(batch._trig, np.float64), np.asarray(batch._y)], axis=1)
+    _, uniq_idx, pair_of_c = np.unique(
+        pair_key, axis=0, return_index=True, return_inverse=True)
+    pair_of_c = pair_of_c.reshape(-1)
+    p_real = uniq_idx.shape[0]
+    trig = torch.from_numpy(np.asarray(batch._trig, np.int64)[uniq_idx]).to(device)
+    y = torch.from_numpy(np.asarray(batch._y, np.float64)[uniq_idx]).to(device)
+    s = packed.n_streams
+    outs = [np.zeros((s, p_real), np.int64) for _ in range(3)] + \
+           [np.zeros((s, p_real)) for _ in range(4)]
+    # every bucket's launch is queued before the first copy back waits
+    results = []
+    for bucket in packed.buckets:
+        a = bucket.device_tensors(device)
+        results.append(downscale_replay(
+            a["lr_s0"], a["lr_len"], a["lr_busy"], a["lr_valid"],
+            a["lr_trail"], a["cum_res"], a["ds_cum"], a["ts_first"], dt,
+            trig, y))
+    for bucket, res in zip(packed.buckets, results):
+        for dst, arr in zip(outs, res):
+            dst[bucket.idx] = arr.cpu().numpy()
+    nd, nr, th, se_hi, sa_hi, se_lo, sa_lo = outs
+    sel = mode_lo[None, :]
+    return [nd[:, pair_of_c], nr[:, pair_of_c], th[:, pair_of_c],
+            np.where(sel, se_lo[:, pair_of_c], se_hi[:, pair_of_c]),
+            np.where(sel, sa_lo[:, pair_of_c], sa_hi[:, pair_of_c])]
+
+
+def _park_tables(packed: PackedIR, device: torch.device
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Config-independent parked counterfactual per stream: the
+    integrator over the pre-priced parking run tables. Cached on the
+    packed IR per device — every parking/composite family and round shares
+    it."""
+    hit = packed.park.get(str(device))
+    if hit is None:
+        s = packed.n_streams
+        t_out = np.zeros((s, 3))
+        e_out = np.zeros((s, 3))
+        for bucket in packed.buckets:
+            a = bucket.device_tensors(device)
+            t, e = _integrate_runs_kernel(a["pk_state"], a["pk_energy"],
+                                          a["pk_len"], packed.min_samples)
+            t_out[bucket.idx] = t.cpu().numpy() * packed.dt_s
+            e_out[bucket.idx] = e.cpu().numpy() * packed.dt_s
+        hit = packed.park[str(device)] = (t_out, e_out)
+    return hit
+
+
+def _powercap_kernel(cap_sorted: torch.Tensor, cap_top: torch.Tensor,
+                     base_e: torch.Tensor, caps: torch.Tensor,
+                     cbrt_caps: torch.Tensor, dt: float):
+    """Every cap fraction against the sorted-power prefix structures:
+    ``k = #{p > cap}`` per (stream, bucket, config) by the cap-bucket scan
+    kernel, then clipped energy / throttle / cube-law penalty are O(1)
+    gathers — the device port of :meth:`PowerCapBatch.apply_runs`. The
+    ``[S, C]`` caps reach the scan as a stride-0 view over the 4 buckets."""
+    s_dim, n_b, _ = cap_sorted.shape
+    c_dim = caps.shape[1]
+    k = cap_bucket_scan(cap_sorted, caps[:, None, :].expand(s_dim, n_b, c_dim)
+                        ).to(torch.int64)
+    top_at = torch.gather(cap_top, 2, k)
+    e_cf = base_e[:, :, None] - (top_at[:, :3, :]
+                                 - k[:, :3, :] * caps[:, None, :]) * dt
+    pen = dt * (top_at[:, 3, :] / cbrt_caps - k[:, 3, :])
+    thr = k[:, 0, :] + k[:, 1, :] + k[:, 2, :]
+    return e_cf, pen, thr
+
+
+def _run_powercap_family(packed: PackedIR, batch, device: torch.device,
+                         dt: float):
+    """Cap scan over every bucket: ``(energy_cf [S,3,C], penalty [S,C],
+    throttled [S,C])``. Caps and their cube roots are host-built per stream
+    platform (``frac * tdp_w``, same floats as NumPy)."""
+    caps = np.asarray(batch._fracs)[None, :] * packed.tdp[:, None]
+    cbrt_caps = np.cbrt(caps)
+    results = []
+    for bucket in packed.buckets:
+        a = bucket.device_tensors(device)
+        results.append(_powercap_kernel(
+            a["cap_sorted"], a["cap_top"],
+            torch.from_numpy(packed.base_energy[bucket.idx]).to(device),
+            torch.from_numpy(caps[bucket.idx]).to(device),
+            torch.from_numpy(cbrt_caps[bucket.idx]).to(device), dt))
+    s = packed.n_streams
+    c_real = caps.shape[1]
+    e_cf = np.zeros((s, 3, c_real))
+    pen = np.zeros((s, c_real))
+    thr = np.zeros((s, c_real), np.int64)
+    for bucket, (e_b, p_b, t_b) in zip(packed.buckets, results):
+        e_cf[bucket.idx] = e_b.cpu().numpy()
+        pen[bucket.idx] = p_b.cpu().numpy()
+        thr[bucket.idx] = t_b.cpu().numpy()
+    return e_cf, pen, thr
+
+
+# --------------------------------------------------------------------------- #
+# The backend's replay entry point
+# --------------------------------------------------------------------------- #
+def replay_ir_outcomes(
+    ir,
+    policies: Sequence,
+    platform_of: str | Mapping[int, str] | None = None,
+    min_job_duration_s: float = 2 * 3600.0,
+    min_interval_s: float | None = 5.0,
+    classifier: ClassifierConfig = DEFAULT_CLASSIFIER,
+    dt_s: float = 1.0,
+    hosts: Iterable[str] | None = None,
+    device: str | torch.device = "cuda",
+    pad_floor: int = 8,
+) -> tuple[list[PolicyOutcome], int, int]:
+    """Replay a policy grid against a :class:`RunIR` on ``device``.
+
+    The device-side counterpart of :func:`repro_torch.whatif.replay.replay_ir`
+    + :func:`repro_torch.whatif.sweep._outcome` fused: family kernels produce
+    ``[n_streams, n_configs]`` counts/savings on the device, and the fleet
+    assembly on the host replays the NumPy reduction *order* (vectorized
+    axis-0 left folds over sorted streams), so time/count metrics are
+    bit-identical and energies/penalties <= 1e-9 relative. Every
+    policy must be IR-capable (:func:`repro_torch.whatif.ir.ir_supported`);
+    the sweep kernel refuses anything else under ``backend="torch"``.
+
+    ``device`` is ``"cuda"`` (default; raises without CUDA) or ``"cpu"``,
+    where the kernels' plain PyTorch versions run.
+    Returns ``(outcomes in grid order, n_rows, n_runs)``.
+    """
+    device = resolve_device(device)
+    if classifier != ir.config.classifier:
+        raise ValueError(
+            f"IR was built for classifier {ir.config.classifier}, replay "
+            f"requested {classifier}; rebuild the IR for it")
+    if dt_s != ir.config.dt_s:
+        raise ValueError(f"IR dt_s {ir.config.dt_s} != replay dt_s {dt_s}")
+    policies = list(policies)
+    min_samples = (0 if min_interval_s is None
+                   else int(np.ceil(min_interval_s / dt_s)))
+    selected = ir.select(hosts)
+    n_rows = sum(s.n_rows for s in selected)
+    n_runs = sum(s.n_runs for s in selected)
+    n_cfg = len(policies)
+    if n_cfg == 0:
+        return [], n_rows, n_runs
+
+    with obs.span("backend.pack", streams=len(selected)):
+        packed = pack_ir(ir, min_samples,
+                         min_job_duration_s=min_job_duration_s,
+                         hosts=hosts, platform_of=platform_of,
+                         pad_floor=pad_floor)
+    s = packed.n_streams
+    dt = float(dt_s)
+
+    # per-(stream, config) accumulators, initialised to the baseline
+    cf_time = np.repeat(packed.base_time[:, :, None], n_cfg, axis=2)
+    cf_energy = np.repeat(packed.base_energy[:, :, None], n_cfg, axis=2)
+    pen = np.zeros((s, n_cfg))
+    wakes = np.zeros((s, n_cfg), np.int64)
+    downs = np.zeros((s, n_cfg), np.int64)
+    thr = np.zeros((s, n_cfg), np.int64)
+
+    with obs.span("backend.kernels", configs=n_cfg, streams=s):
+        for batch, idxs in make_batches(policies):
+            ci = np.asarray(idxs, dtype=np.int64)
+            if isinstance(batch, NoOpBatch):
+                continue
+            if isinstance(batch, DownscaleBatch):
+                nd, nr, th, se, sa = _run_downscale_family(
+                    packed, batch, device, dt)
+                cf_energy[:, 1, ci] = packed.base_energy[:, 1:2] - se * dt
+                cf_energy[:, 2, ci] = packed.base_energy[:, 2:3] - sa * dt
+                pen[:, ci] = nr * _price_rows(batch.policies,
+                                              packed.platforms)
+                wakes[:, ci] = nr
+                downs[:, ci] = nd
+                thr[:, ci] = th
+            elif isinstance(batch, ParkingBatch):
+                pt, pe = _park_tables(packed, device)
+                mask = _parked_mask(batch._pools, packed.devs)
+                m3 = mask[:, None, :]
+                cf_time[:, :, ci] = np.where(m3, pt[:, :, None],
+                                             packed.base_time[:, :, None])
+                cf_energy[:, :, ci] = np.where(m3, pe[:, :, None],
+                                               packed.base_energy[:, :, None])
+                wk = np.where(mask, packed.pk_wakes[:, None], 0)
+                wakes[:, ci] = wk
+                thr[:, ci] = np.where(mask, packed.pk_idle[:, None], 0)
+                pen[:, ci] = wk * np.array(
+                    [p.resume_latency_s for p in batch.policies])[None, :]
+            elif isinstance(batch, PowerCapBatch):
+                e_cf, p_cap, th = _run_powercap_family(
+                    packed, batch, device, dt)
+                cf_energy[:, :, ci] = e_cf
+                pen[:, ci] = p_cap
+                thr[:, ci] = th
+            elif isinstance(batch, CompositeBatch):
+                if not batch._ir_ok:
+                    raise ValueError(
+                        "run-level replay supports only parking+downscale "
+                        "composites; route this batch through the row path")
+                nd, nr, th_ds, se, sa = _run_downscale_family(
+                    packed, batch._ds_batch, device, dt)
+                pt, pe = _park_tables(packed, device)
+                mask = _parked_mask(batch._park_pools, packed.devs)
+                m3 = mask[:, None, :]
+                ds_e = np.repeat(packed.base_energy[:, :, None],
+                                 len(idxs), axis=2)
+                ds_e[:, 1, :] -= se * dt
+                ds_e[:, 2, :] -= sa * dt
+                cf_time[:, :, ci] = np.where(m3, pt[:, :, None],
+                                             packed.base_time[:, :, None])
+                cf_energy[:, :, ci] = np.where(m3, pe[:, :, None], ds_e)
+                wk = np.where(mask, packed.pk_wakes[:, None], 0)
+                wakes[:, ci] = wk + nr
+                downs[:, ci] = nd
+                thr[:, ci] = np.where(mask, packed.pk_idle[:, None], th_ds)
+                price_park = np.array(
+                    [p.parts[0].resume_latency_s for p in batch.policies])
+                price_ds = _price_rows(
+                    [p.parts[1] for p in batch.policies], packed.platforms)
+                # matches price_events' per-channel left fold:
+                # fl(fl(wakes*price0) + fl(restores*price1))
+                pen[:, ci] = wk * price_park[None, :] + nr * price_ds
+            else:
+                raise ValueError(
+                    f"torch backend supports only IR-capable policy families, "
+                    f"got {type(batch).__name__}")
+
+    # ---- fleet assembly: replicate the NumPy reduction order ---------- #
+    # merge() is a per-state left fold over jobs in sorted-stream order.
+    # ``np.sum`` over the outer axis of a C-order array reduces one
+    # stream-row at a time — the same left fold, so times stay bitwise
+    # identical to the explicit per-stream loop this replaces. Penalties
+    # use the same axis-0 fold (all terms non-negative, so the naive sum
+    # sits well inside the <= 1e-9 oracle tolerance fsum used to meet).
+    with obs.span("backend.assembly", configs=n_cfg, streams=s):
+        fleet_t = cf_time.sum(axis=0)
+        fleet_e = cf_energy.sum(axis=0)
+        fleet_bt = packed.base_time.sum(axis=0)
+        fleet_be = packed.base_energy.sum(axis=0)
+
+        def _total(per_state):
+            # sum(dict.values()) == left fold over DeviceState order
+            tot = np.zeros(per_state.shape[1:])
+            for j in range(3):
+                tot = tot + per_state[j]
+            return tot
+
+        base_tot = float(_total(fleet_be[:, None])[0]) if s else 0.0
+        cf_tot = _total(fleet_e)
+        penalty_s = pen.sum(axis=0)
+        wake_tot = wakes.sum(axis=0)
+        down_tot = downs.sum(axis=0)
+        thr_tot = thr.sum(axis=0)
+
+        jb_tot = _total(np.swapaxes(packed.base_energy, 0, 1))    # [S]
+        jc_tot = _total(np.swapaxes(cf_energy, 0, 1))             # [S, C]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            jb_col = jb_tot[:, None]
+            saved_jobs = np.where(jb_col != 0.0,
+                                  (jb_col - jc_tot) / jb_col, 0.0)
+        # one transpose+tolist per CDF instead of a Python float() loop
+        # per (config, stream) cell — same float64 values either way
+        saved_rows = np.sort(saved_jobs, axis=0).T.tolist()       # [C][S]
+        pen_rows = np.sort(pen, axis=0).T.tolist()                # [C][S]
+
+        active_t = float(fleet_bt[2]) if s else 0.0
+        base_exec_den = float(fleet_be[1] + fleet_be[2]) if s else 0.0
+        base_exec_frac = (float(fleet_be[1]) / base_exec_den
+                          if base_exec_den else 0.0)
+        cf_exec_den = fleet_e[1] + fleet_e[2]
+
+        outcomes = []
+        for c, pol in enumerate(policies):
+            cf_total = float(cf_tot[c])
+            saved = base_tot - cf_total
+            p_s = float(penalty_s[c])
+            outcomes.append(PolicyOutcome(
+                name=pol.name,
+                params=pol.describe(),
+                n_jobs=s,
+                baseline_energy_j=base_tot,
+                counterfactual_energy_j=cf_total,
+                energy_saved_j=saved,
+                saved_fraction=saved / base_tot if base_tot else 0.0,
+                penalty_s=p_s,
+                penalty_fraction=p_s / active_t if active_t else 0.0,
+                wake_events=int(wake_tot[c]),
+                downscale_events=int(down_tot[c]),
+                throttled_time_s=float(int(thr_tot[c]) * dt),
+                exec_idle_energy_fraction_baseline=base_exec_frac,
+                exec_idle_energy_fraction_cf=(
+                    float(fleet_e[1, c]) / float(cf_exec_den[c])
+                    if s and cf_exec_den[c] else 0.0),
+                per_job_saved_fraction=tuple(saved_rows[c]),
+                per_job_penalty_s=tuple(pen_rows[c]),
+            ))
+    return outcomes, n_rows, n_runs

@@ -65,3 +65,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_whatif_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``evaluate``/``run_sweep`` default to the torch backend on the card,
+    and without CUDA they raise before any replay, never run on the host."""
+    import torch
+
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.whatif import DownscalePolicy, evaluate, run_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = TelemetryStore(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate([DownscalePolicy()], store)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_sweep(store)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate([DownscalePolicy()], store, backend="auto")
+
+
+def test_resolve_backend():
+    from repro_torch.whatif.sweep import resolve_backend
+
+    assert resolve_backend("auto") == "torch"
+    assert resolve_backend("torch") == "torch"
+    assert resolve_backend("numpy") == "numpy"
+    for bad in ("jax", "tpu", "cuda"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend(bad)

@@ -177,7 +177,8 @@ def test_cpu_tensors_never_launch():
     cache = torch.from_numpy(normal(23, 4, 10, 2, 32))
     ops.decode_attention(x, cache, cache, 3)
     assert tk.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                  "decode_attention": 0}
+                                  "decode_attention": 0, "cap_bucket_scan": 0,
+                                  "downscale_replay": 0}
 
 
 # --------------------------------------------------------------------------- #
@@ -213,4 +214,5 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     torch.cuda.synchronize()
     after = tk.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "rmsnorm": 1, "flash_attention": 4, "decode_attention": 8}
+        "rmsnorm": 1, "flash_attention": 4, "decode_attention": 8,
+        "cap_bucket_scan": 0, "downscale_replay": 0}
