@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives its
-two paths:
+paths:
 
 * serving: holds K1-K3 against their plain PyTorch versions at the serving
   path's shapes, times each beside its bound, its plain version and a
@@ -12,6 +12,13 @@ two paths:
   kernel path and the plain path, then serves llama-13b at full width
   (random weights from a seed, bf16) through ``ServingEngine`` with the
   Algorithm-1 controller on, and checks every kernel's launch count;
+* the recurrent families: holds K5 (Mamba selective scan) and K6 (RWKV-6
+  WKV) against their plain versions (main shapes, a ragged length, S = 1
+  from a carried state, a state carried across two calls, large dt,
+  extreme decays) and times them at the decode step's shape; then, for
+  hymba-1.5b and rwkv6-3b at full width, compares kernel-path and
+  plain-path logits and serves each through ``ServingEngine`` as above,
+  with exact launch counts;
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -41,7 +48,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 BF16_TOL = 2e-2                    # kernel vs plain, bf16 (tests/test_kernels.py)
 F32_TOL = 2e-5                     # kernel vs plain, f32
-LOGITS_BF16_TOL = 5e-2             # normwise, 40 layers of bf16 rounding
+SSM_TOL = 2e-3                     # K5 vs plain (tests/test_kernels.py:128)
+WKV_TOL = 1e-3                     # K6 vs plain (tests/test_kernels.py:95,110)
+LOGITS_BF16_TOL = 5e-2             # normwise, 32-40 layers of bf16 rounding
 LOGITS_F32_TOL = 1e-4              # normwise, two f32 layers
 #: no float64 or int64 rate in the H100 table; the float32 rate (outside the
 #: tensor cores) is above both, so ops / this rate stays a lower bound on time
@@ -59,8 +68,14 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:22",
     "cap_bucket_scan": "src/repro/kernels/run_replay.py:42",
     "downscale_replay": "src/repro/whatif/backend.py:428",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:24",
+    "wkv6": "src/repro/kernels/rwkv6_scan.py:30",
 }
-SERVING_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+SERVING_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan", "wkv6")
+#: per model: the serve run's cache length and the logit check's prompt
+#: (hymba: 2,048 tokens cross its 1,024-token window, a multiple of it)
+SERVE_MAX_SEQ = {"llama-13b": 256, "hymba-1.5b": 2048, "rwkv6-3b": 256}
+LOGITS_PROMPT = {"llama-13b": 32, "hymba-1.5b": 2048, "rwkv6-3b": 32}
 
 
 def log(msg: str) -> None:
@@ -268,7 +283,150 @@ def time_kernels(dev) -> dict[str, dict]:
     return out
 
 
-def profile_decode(cfg, params, cache, dev, step_ms: float) -> dict:
+def ssm_args(g, dev, bsz, s, big_dt=False):
+    """K5 inputs at hymba-1.5b's widths (I = 3200, N = 16) as the Mamba
+    branch passes them (float32): u, B, C normal, dt = softplus(normal)
+    (x 100 for ``big_dt``), a = -exp(0.5 normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    dt = F.softplus(rnd(bsz, s, 3200)) * (100.0 if big_dt else 1.0)
+    return (rnd(bsz, s, 3200), dt, -torch.exp(0.5 * rnd(3200, 16)), rnd(bsz, s, 16),
+            rnd(bsz, s, 16))
+
+
+def wkv_args(g, dev, b, s, extreme=False):
+    """K6 inputs at rwkv6-3b's widths (H = 40, K = 64) in the model's
+    (B, S, H, K) layout (float32): r, k, v normal, w = 0.4 + 0.55
+    sigmoid(normal) or, for ``extreme``, each decay from {1e-4, 0.999};
+    u = 0.1 normal."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = rnd(b, s, 40, 64), rnd(b, s, 40, 64), rnd(b, s, 40, 64)
+    if extreme:
+        w = torch.where(rnd(b, s, 40, 64) > 0, 0.999, 1e-4)
+    else:
+        w = 0.4 + 0.55 * torch.sigmoid(rnd(b, s, 40, 64))
+    return r, k, v, w, 0.1 * rnd(40, 64)
+
+
+def check_recurrent_kernels(dev) -> dict[str, float]:
+    """K5 and K6 against their plain versions per element: the serving
+    path's prefill and decode shapes (hymba-1.5b I = 3200, N = 16; rwkv6-3b
+    H = 40, K = 64), the 2,048-token prefill of the logit check, a ragged
+    length, S = 1 from a carried state, a state carried across two calls
+    against one call, large dt (exp(dt a) -> 0) and extreme decays. Returns
+    the max abs error at the decode-step shape of each."""
+    import torch
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+
+    def both(name, tol, got, want):
+        return max(check_close(f"{name} {i}", a, b, tol)
+                   for i, (a, b) in enumerate(zip(got, want)))
+
+    for bsz, s, state, big_dt in ((1, 32, False, False), (4, 1, True, False),
+                                  (1, 2048, False, False), (2, 37, True, False),
+                                  (2, 40, True, True)):
+        u, dt, a, b, c = ssm_args(g, dev, bsz, s, big_dt=big_dt)
+        h0 = torch.randn(bsz, 3200, 16, generator=g, device=dev) if state else None
+        name = f"ssm_scan B={bsz} S={s} h0={state} big_dt={big_dt}"
+        e = both(name, SSM_TOL, ops.ssm_scan(u, dt, a, b, c, h0),
+                 ops.ssm_scan(u, dt, a, b, c, h0, plain=True))
+        if (bsz, s) == (4, 1):
+            errs["ssm_scan"] = e
+        if s > 1:                       # carried across two calls, the second in place
+            y1, h1 = ops.ssm_scan(u[:, :13], dt[:, :13], a, b[:, :13], c[:, :13], h0)
+            y2, h2 = ops.ssm_scan(u[:, 13:], dt[:, 13:], a, b[:, 13:], c[:, 13:], h1, h1)
+            both(name + " carried", SSM_TOL, (torch.cat([y1, y2], 1), h2),
+                 ops.ssm_scan(u, dt, a, b, c, h0, plain=True))
+    for bsz, s, state, extreme in ((1, 32, False, False), (4, 1, True, False),
+                                   (2, 37, True, False), (1, 64, True, True)):
+        r, k, v, w, u = wkv_args(g, dev, bsz, s, extreme=extreme)
+        st0 = torch.randn(bsz, 40, 64, 64, generator=g, device=dev) if state else None
+        name = f"wkv6 B={bsz} S={s} state={state} extreme={extreme}"
+        e = both(name, WKV_TOL, ops.wkv6(r, k, v, w, u, st0),
+                 ops.wkv6(r, k, v, w, u, st0, plain=True))
+        if (bsz, s) == (4, 1):
+            errs["wkv6"] = e
+        if s > 1:
+            y1, st1 = ops.wkv6(r[:, :13], k[:, :13], v[:, :13], w[:, :13], u, st0)
+            y2, st2 = ops.wkv6(r[:, 13:], k[:, 13:], v[:, 13:], w[:, 13:], u, st1, st1)
+            both(name + " carried", WKV_TOL, (torch.cat([y1, y2], 1), st2),
+                 ops.wkv6(r, k, v, w, u, st0, plain=True))
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_recurrent_kernels(dev) -> dict[str, dict]:
+    """K5 and K6 at the decode step's shape, the state carried in place as
+    the models carry it and rotated over enough layers' states (105 MB) to
+    miss the 50 MB L2, as a decode step finds it; also their card time at the
+    32-token prefill. Bounds from this run's bytes (each input read once,
+    each output written once) and operations (K5 ~8 per (row, step,
+    channel, state), K6 ~7 per (row, step, head, k, v), at the float32
+    rate). No single PyTorch call computes either function."""
+    import torch
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    it = iter(range(1 << 62))
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    out = {}
+    u, dt, a, b, c = ssm_args(g, dev, 4, 1)
+    copies = 128                                   # 128 x 0.82 MB of state
+    hs = torch.randn(copies, 4, 3200, 16, generator=g, device=dev)
+
+    def k5(plain=False):
+        h = hs[next(it) % copies]
+        return lambda: ops.ssm_scan(u, dt, a, b, c, h, h, plain=plain)
+
+    pu, pdt, pa, pb, pc = ssm_args(g, dev, 1, 32)
+    out["ssm_scan"] = dict(
+        shape="u, dt (4, 1, 3200), a (3200, 16), B, C (4, 1, 16), h (4, 3200, 16) "
+              "f32, state in place",
+        kernel=timed(lambda: k5()()), plain=timed(lambda: k5(True)(), 40), library=None,
+        bound=bound_ms(nbytes(u, dt, a, b, c, hs[0]) + nbytes(u, hs[0]),
+                       8 * u.numel() * 16, F32_OPS_PER_S),
+        prefill=dict(shape="u, dt (1, 32, 3200) f32, zero state",
+                     ms=graph_ms(lambda: ops.ssm_scan(pu, pdt, pa, pb, pc)),
+                     bound=bound_ms(nbytes(pu, pdt, pa, pb, pc, pu) + 3200 * 16 * 4,
+                                    8 * pu.numel() * 16, F32_OPS_PER_S)))
+
+    r, k, v, w, uu = wkv_args(g, dev, 4, 1)
+    copies = 40                                    # 40 x 2.6 MB of state
+    sts = torch.randn(copies, 4, 40, 64, 64, generator=g, device=dev)
+
+    def k6(plain=False):
+        st = sts[next(it) % copies]
+        return lambda: ops.wkv6(r, k, v, w, uu, st, st, plain=plain)
+
+    pr, pk, pv, pw, pu6 = wkv_args(g, dev, 1, 32)
+    out["wkv6"] = dict(
+        shape="r, k, v, w (4, 1, 40, 64), u (40, 64), state (4, 40, 64, 64) f32, "
+              "state in place",
+        kernel=timed(lambda: k6()()), plain=timed(lambda: k6(True)(), 40), library=None,
+        bound=bound_ms(nbytes(r, k, v, w, uu, sts[0]) + nbytes(r, sts[0]),
+                       7 * r.numel() * 64, F32_OPS_PER_S),
+        prefill=dict(shape="r, k, v, w (1, 32, 40, 64) f32, zero state",
+                     ms=graph_ms(lambda: ops.wkv6(pr, pk, pv, pw, pu6)),
+                     bound=bound_ms(nbytes(pr, pk, pv, pw, pu6, pr) + 40 * 64 * 64 * 4,
+                                    7 * pr.numel() * 64, F32_OPS_PER_S)))
+    return out
+
+
+def profile_decode(cfg, params, cache, dev, step_ms: float, n_slots: int) -> dict:
     """Three decode steps under torch.profiler: the card's busy time per step
     against the unprofiled step time from the serve run, and the kernels
     that take it."""
@@ -277,7 +435,7 @@ def profile_decode(cfg, params, cache, dev, step_ms: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
 
-    tokens = torch.full((cache["k"].shape[1], 1), 7, dtype=torch.long, device=dev)
+    tokens = torch.full((n_slots, 1), 7, dtype=torch.long, device=dev)
     cache, _ = api.decode_step(params, cache, tokens, cfg)
     torch.cuda.synchronize()
     steps = 3
@@ -296,52 +454,160 @@ def profile_decode(cfg, params, cache, dev, step_ms: float) -> dict:
         "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
                                     for e in top},
     }
-    log("profile decode step " + json.dumps(result))
+    log(f"profile {cfg.name} decode step " + json.dumps(result))
     return result
 
 
-def pad_cache(cfg, cache, max_len, dev):
-    from repro_torch.models import api
-    out = api.init_cache(cfg, cache["k"].shape[1], max_len, dev)
-    for name in ("k", "v"):
-        out[name][:, :, :cache[name].shape[2]] = cache[name]
-    out["len"] = cache["len"].clone()
-    return out
-
-
-def compare_logits(cfg, params, dev, tol: float, label: str) -> float:
-    """One 32-token prefill and two decode steps, kernel path against plain
-    path on the same tokens; the worst normwise relative logit error."""
+def logit_runs(cfg, params, dev, prompt: int, plain: bool) -> list:
+    """Logits of one ``prompt``-token prefill and two decode steps on seeded
+    tokens (the same tokens for every call)."""
     import torch
     from repro_torch.models import api
 
     g = torch.Generator(device=dev).manual_seed(3)
-    tokens = torch.randint(2, cfg.vocab_size, (1, 32), generator=g, device=dev)
+    tokens = torch.randint(2, cfg.vocab_size, (1, prompt), generator=g, device=dev)
     steps = torch.randint(2, cfg.vocab_size, (2, 1, 1), generator=g, device=dev)
-    runs = {}
-    for plain in (False, True):
-        cache, logits = api.prefill(params, tokens, cfg, plain=plain)
-        cache = pad_cache(cfg, cache, 64, dev)
-        seq = [logits.float()]
-        for t in steps:
-            cache, logits = api.decode_step(params, cache, t, cfg, plain=plain)
-            seq.append(logits.float())
-        runs[plain] = seq
+    cache, logits = api.prefill(params, tokens, cfg, plain=plain)
+    cache = api.pad_cache(cfg, cache, prompt + 8)
+    seq = [logits.float()]
+    for t in steps:
+        cache, logits = api.decode_step(params, cache, t, cfg, plain=plain)
+        seq.append(logits.float())
+    return seq
+
+
+def normwise_error(got: list, want: list, cfg, label: str) -> float:
+    """The worst normwise relative error over the runs' logits, after
+    checking that every logit is finite and of the expected shape."""
+    import torch
     worst = 0.0
-    for i, (a, b) in enumerate(zip(runs[False], runs[True])):
+    for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(a).all():
             raise AssertionError(f"{label}: bad logits at step {i}: {a.shape}")
-        rel = float((a - b).norm() / b.norm())
-        worst = max(worst, rel)
+        worst = max(worst, float((a - b).norm() / b.norm()))
+    return worst
+
+
+def compare_logits(cfg, params, dev, tol: float, label: str, prompt: int = 32) -> float:
+    """Kernel path against plain path on the same tokens: the worst normwise
+    relative logit error over a prefill and two decode steps."""
+    worst = normwise_error(logit_runs(cfg, params, dev, prompt, False),
+                           logit_runs(cfg, params, dev, prompt, True), cfg, label)
     if worst > tol:
         raise AssertionError(f"{label}: normwise logit error {worst} > {tol}")
-    log(f"logits {label}: prefill + 2 decode steps, kernel vs plain "
+    log(f"logits {label}: {prompt}-token prefill + 2 decode steps, kernel vs plain "
         f"normwise rel err {worst:.3e} (tol {tol})")
     return worst
 
 
+def wkv6_f64(r, k, v, w, u, state0=None, state_out=None):
+    """The plain WKV recurrence in float64, cast back to float32: a second
+    correct computation of the same function, for the chaos floor."""
+    import torch
+    r, k, v, w, u = (t.double() for t in (r, k, v, w, u))
+    b, h, s, kd = r.shape
+    st = (torch.zeros((b, h, kd, kd), dtype=torch.float64, device=r.device)
+          if state0 is None else state0.double())
+    ys = []
+    for t in range(s):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], st + u[None, :, :, None] * kv))
+        st = w[:, :, t, :, None] * st + kv
+    y = torch.stack(ys, dim=2).float()
+    return y, (st.float() if state_out is None else state_out.copy_(st))
+
+
+def rwkv_logits(cfg, params, dev, prompt: int) -> dict:
+    """rwkv6-3b's end-to-end bf16 logits: kernel path against plain path, and
+    the chaos floor beside it, the plain path against itself with the WKV
+    recurrence in float64. The random-weight model is chaotic in bf16: a
+    rounding-level change in the WKV outputs grows over 32 layers to tenths
+    of the logits' norm (0.27 for float64 against float32 on an H100), so
+    two correct computations fall that far apart and no limit on this
+    number can tell a right kernel from a wrong one. Both numbers are
+    reported; the kernel path is held layer by layer
+    (:func:`rwkv_layers_check`) instead."""
+    from repro_torch.kernels import rwkv6_scan
+    plain = logit_runs(cfg, params, dev, prompt, True)
+    kernel = normwise_error(logit_runs(cfg, params, dev, prompt, False), plain, cfg,
+                            "rwkv kernel")
+    saved = rwkv6_scan.wkv6_plain
+    rwkv6_scan.wkv6_plain = wkv6_f64
+    try:
+        floor = normwise_error(logit_runs(cfg, params, dev, prompt, True), plain, cfg,
+                               "rwkv f64")
+    finally:
+        rwkv6_scan.wkv6_plain = saved
+    log(f"logits {cfg.name} bf16 ({cfg.n_layers} layers): {prompt}-token prefill + 2 "
+        f"decode steps, kernel vs plain normwise rel err {kernel:.3e}; chaos floor "
+        f"(plain vs plain with WKV in float64) {floor:.3e}; not gated, see the layer check")
+    return {"kernel_vs_plain": kernel, "plain_f32_vs_f64_wkv": floor}
+
+
+def rwkv_layers_check(cfg, params, dev, tol: float, prompt: int = 32) -> float:
+    """Each RWKV-6 layer at full width, kernel path against plain path on the
+    same input and carried states (the plain path's), over a
+    ``prompt``-token prefill and two decode steps in bf16: the worst
+    normwise relative error of the layer outputs and WKV states. Unlike the
+    end-to-end logits these errors do not compound through the layers."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models import rwkv
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(2, cfg.vocab_size, (1, prompt), generator=g, device=dev)
+    steps = torch.randint(2, cfg.vocab_size, (2, 1, 1), generator=g, device=dev)
+    cache = rwkv.init_cache(cfg, 1, 0, dev)
+    worst = 0.0
+    for toks in [tokens, *steps]:
+        x = cm.layernorm(params["embed"][toks], params["ln0_w"], params["ln0_b"])
+        for i in range(cfg.n_layers):
+            lp = cm.layer(params["layers"], i)
+            outs = {}
+            for plain in (False, True):
+                state = cache["wkv"][i].clone()
+                out = rwkv._block(x, lp, cfg, cache["tm_shift"][i], cache["cm_shift"][i],
+                                  state, state, plain)
+                outs[plain] = (out[0], state, *out[1:])
+            for a, b in zip(outs[False][:2], outs[True][:2]):
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"rwkv layer {i}: non-finite output")
+                worst = max(worst, float((a.float() - b.float()).norm() / b.float().norm()))
+            x, state, tm, cmix = outs[True]
+            cache["wkv"][i].copy_(state)
+            cache["tm_shift"][i].copy_(tm)
+            cache["cm_shift"][i].copy_(cmix)
+    if worst > tol:
+        raise AssertionError(f"rwkv layer check: normwise error {worst} > {tol}")
+    log(f"layers {cfg.name} bf16: each of {cfg.n_layers} layers, kernel vs plain on the "
+        f"plain path's input and state over a {prompt}-token prefill + 2 decode steps, "
+        f"worst normwise rel err of outputs and WKV states {worst:.3e} (tol {tol})")
+    return worst
+
+
+def expected_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
+    """Each kernel's launches in a serve run of ``cfg``'s family: one RMSNorm
+    per norm of each forward (dense 2 per layer + final, hymba 4 per layer +
+    final), attention per layer (K2 at a prefill, K3 at a decode step), K5
+    per hymba layer and K6 per RWKV layer of every forward; 0 elsewhere."""
+    from repro_torch import kernels
+    n_layers, fwd = cfg.n_layers, n_prefill + n_decode
+    expect = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    if cfg.family in ("dense", "hybrid"):
+        norms = 2 if cfg.family == "dense" else 4
+        expect.update(rmsnorm=(norms * n_layers + 1) * fwd,
+                      flash_attention=n_layers * n_prefill,
+                      decode_attention=n_layers * n_decode)
+    if cfg.family == "hybrid":
+        expect["ssm_scan"] = n_layers * fwd
+    if cfg.family == "rwkv":
+        expect["wkv6"] = n_layers * fwd
+    return expect
+
+
 def serve(cfg, params, dev) -> dict:
-    """The main path: ServingEngine on azure_code requests, controller on."""
+    """A main path: ServingEngine on azure_code requests, controller on, with
+    every kernel's launches counted from 0 and checked exactly."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -349,7 +615,7 @@ def serve(cfg, params, dev) -> dict:
     from repro_torch.telemetry import analyze_job
     from repro_torch.traces import generate_trace, get_trace
 
-    ec = EngineConfig(n_slots=4, max_seq_len=256, prefill_bucket=32,
+    ec = EngineConfig(n_slots=4, max_seq_len=SERVE_MAX_SEQ[cfg.name], prefill_bucket=32,
                       max_new_tokens=16, controller=True, platform="h100",
                       device=str(dev))
     engine = ServingEngine(cfg, params, ec)
@@ -372,10 +638,7 @@ def serve(cfg, params, dev) -> dict:
 
     n_prefill = len(engine.phase_ms["prefill"])
     n_decode = len(engine.phase_ms["decode"])
-    expect = {"rmsnorm": (2 * cfg.n_layers + 1) * (n_prefill + n_decode),
-              "flash_attention": cfg.n_layers * n_prefill,
-              "decode_attention": cfg.n_layers * n_decode,
-              "cap_bucket_scan": 0, "downscale_replay": 0}
+    expect = expected_launches(cfg, n_prefill, n_decode)
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if stats.n < 4:
@@ -386,6 +649,7 @@ def serve(cfg, params, dev) -> dict:
     ja = analyze_job(frame, job_id=1, min_duration_s=1.0)
     decode_ms = float(np.mean(engine.phase_ms["decode"]))
     result = {
+        "model": cfg.name, "max_seq_len": ec.max_seq_len,
         "requests": len(trace), "completed": stats.n,
         "p50_s": stats.p50_s, "p95_s": stats.p95_s,
         "exec_idle_time_fraction": ja.exec_idle_time_fraction,
@@ -402,8 +666,68 @@ def serve(cfg, params, dev) -> dict:
         "wall_s": wall_s,
         "launches": launches,
     }
-    log("serve " + json.dumps(result))
+    log(f"serve {cfg.name} " + json.dumps(result))
     return result, engine.cache
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(count_params(v) for v in tree)
+    return tree.numel()
+
+
+def serve_model(name: str, dev) -> dict:
+    """One model at full width: parameters made on the card from a seed, the
+    logit checks (full depth in bf16, two layers in f32), the serve run and
+    a profiled decode step. Frees the model before it returns."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    log(f"{name}: {count_params(params) / 1e9:.3f} B parameters in bf16, made on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    prompt = LOGITS_PROMPT[name]
+    checks = {}
+    if cfg.family == "rwkv":
+        checks["logits_bf16"] = rwkv_logits(cfg, params, dev, prompt)
+        checks["layers_bf16"] = rwkv_layers_check(cfg, params, dev, LOGITS_BF16_TOL, prompt)
+    else:
+        checks["logits_bf16"] = compare_logits(cfg, params, dev, LOGITS_BF16_TOL,
+                                               f"{name} bf16 ({cfg.n_layers} layers)", prompt)
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params32 = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg32)
+    checks["logits_f32_2_layers"] = compare_logits(
+        cfg32, params32, dev, LOGITS_F32_TOL, f"{name} widths f32 (2 layers)", prompt)
+    del params32
+    torch.cuda.empty_cache()
+
+    result, cache = serve(cfg, params, dev)
+    result["profile"] = profile_decode(cfg, params, cache, dev,
+                                       result["mean_decode_step_ms"], n_slots=4)
+    result["checks"] = checks
+    del params, cache
+    torch.cuda.empty_cache()
+    return result
+
+
+def log_times(times: dict) -> None:
+    for name, t in times.items():
+        lib = t["library"]
+        log(f"time {name} [{t['shape']}] card ms (per call with host ms): kernel "
+            f"{t['kernel']['ms']:.5f} ({t['kernel']['call_ms']:.5f}), plain "
+            f"{t['plain']['ms']:.5f} ({t['plain']['call_ms']:.5f}), torch "
+            + (f"{lib['ms']:.5f} ({lib['call_ms']:.5f})" if lib else "none")
+            + f", bound {t['bound'][0]:.5f} ({t['bound'][1]})")
+        if "prefill" in t:
+            pre = t["prefill"]
+            log(f"time {name} prefill [{pre['shape']}] card ms: kernel {pre['ms']:.5f}, "
+                f"bound {pre['bound'][0]:.5f} ({pre['bound'][1]})")
 
 
 # --------------------------------------------------------------------------- #
@@ -766,9 +1090,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import api
 
     t0 = time.perf_counter()
     _build.library()
@@ -780,57 +1102,38 @@ def main() -> int:
     errs = check_kernels(dev)
     log(f"kernels vs plain (bf16 per element, |err| <= {BF16_TOL} * (1 + |plain|)): "
         f"max abs err at the main shapes {errs}")
+    errs.update(check_recurrent_kernels(dev))
+    log(f"recurrent kernels vs plain (f32 per element, |err| <= tol * (1 + |plain|), "
+        f"tol {SSM_TOL} for ssm_scan, {WKV_TOL} for wkv6): max abs err at the decode "
+        f"step's shape {{'ssm_scan': {errs['ssm_scan']}, 'wkv6': {errs['wkv6']}}}")
     for name, used in LIMIT_USED.items():
         log(f"  {name}: {used:.4f} of the limit at the worst element")
     times = time_kernels(dev)
-    for name, t in times.items():
-        log(f"time {name} [{t['shape']}] card ms (per call with host ms): kernel "
-            f"{t['kernel']['ms']:.5f} ({t['kernel']['call_ms']:.5f}), plain "
-            f"{t['plain']['ms']:.5f} ({t['plain']['call_ms']:.5f}), torch "
-            f"{t['library']['ms']:.5f} ({t['library']['call_ms']:.5f}), bound "
-            f"{t['bound'][0]:.5f} ({t['bound'][1]})")
+    times.update(time_recurrent_kernels(dev))
+    log_times(times)
 
-    # full width: llama-13b, bf16, random weights drawn on the card
-    cfg = get_config("llama-13b")
-    t0 = time.perf_counter()
-    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["layers"].values()) + \
-        params["embed"].numel() + params["out_head"].numel() + cfg.d_model
-    log(f"llama-13b: {n_params / 1e9:.3f} B parameters in bf16, made on the card "
-        f"in {time.perf_counter() - t0:.1f} s")
-    compare_logits(cfg, params, dev, LOGITS_BF16_TOL, "llama-13b bf16 (40 layers)")
-    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    params32 = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg32)
-    compare_logits(cfg32, params32, dev, LOGITS_F32_TOL,
-                   "llama-13b widths f32 (2 layers)")
-    del params32
-    torch.cuda.empty_cache()
-
-    result, cache = serve(cfg, params, dev)
-    profile_decode(cfg, params, cache, dev, result["mean_decode_step_ms"])
-    del params, cache
-    torch.cuda.empty_cache()
+    # full width, bf16, random weights drawn on the card; each model is
+    # freed before the next is made
+    runs = [serve_model(name, dev) for name in SERVE_MAX_SEQ]
 
     wresult, wtimes = whatif(dev)
-    for name, t in wtimes.items():
-        lib = t["library"]
-        log(f"time {name} [{t['shape']}] card ms (per call with host ms): kernel "
-            f"{t['kernel']['ms']:.5f} ({t['kernel']['call_ms']:.5f}), plain "
-            f"{t['plain']['ms']:.5f} ({t['plain']['call_ms']:.5f}), torch "
-            + (f"{lib['ms']:.5f} ({lib['call_ms']:.5f})" if lib else "none")
-            + f", bound {t['bound'][0]:.5f} ({t['bound'][1]})")
+    log_times(wtimes)
     k7 = wtimes["downscale_replay"]
     log(f"downscale_replay plain version at the main shape used "
         f"{k7['plain_peak_gib']:.3f} GiB of device memory; {k7['fired']} of "
         f"{k7['valid_runs'] * k7['pairs']} (valid run, pair) lanes fired")
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
-    launches = {**result["launches"],
-                **{k: wresult["launches"][k] for k in wtimes}}
+    # each main path ran with the counts set to 0 just before it
+    launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    for counts in [r["launches"] for r in runs] + [wresult["launches"]]:
+        for name, n in counts.items():
+            launches[name] += n
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"a kernel was launched no time on its main path: {launches}")
     rows = []
     for name, t in {**times, **wtimes}.items():
         lib = t["library"]
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
@@ -842,7 +1145,10 @@ def main() -> int:
             "call_ms": t["kernel"]["call_ms"], "plain_call_ms": t["plain"]["call_ms"],
             "library_call_ms": lib["call_ms"] if lib else None,
             "shape": t["shape"],
-        })
+        }
+        if "prefill" in t:
+            row.update(prefill_ms=t["prefill"]["ms"], prefill_bound_ms=t["prefill"]["bound"][0])
+        rows.append(row)
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the dense family.
+"""Architecture registry of the port: the dense, hybrid and rwkv families.
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` returns a reduced same-family config for CPU
@@ -9,9 +9,12 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
-from repro_torch.configs import gemma_2b, llama_13b, qwen1_5_0_5b
+from repro_torch.configs import (gemma_2b, hymba_1_5b, llama_13b, qwen1_5_0_5b,
+                                 rwkv6_3b)
 
 ARCHS: dict[str, ModelConfig] = {
+    "rwkv6-3b": rwkv6_3b.CONFIG,
+    "hymba-1.5b": hymba_1_5b.CONFIG,
     "gemma-2b": gemma_2b.CONFIG,
     "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,
     # the paper's own serving model (trace replay, §2.3)
@@ -34,8 +37,7 @@ def get_smoke_config(arch: str) -> ModelConfig:
     n_kv = min(cfg.n_kv_heads, 2)
     n_heads = n_kv * min(cfg.q_per_kv, 2)
     d_model = 64
-    return dataclasses.replace(
-        cfg,
+    updates: dict[str, object] = dict(
         name=cfg.name + "-smoke",
         n_layers=min(cfg.n_layers, 2),
         d_model=d_model,
@@ -45,3 +47,8 @@ def get_smoke_config(arch: str) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
     )
+    if cfg.family == "rwkv":
+        updates.update(rwkv_head_size=16, rwkv_decay_lora=8, rwkv_mix_lora=8)
+    if cfg.family == "hybrid":
+        updates.update(ssm_state=8, d_inner=128, window=16, global_layers=(0,))
+    return dataclasses.replace(cfg, **updates)

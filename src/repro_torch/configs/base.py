@@ -1,17 +1,18 @@
-"""Model configuration dataclass: the dense family's fields of the JAX
-package's ``ModelConfig``. Other families' fields come with the slice that
-ports the family."""
+"""Model configuration dataclass: the fields of the JAX package's
+``ModelConfig`` that the ported families (dense, hybrid, rwkv) read. Other
+families' fields come with the slice that ports the family."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense"]
+Family = Literal["dense", "rwkv", "hybrid"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One dense decoder-only architecture; all attention is causal."""
+    """One decoder-only architecture; all attention is causal. Families
+    reuse fields; family-specific fields are ignored elsewhere."""
 
     name: str
     family: Family
@@ -29,6 +30,18 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
 
+    # --- RWKV ----------------------------------------------------------- #
+    rwkv_head_size: int = 64
+    rwkv_decay_lora: int = 64
+    rwkv_mix_lora: int = 32
+
+    # --- hybrid (hymba) -------------------------------------------------- #
+    ssm_state: int = 0
+    d_inner: int = 0                     # mamba inner width
+    conv_kernel: int = 4
+    window: int = 0                      # sliding-window size (0 = full attn)
+    global_layers: tuple[int, ...] = ()  # layer indices with full attention
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
@@ -36,6 +49,10 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    @property
+    def n_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size
 
     def validate(self) -> None:
         if self.n_heads % max(self.n_kv_heads, 1):

@@ -5,12 +5,14 @@ A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version. Each kernel module counts its launches in
 a plain integer ``LAUNCHES``.
 
-The serving path runs RMSNorm, prefill attention and decode attention; the
+The serving path runs RMSNorm, prefill attention and decode attention, and,
+for hymba and RWKV-6, the Mamba selective scan and the WKV recurrence; the
 what-if replay (:mod:`repro_torch.whatif.backend`) runs the cap-bucket scan
 and the Algorithm-1 cooldown chain.
 """
 from repro_torch.kernels import (decode_attention, downscale_replay,
-                                 flash_attention, rmsnorm, run_replay)
+                                 flash_attention, rmsnorm, run_replay, rwkv6_scan,
+                                 ssm_scan)
 
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {
@@ -19,6 +21,8 @@ KERNEL_MODULES = {
     "decode_attention": decode_attention,
     "cap_bucket_scan": run_replay,
     "downscale_replay": downscale_replay,
+    "ssm_scan": ssm_scan,
+    "wkv6": rwkv6_scan,
 }
 
 

@@ -1,8 +1,9 @@
-"""The kernels in their callers' layouts: attention in the model's (B, S, H,
-d), the cap-bucket scan in the run-level replay's (rows, width).
+"""The kernels in their callers' layouts: attention and the WKV recurrence in
+the model's (B, S, H, d), the selective scan in the Mamba branch's (B, S, I),
+the cap-bucket scan in the run-level replay's (rows, width).
 
 The head-major kernels read and write through strides, so these wrappers
-only take views: no transpose copy of q, k, v or the KV cache. ``plain=True``
+only take views: no transpose copy of q, k, v, r, w or the KV cache. ``plain=True``
 runs the plain PyTorch version on any device; it exists so the kernels can be
 held against it on the card, and the serving path never sets it.
 """
@@ -14,6 +15,8 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import run_replay as _rr
+from repro_torch.kernels import rwkv6_scan as _wkv
+from repro_torch.kernels import ssm_scan as _ssm
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -38,6 +41,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     fn = _da.decode_attention_plain if plain else _da.decode_attention
     out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), cache_len)
     return out[:, None]
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, h0: torch.Tensor | None = None,
+             h_out: torch.Tensor | None = None,
+             plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """u/dt: (B,S,I); a: (I,N); b/c: (B,S,N); h0/h_out: (B,I,N). Returns
+    (y (B,S,I) f32 without the D-skip, final state)."""
+    fn = _ssm.ssm_scan_plain if plain else _ssm.ssm_scan
+    return fn(u, dt, a, b, c, h0, h_out)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state0: torch.Tensor | None = None,
+         state_out: torch.Tensor | None = None,
+         plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B,S,H,K); u: (H,K); state0/state_out: (B,H,K,K). Returns
+    (y (B,S,H,K) f32, final state)."""
+    fn = _wkv.wkv6_plain if plain else _wkv.wkv6
+    y, state = fn(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  w.transpose(1, 2), u, state0, state_out)
+    return y.transpose(1, 2), state
 
 
 def cap_bucket_scan(sorted_p: torch.Tensor, caps: torch.Tensor,

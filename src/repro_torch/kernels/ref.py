@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the serving path's kernels (the correctness
 contracts).
 
-Deliberately simple O(S^2) implementations of the same maths as the JAX
-package's oracles. The kernel wrappers run these for tensors on the CPU,
+Deliberately simple O(S^2) / sequential implementations of the same maths as
+the JAX package's oracles. The kernel wrappers run these for tensors on the CPU,
 and the card's kernels are held against them.
 """
 from __future__ import annotations
@@ -45,6 +45,43 @@ def decode_attention_reference(q, k_cache, v_cache, cache_len):
     scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", p, v.float())
+
+
+def wkv6_reference(r, k, v, w, u, state0=None):
+    """Sequential WKV-6. r/k/v/w: (B,H,S,K); u: (H,K); state0: (B,H,K,V) f32
+    or None (zeros). Returns (y (B,H,S,V) f32, final state (B,H,K,V) f32)."""
+    b, h, s, kd = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()
+    state = (torch.zeros((b, h, kd, v.shape[-1]), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
+    ys = []
+    for t in range(s):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t],
+                               state + u[None, :, :, None] * kv))
+        state = w[:, :, t, :, None] * state + kv
+    y = torch.stack(ys, dim=2) if ys else v.new_zeros(v.shape)
+    return y, state
+
+
+def ssm_scan_reference(u, dt, a, b, c, h0=None):
+    """Sequential selective scan. u/dt: (B,S,I); a: (I,N); b/c: (B,S,N); h0:
+    (B,I,N) f32 or None (zeros). Returns (y (B,S,I) f32 without the D-skip,
+    final state (B,I,N) f32)."""
+    bsz, s, di = u.shape
+    n = a.shape[-1]
+    u, dt, b, c = (t.float() for t in (u, dt, b, c))
+    a = a.float()
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        da = torch.exp(dt[:, t, :, None] * a)
+        h = da * h + dt[:, t, :, None] * b[:, t, None, :] * u[:, t, :, None]
+        ys.append(torch.einsum("bin,bn->bi", h, c[:, t]))
+    y = torch.stack(ys, dim=1) if ys else u.new_zeros(u.shape)
+    return y, h
 
 
 def rmsnorm_reference(x, weight, eps: float = 1e-6):

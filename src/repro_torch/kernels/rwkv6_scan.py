@@ -1,0 +1,78 @@
+"""RWKV-6 WKV recurrence: the CUDA kernel ``csrc/wkv6.cu`` on the card,
+:func:`wkv6_plain` on the CPU.
+
+Replaces the TPU kernel ``src/repro/kernels/rwkv6_scan.py::wkv6``. Unlike
+it, the recurrence may start from a carried state ``state0`` (a decode step
+is a scan of one step), any length works, and r, k, v, w are read through
+their strides, so head-major views of the model's (B, S, H, K) projections
+need no copy. ``state_out`` receives the final state and may be ``state0``
+itself.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: launches of the CUDA kernel in this process
+LAUNCHES = 0
+
+#: head sizes the kernel is compiled for
+HEAD_SIZES = (16, 32, 64)
+
+
+def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
+    y, state = ref.wkv6_reference(r, k, v, w, u, state0)
+    if state_out is not None:
+        state = state_out.copy_(state)
+    return y, state
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state0: torch.Tensor | None = None,
+         state_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B, H, S, K), w the per-step decay in (0, 1); u: (H, K);
+    state0: (B, H, K, K) or None (zeros). All float32. Returns (y (B, H, S, K),
+    final state (B, H, K, K)), the state in ``state_out`` when given.
+
+    On the card y is a head-major view of memory laid out as (B, S, H, K), so
+    the model layout is one free transpose away.
+    """
+    global LAUNCHES
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state0, state_out)
+    states = [t for t in (state0, state_out) if t is not None]
+    _build.require_cuda(r, k, v, w, u, *states)
+    bsz, h, s, kd = r.shape
+    if (any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, kd)
+            or any(t.shape != (bsz, h, kd, kd) for t in states)):
+        raise ValueError(f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} w {tuple(w.shape)} u {tuple(u.shape)} "
+                         f"states {[tuple(t.shape) for t in states]} do not match")
+    if any(t.dtype != torch.float32 for t in (r, k, v, w, u, *states)):
+        raise ValueError("the WKV recurrence takes float32 tensors")
+    if kd not in HEAD_SIZES:
+        raise ValueError(f"head size {kd} not in {HEAD_SIZES}")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("the head-size axis of r, k, v, w must be contiguous")
+    if not (u.is_contiguous() and all(t.is_contiguous() for t in states)):
+        raise ValueError("u, state0 and state_out must be contiguous")
+    if max(h, s) >= 2**31 or bsz >= 2**16:
+        raise ValueError(f"unsupported shape {tuple(r.shape)}")
+    y = torch.empty((bsz, s, h, kd), dtype=torch.float32, device=r.device).transpose(1, 2)
+    if state_out is None:
+        state_out = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
+    if bsz * h == 0:
+        return y, state_out
+    strides = (ctypes.c_int64 * 15)(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                    *w.stride()[:3], *y.stride()[:3])
+    err = _build.library().repro_wkv6(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state0 is None else state0.data_ptr(), y.data_ptr(),
+        state_out.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd,
+        _build.stream_ptr(r))
+    _build.check(err, "wkv6")
+    LAUNCHES += 1
+    return y, state_out

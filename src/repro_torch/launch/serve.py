@@ -4,6 +4,9 @@ with execution-idle telemetry and the Algorithm-1 controller.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-13b \
         --trace azure_code --duration 60 --controller
 
+``--arch`` is llama-13b, hymba-1.5b, rwkv6-3b or another ported
+architecture (``repro_torch.configs.ARCHS``).
+
 Runs on the card by default; ``--device cpu --smoke`` runs a smoke-size model
 on the CPU. Weights are random, drawn on the device from ``--seed``.
 """
@@ -15,7 +18,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -25,7 +28,7 @@ from repro_torch.traces import TRACES, generate_trace, get_trace
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama-13b")
+    ap.add_argument("--arch", default="llama-13b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--trace", default="azure_code", choices=sorted(TRACES))
     ap.add_argument("--duration", type=float, default=60.0)

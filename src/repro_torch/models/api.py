@@ -1,6 +1,7 @@
 """Uniform LM interface, dispatching on ``cfg.family``.
 
-Only the dense family is ported; any other family raises.
+The dense, hybrid (hymba) and rwkv families are ported; any other family
+raises.
 """
 from __future__ import annotations
 
@@ -9,9 +10,9 @@ from types import ModuleType
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense
+from repro_torch.models import dense, hymba, rwkv
 
-_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense}
+_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "hybrid": hymba, "rwkv": rwkv}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
@@ -32,9 +33,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return family_module(cfg).init_cache(cfg, batch, max_len, device)
 
 
+def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
+    """Every per-sequence leaf of ``cache`` with its batch axis, in a fixed
+    order (the shared ``len`` is not one)."""
+    return family_module(cfg).cache_rows(cfg, cache)
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     return family_module(cfg).prefill(params, tokens, cfg, plain=plain)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
     return family_module(cfg).decode_step(params, cache, tokens, cfg, plain=plain)
+
+
+def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
+    """Grow a prefill-sized cache so ``decode_step`` has room for new tokens,
+    as the JAX package's ``api.pad_cache``: dense caches and hymba's
+    global-attention layers are zero-padded along the sequence axis to
+    ``max_len`` (never cut); hymba's window layers are ring buffers and
+    RWKV's state is O(1), so both stay as they are. Returns a new dict that
+    shares every tensor it did not pad."""
+    def pad(t: torch.Tensor, axis: int) -> torch.Tensor:
+        cur = t.shape[axis]
+        if cur >= max_len:
+            return t
+        shape = list(t.shape)
+        shape[axis] = max_len
+        out = t.new_zeros(shape)
+        out.narrow(axis, 0, cur).copy_(t)
+        return out
+
+    family_module(cfg)
+    if cfg.family == "dense":
+        return dict(cache, k=pad(cache["k"], 2), v=pad(cache["v"], 2))
+    if cfg.family == "hybrid":
+        layers = [dict(lc, k=pad(lc["k"], 1), v=pad(lc["v"], 1))
+                  if i in cfg.global_layers else lc
+                  for i, lc in enumerate(cache["layers"])]
+        return dict(cache, layers=layers)
+    return dict(cache)

@@ -1,5 +1,6 @@
-"""Building blocks of the dense family: init helpers, RoPE, GLU MLP and the
-LM head.
+"""Building blocks of the model families: init helpers, LayerNorm and the
+per-head GroupNorm (RWKV), RoPE, the QKV projection, the GLU MLP block and
+the LM head.
 
 Parameters are plain dicts of tensors. RMSNorm, attention and decode
 attention are the Hopper kernels, called from ``repro_torch.kernels.ops``;
@@ -14,6 +15,16 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def param_dtype(cfg) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` name."""
+    return _DTYPES[cfg.dtype]
 
 
 # --------------------------------------------------------------------------- #
@@ -30,6 +41,32 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
     return (w * 0.02).to(dtype)
+
+
+def layer(layers: dict, i: int) -> dict:
+    """Layer ``i`` of weights stacked on axis 0."""
+    return {name: w[i] for name, w in layers.items()}
+
+
+# --------------------------------------------------------------------------- #
+# norms (RMSNorm is the kernel in repro_torch.kernels)
+# --------------------------------------------------------------------------- #
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    normed = (x32 - mu) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
+def groupnorm_heads(x, weight, bias, n_heads: int, eps: float = 1e-5):
+    """GroupNorm over head groups; x: (..., n_heads * head_dim). Used by RWKV."""
+    shape = x.shape
+    xh = x.reshape(*shape[:-1], n_heads, shape[-1] // n_heads).float()
+    mu = xh.mean(dim=-1, keepdim=True)
+    var = xh.var(dim=-1, unbiased=False, keepdim=True)
+    xn = ((xh - mu) * torch.rsqrt(var + eps)).reshape(shape)
+    return (xn * weight.float() + bias.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -54,6 +91,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# attention projections, MLP and head
+# --------------------------------------------------------------------------- #
+def qkv(x, lp, cfg):
+    """q (B,S,H,hd) and k, v (B,S,KV,hd), with the optional QKV bias."""
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    q = x @ lp["wq"]
+    k = x @ lp["wk"]
+    v = x @ lp["wv"]
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def mlp_residual(x, lp, cfg, plain: bool):
+    """x + GLU MLP of the RMS-normed x (the norm is K1)."""
+    h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
+    return x + glu_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act)
 
 
 # --------------------------------------------------------------------------- #

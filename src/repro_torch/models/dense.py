@@ -22,13 +22,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def param_dtype(cfg: ModelConfig) -> torch.dtype:
-    return _DTYPES[cfg.dtype]
-
-
 # --------------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------------- #
@@ -36,7 +29,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random weights on ``gen.device``, drawn one layer at a time (f32 for one
     matrix, then cast), so a full-width model is made on the card without a
     full f32 copy anywhere."""
-    dt = param_dtype(cfg)
+    dt = cm.param_dtype(cfg)
     dev = gen.device
     hd = cfg.resolved_head_dim
     l, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
@@ -72,47 +65,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return {name: w[i] for name, w in layers.items()}
-
-
-# --------------------------------------------------------------------------- #
-# blocks
-# --------------------------------------------------------------------------- #
-def _qkv(x, lp, cfg: ModelConfig):
-    hd = cfg.resolved_head_dim
-    b, s, _ = x.shape
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
-    if cfg.qkv_bias:
-        q = q + lp["bq"]
-        k = k + lp["bk"]
-        v = v + lp["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
-    return q, k, v
-
-
-def _mlp_residual(x, lp, cfg: ModelConfig, plain: bool):
-    h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
-    return x + cm.glu_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act)
-
-
 # --------------------------------------------------------------------------- #
 # serving: prefill + decode
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device | str) -> dict:
     hd = cfg.resolved_head_dim
-    dt = param_dtype(cfg)
+    dt = cm.param_dtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
+    """Every per-sequence leaf of ``cache`` with its batch axis."""
+    return [(cache["k"], 1), (cache["v"], 1)]
 
 
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
@@ -129,14 +99,14 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     ks = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     vs = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = cm.layer(params["layers"], i)
         h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = cm.qkv(h, lp, cfg)
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
         attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
         x = x + attn.reshape(b, s, -1) @ lp["wo"]
-        x = _mlp_residual(x, lp, cfg, plain)
+        x = cm.mlp_residual(x, lp, cfg, plain)
         ks[i] = k
         vs[i] = v
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
@@ -156,9 +126,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
     write_at = pos.clamp(max=cache["k"].shape[2] - 1).reshape(1).long()
     cache_len = pos + 1
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = cm.layer(params["layers"], i)
         h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = cm.qkv(h, lp, cfg)
         q = cm.apply_rope(q, positions, cfg.rope_theta)
         k = cm.apply_rope(k, positions, cfg.rope_theta)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
@@ -166,7 +136,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         v_cache.index_copy_(1, write_at, v)
         attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]
-        x = _mlp_residual(x, lp, cfg, plain)
+        x = cm.mlp_residual(x, lp, cfg, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x, params["embed"], params.get("out_head"))
     return dict(cache, len=cache_len), logits

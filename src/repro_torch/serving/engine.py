@@ -128,13 +128,18 @@ class ServingEngine:
         return None
 
     def _splice_cache(self, slot: int, new_cache: dict) -> None:
-        """Copy a single-sequence prefill cache into slot ``slot`` and zero the
-        rest of the slot, as the reference's zero-padded update does. The
+        """Copy a single-sequence prefill cache into row ``slot`` of every
+        per-sequence leaf, zeroing the rest of the row where the engine's
+        leaf is longer, as the reference's zero-padded update does. The
         shared ``len`` is left alone, as in the reference."""
-        for name in ("k", "v"):
-            dst, src = self.cache[name], new_cache[name]
-            dst[:, slot].zero_()
-            dst[:, slot, :src.shape[2]].copy_(src[:, 0])
+        rows = zip(api.cache_rows(self.cfg, self.cache),
+                   api.cache_rows(self.cfg, new_cache))
+        for (dst, axis), (src, _) in rows:
+            row, part = dst.select(axis, slot), src.select(axis, 0)
+            if part.shape != row.shape:
+                row.zero_()
+                row = row[tuple(slice(0, n) for n in part.shape)]
+            row.copy_(part)
 
     def submit(self, request: Request, prompt_tokens: np.ndarray) -> bool:
         """Prefill + admit into a slot. Returns False if no slot free."""

@@ -1,8 +1,11 @@
-"""The port's dense model against the JAX package's, on the same weights.
+"""The port's models (dense, hymba, RWKV-6) against the JAX package's, on the
+same weights.
 
 JAX initialises the parameters; ``repro_torch.convert.params_from_jax``
-carries them across as numpy. Norm weights and QKV biases are redrawn from a
-numpy seed so that they are not trivially one and zero. Both run in float32:
+carries them across as numpy. Norm weights, biases and the parameters that
+start at a constant (hymba's fusion scales and D-skip, RWKV's bonus and
+decay base) are redrawn from a numpy seed so that they are not trivially
+one, zero or uniform. Both run in float32:
 the JAX model casts softmax probabilities to v's dtype before the PV product
 while the kernels keep them in f32, so bf16 would compare two roundings.
 Tolerance: 1e-4 absolute and relative on logits and caches (f32 matmuls and
@@ -23,7 +26,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import api
 
-ARCHS = ["llama-13b", "qwen1.5-0.5b", "gemma-2b"]
+ARCHS = ["llama-13b", "qwen1.5-0.5b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -33,11 +36,21 @@ def _perturb(np_params, seed):
     def visit(node, name=""):
         if isinstance(node, dict):
             return {k: visit(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v, name) for v in node]
         arr = np.asarray(node, np.float32)
-        if "norm" in name:
-            return (1.0 + 0.1 * rng.standard_normal(arr.shape)).astype(np.float32)
-        if name in ("bq", "bk", "bv"):
-            return (0.1 * rng.standard_normal(arr.shape)).astype(np.float32)
+
+        def noise():
+            return rng.standard_normal(arr.shape)
+
+        if "norm" in name or name.endswith("_w") and name.startswith(("ln", "gn")) \
+                or name in ("beta_attn", "beta_ssm", "d_skip"):
+            return (1.0 + 0.1 * noise()).astype(np.float32)
+        if name in ("bq", "bk", "bv", "conv_b", "dt_bias", "u") \
+                or name.endswith("_b") and name.startswith(("ln", "gn")):
+            return (0.1 * noise()).astype(np.float32)
+        if name == "decay_base":
+            return (arr + 0.5 * noise()).astype(np.float32)
         return arr
 
     return visit(np_params)
@@ -66,18 +79,28 @@ def _pair(arch, seed=0):
     return jcfg, tcfg, jparams, params_from_jax(np_params, tcfg, "cpu")
 
 
-def _pad_port_cache(cache, max_len):
-    out = dict(cache)
-    for name in ("k", "v"):
-        src = cache[name]
-        dst = torch.zeros(src.shape[:2] + (max_len,) + src.shape[3:], dtype=src.dtype)
-        dst[:, :, :src.shape[2]] = src
-        out[name] = dst
-    return out
-
-
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _leaves(tree, path=""):
+    """{path: numpy array} of a cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {p: a for k, v in tree.items() for p, a in _leaves(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: a for i, v in enumerate(tree) for p, a in _leaves(v, f"{path}/{i}").items()}
+    return {path: _np(tree)}
+
+
+def _assert_caches_close(tcache, jcache):
+    """Every leaf of the port's cache equals the JAX package's: same tree,
+    shapes and dtypes, values within TOL."""
+    tl, jl = _leaves(tcache), _leaves(jcache)
+    assert tl.keys() == jl.keys()
+    for path, want in jl.items():
+        got = tl[path]
+        assert got.shape == want.shape and got.dtype == want.dtype, path
+        np.testing.assert_allclose(got, want, **TOL, err_msg=path)
 
 
 def test_smoke_configs_match_jax():
@@ -97,20 +120,19 @@ def test_prefill_and_decode_match_jax(arch):
     tcache, tlogits = api.prefill(tparams, torch.from_numpy(tokens), tcfg)
     assert tlogits.shape == (b, 1, tcfg.vocab_size)
     np.testing.assert_allclose(_np(tlogits), _np(jlogits), **TOL)
-    for name in ("k", "v"):
-        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]), **TOL)
+    _assert_caches_close(tcache, jcache)
     assert int(tcache["len"]) == int(jcache["len"]) == s
 
     jcache = japi.pad_cache(jcfg, jcache, max_len)
-    tcache = _pad_port_cache(tcache, max_len)
+    tcache = api.pad_cache(tcfg, tcache, max_len)
+    _assert_caches_close(tcache, jcache)
     for step in range(3):
         nxt = rng.integers(0, tcfg.vocab_size, (b, 1))
         jcache, jlogits = japi.decode_step(jparams, jcache, jnp.asarray(nxt, jnp.int32), jcfg)
         tcache, tlogits = api.decode_step(tparams, tcache, torch.from_numpy(nxt), tcfg)
         assert int(tcache["len"]) == int(jcache["len"]) == s + step + 1
         np.testing.assert_allclose(_np(tlogits), _np(jlogits), **TOL)
-        for name in ("k", "v"):
-            np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]), **TOL)
+        _assert_caches_close(tcache, jcache)
 
 
 def test_decode_past_cache_end_matches_jax():
@@ -131,9 +153,16 @@ def test_decode_past_cache_end_matches_jax():
     assert int(tcache["len"]) == int(jcache["len"]) == 9
 
 
+def _first_projection(params, cfg):
+    """A (d_model, ·) projection of the first layer, drawn at 1/sqrt(d)."""
+    if cfg.family == "hybrid":
+        return params["layers"][0]["wq"]
+    return params["layers"]["wr" if cfg.family == "rwkv" else "wq"][0]
+
+
 def test_init_params_shapes_match_jax():
     """The port's own initialiser yields the JAX package's tree, shapes and
-    dtypes, at the configured scales."""
+    dtypes (f32 leaves included under bf16), at the configured scales."""
     for arch in ARCHS:
         cfg = get_smoke_config(arch)
         jshapes = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
@@ -142,5 +171,47 @@ def test_init_params_shapes_match_jax():
         tshapes = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]),
                                params)
         assert tshapes == jshapes
-        std = float(params["layers"]["wq"].float().std())
+        std = float(_first_projection(params, cfg).float().std())
         assert abs(std - cfg.d_model ** -0.5) < 0.2 * cfg.d_model ** -0.5
+
+
+def test_params_from_jax_keeps_f32_leaves():
+    """Under a bf16 model the converted tree keeps the JAX package's dtypes:
+    f32 leaves stay f32, the rest are bf16, lists are walked."""
+    for arch in ("hymba-1.5b", "rwkv6-3b"):
+        jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+        np_params = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(0), jcfg))
+        params = params_from_jax(np_params, tcfg, "cpu")
+        want = jax.tree.map(lambda a: (a.shape, str(a.dtype)), np_params)
+        got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]), params)
+        assert got == want
+        assert "float32" in {d for _, d in jax.tree.leaves(
+            got, is_leaf=lambda x: isinstance(x, tuple))}
+
+
+@pytest.mark.parametrize("s", [16, 20, 32])
+def test_hymba_ring_placement_matches_jax(s):
+    """The reference caveat, pinned: a prefill keeps a window layer's last
+    ``min(window, s)`` keys at slots 0.. and decode writes position p at slot
+    p % window. With the smoke window of 16, a prefill of 16 or 32 tokens
+    then decodes exactly as a full prefill of s + 1 tokens; one of 20
+    overwrites a key that is not the oldest, and the decode step differs
+    from the full prefill. The port equals the JAX package in every case."""
+    jcfg, tcfg, jparams, tparams = _pair("hymba-1.5b", seed=5)
+    assert tcfg.window == 16
+    tokens = np.random.default_rng(9).integers(0, tcfg.vocab_size, (1, s + 1))
+    jcache, _ = japi.prefill(jparams, jnp.asarray(tokens[:, :s], jnp.int32), jcfg)
+    tcache, _ = api.prefill(tparams, torch.from_numpy(tokens[:, :s]), tcfg)
+    jcache = japi.pad_cache(jcfg, jcache, s + 4)
+    tcache = api.pad_cache(tcfg, tcache, s + 4)
+    nxt = tokens[:, s:]
+    jcache, jlogits = japi.decode_step(jparams, jcache, jnp.asarray(nxt, jnp.int32), jcfg)
+    tcache, tlogits = api.decode_step(tparams, tcache, torch.from_numpy(nxt), tcfg)
+    np.testing.assert_allclose(_np(tlogits), _np(jlogits), **TOL)
+    _assert_caches_close(tcache, jcache)
+    _, full = api.prefill(tparams, torch.from_numpy(tokens), tcfg)
+    gap = float(np.abs(_np(tlogits) - _np(full)).max())
+    if s % tcfg.window:
+        assert gap > 1e-2, gap
+    else:
+        assert gap < 1e-4, gap

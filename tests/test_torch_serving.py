@@ -2,7 +2,10 @@
 
 * Both engines, on the same float32 weights, are driven tick by tick on the
   same requests; greedy tokens, slot states and the shared cache length must
-  agree after every tick, past the end of the cache as well.
+  agree after every tick, past the end of the cache as well (for hymba: its
+  window layers' rings wrap and its global layers clamp; for RWKV-6: the
+  state absorbs left-padded prompts and inactive rows, as the reference's
+  does).
 * Sampler rows and ``analyze_job``, driven by explicit busy/idle durations,
   and the Algorithm-1 controller on seeded signal sequences must agree
   exactly.
@@ -50,7 +53,7 @@ def _engines(arch):
     return jeng, teng
 
 
-@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"])
 def test_engine_tokens_match_jax_tick_by_tick(arch):
     jeng, teng = _engines(arch)
     rng = np.random.default_rng(0)
@@ -167,3 +170,13 @@ def test_serve_launcher_runs_past_cache_end_on_cpu():
     assert 0.0 <= tel["exec_idle_time_fraction"] <= 1.0
     assert out["controller_downscales"] >= 1
 
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-3b"])
+def test_serve_launcher_runs_recurrent_archs_on_cpu(arch):
+    """``launch.serve --arch hymba-1.5b|rwkv6-3b --smoke --device cpu``: the
+    recurrent families serve end to end with the controller on."""
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--duration", "30", "--max-seq", "32", "--controller"])
+    assert out["arch"] == arch + "-smoke"
+    assert out["completed"] >= 1
+    assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0
