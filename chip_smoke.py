@@ -7,18 +7,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives its
 paths:
 
 * serving: holds K1-K3 against their plain PyTorch versions at the serving
-  path's shapes, times each beside its bound, its plain version and a
-  PyTorch yardstick call, compares full-width llama-13b logits between the
-  kernel path and the plain path, then serves llama-13b at full width
-  (random weights from a seed, bf16) through ``ServingEngine`` with the
-  Algorithm-1 controller on, and checks every kernel's launch count;
+  path's shapes and around the attention kernels' tiles and splits (K2 in
+  bf16 on the tensor cores and in f32 on the CUDA cores, K3 at cache
+  lengths around its chunks, each called twice for the same bits), times
+  each beside its bound, its plain version and a PyTorch yardstick call
+  (K2 and K3 also at hymba-1.5b's shapes), compares full-width llama-13b
+  logits between the kernel path and the plain path, then serves llama-13b
+  at full width (random weights from a seed, bf16) through
+  ``ServingEngine`` with the Algorithm-1 controller on, and checks every
+  kernel's launch count and that every bf16 K2 launch took the tensor
+  cores;
 * the recurrent families: holds K5 (Mamba selective scan) and K6 (RWKV-6
   WKV) against their plain versions (main shapes, a ragged length, S = 1
   from a carried state, a state carried across two calls, large dt,
   extreme decays) and times them at the decode step's shape; then, for
   hymba-1.5b and rwkv6-3b at full width, compares kernel-path and
-  plain-path logits and serves each through ``ServingEngine`` as above,
-  with exact launch counts;
+  plain-path logits (each beside its chaos floor: the plain path against
+  itself with attention, or the WKV recurrence, in float64) and serves each
+  through ``ServingEngine`` as above, with exact launch counts;
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -176,10 +183,11 @@ def check_close(name: str, got, want, tol: float) -> float:
 # --------------------------------------------------------------------------- #
 def check_kernels(dev) -> dict[str, float]:
     """Each kernel against its plain version on the same inputs, in bf16 at
-    the serving path's shapes and the cases around them. Returns the max
-    abs error at the main-path shape of each kernel."""
+    the serving path's shapes and the cases around them (attention also in
+    f32, and twice, to show the same bits). Returns the max abs error at the
+    main-path shape of each kernel."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attention, ops
 
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -197,32 +205,54 @@ def check_kernels(dev) -> dict[str, float]:
     xf, wf = rnd(5, 5120, dtype=torch.float32), rnd(5120, dtype=torch.float32)
     check_close("rmsnorm f32", ops.rmsnorm(xf, wf), ops.rmsnorm(xf, wf, plain=True),
                 F32_TOL)
-    # K2 prefill attention, model layout (B, S, H, d)
-    cases = [  # (b, s, h, kv, d, window, main)
-        (1, 32, 40, 40, 128, 0, True),     # llama-13b prefill bucket
-        (1, 64, 8, 1, 256, 0, False),      # MQA at d = 256 (gemma-2b)
-        (2, 96, 8, 2, 64, 40, False),      # GQA with a sliding window
-        (1, 37, 40, 40, 128, 0, False),    # ragged length
+    # K2 prefill attention, model layout (B, S, H, d); bf16 takes the
+    # tensor-core kernel, f32 the CUDA-core one. Around the 64-row tiles
+    # (63, 64, 65), hymba-1.5b's 2,048-token prefill with and without its
+    # 1,024-token window (GQA 25/5), every head dim.
+    cases = [  # (b, s, h, kv, d, window, dtype, main)
+        (1, 32, 40, 40, 128, 0, torch.bfloat16, True),     # llama-13b prefill bucket
+        (1, 64, 8, 1, 256, 0, torch.bfloat16, False),      # MQA at d = 256 (gemma-2b)
+        (2, 96, 8, 2, 64, 40, torch.bfloat16, False),      # GQA with a sliding window
+        (1, 37, 40, 40, 128, 0, torch.bfloat16, False),    # ragged length
+        *[(1, s, 25, 5, 64, 0, torch.bfloat16, False) for s in (63, 64, 65, 2048)],
+        (1, 2048, 25, 5, 64, 1024, torch.bfloat16, False),
+        *[(1, 65, 8, 2, d, 0, torch.bfloat16, False) for d in (32, 128, 256)],
+        (1, 65, 25, 5, 64, 0, torch.float32, False),
+        (1, 2048, 25, 5, 64, 1024, torch.float32, False),
     ]
-    for b, s, h, kv, d, window, main in cases:
-        q, k, v = rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
-        e = check_close(f"flash b={b} s={s} h={h} kv={kv} d={d} w={window}",
-                        ops.flash_attention(q, k, v, window=window),
-                        ops.flash_attention(q, k, v, window=window, plain=True),
-                        BF16_TOL)
+    for b, s, h, kv, d, window, dtype, main in cases:
+        q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype)
+        name = f"flash b={b} s={s} h={h} kv={kv} d={d} w={window} {str(dtype)[6:]}"
+        got = ops.flash_attention(q, k, v, window=window)
+        e = check_close(name, got, ops.flash_attention(q, k, v, window=window, plain=True),
+                        BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+        if not torch.equal(got, ops.flash_attention(q, k, v, window=window)):
+            raise AssertionError(f"{name}: two calls differ")
         if main:
             errs["flash_attention"] = e
-    # K3 decode attention, read in place from an (L, B, S, KV, d) cache
-    for b, s, h, kv, d in ((4, 256, 40, 40, 128), (2, 100, 8, 1, 256)):
-        kc, vc = rnd(3, b, s, kv, d), rnd(3, b, s, kv, d)
-        q = rnd(b, 1, h, d)
-        for cl in (1, s // 2 + 1, s, s + 9):
+    # K3 decode attention, read in place from an (L, B, S, KV, d) cache, at
+    # cache lengths around the split plan's chunks: llama-13b, hymba-1.5b's
+    # global cache, MQA at d = 256 with S not a multiple of the chunk
+    for b, s, h, kv, d, dtype in ((4, 256, 40, 40, 128, torch.bfloat16),
+                                  (4, 2048, 25, 5, 64, torch.bfloat16),
+                                  (2, 100, 8, 1, 256, torch.bfloat16),
+                                  (4, 2048, 25, 5, 64, torch.float32)):
+        kc, vc = rnd(3, b, s, kv, d, dtype=dtype), rnd(3, b, s, kv, d, dtype=dtype)
+        q = rnd(b, 1, h, d, dtype=dtype)
+        c, _ = decode_attention.split_plan(b, kv, s, d, kc.element_size())
+        for cl in (0, 1, c - 1, c, c + 1, s // 2 + 1, s, s + 9):
             n = torch.full((), cl, dtype=torch.int32, device=dev)
-            e = check_close(f"decode b={b} s={s} h={h} kv={kv} d={d} len={cl}",
-                            ops.decode_attention(q, kc[1], vc[1], n),
-                            ops.decode_attention(q, kc[1], vc[1], n, plain=True),
-                            BF16_TOL)
-            if (b, s, cl) == (4, 256, 256):
+            name = f"decode b={b} s={s} h={h} kv={kv} d={d} len={cl} {str(dtype)[6:]}"
+            got = ops.decode_attention(q, kc[1], vc[1], n)
+            if not torch.equal(got, ops.decode_attention(q, kc[1], vc[1], n)):
+                raise AssertionError(f"{name}: two calls differ")
+            if cl == 0:       # no valid slot: 0, as the TPU kernel gives
+                if not torch.equal(got, torch.zeros_like(got)):
+                    raise AssertionError(f"{name}: not 0")
+                continue
+            e = check_close(name, got, ops.decode_attention(q, kc[1], vc[1], n, plain=True),
+                            BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+            if (b, s, cl, dtype) == (4, 256, 256, torch.bfloat16):
                 errs["decode_attention"] = e
     torch.cuda.synchronize()
     return errs
@@ -233,7 +263,11 @@ def time_kernels(dev) -> dict[str, dict]:
     (llama-13b, bf16): RMSNorm over the 4 decode rows, prefill attention over
     the 32-token bucket, decode attention over 4 slots x 256 cache slots with
     the cache rotated over 8 layers (168 MB, past the 50 MB L2, as a decode
-    step finds it)."""
+    step finds it). Beside them, under "extra", attention at hymba-1.5b's
+    shapes: the 2,048-token prefill (25 q / 5 kv heads of 64) global and in
+    a 1,024-token window, and the decode step over a (4, 2048, 5, 64) cache
+    rotated over 8 layers (84 MB), each with its bound and SDPA
+    (``enable_gqa=True``; a boolean mask for the window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -242,6 +276,9 @@ def time_kernels(dev) -> dict[str, dict]:
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def heads(*ts):
+        return [t.transpose(1, 2) for t in ts]
 
     out = {}
     x, w = rnd(4, 1, 5120), rnd(5120)
@@ -259,27 +296,53 @@ def time_kernels(dev) -> dict[str, dict]:
         shape="q, k, v (1, 32, 40, 128) bf16, causal",
         kernel=timed(lambda: ops.flash_attention(q, k, v)),
         plain=timed(lambda: ops.flash_attention(q, k, v, plain=True)),
-        library=timed(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True)),
-        bound=bound_ms(4 * q.numel() * 2, 4 * d * b * h * pairs))
+        library=timed(lambda: F.scaled_dot_product_attention(*heads(q, k, v), is_causal=True)),
+        bound=bound_ms(4 * q.numel() * 2, 4 * d * b * h * pairs), extra={})
+    s, h, kv, d = 2048, 25, 5, 64
+    q, k, v = rnd(1, s, h, d), rnd(1, s, kv, d), rnd(1, s, kv, d)
+    pos = torch.arange(s, device=dev)
+    for label, window in (("hymba_global", 0), ("hymba_window", 1024)):
+        keep = pos[None, :] <= pos[:, None]
+        if window:
+            keep &= pos[None, :] > pos[:, None] - window
+        pairs = int(keep.sum())
+        sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
+        out["flash_attention"]["extra"][label] = dict(
+            shape=f"q (1, 2048, 25, 64), k, v (1, 2048, 5, 64) bf16, causal"
+                  + (", window 1024" if window else ""),
+            ms=graph_ms(lambda w=window: ops.flash_attention(q, k, v, window=w), 20),
+            library_ms=graph_ms(lambda kw=sdpa: F.scaled_dot_product_attention(
+                *heads(q, k, v), enable_gqa=True, **kw), 20),
+            bound=bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2, 4 * d * h * pairs))
+
+    it = iter(range(1 << 62))
+
+    def rotate(fn, n):
+        return lambda: fn(next(it) % n)
 
     layers, b, s, h, d = 8, 4, 256, 40, 128
     kc, vc = rnd(layers, b, s, h, d), rnd(layers, b, s, h, d)
     q = rnd(b, 1, h, d)
     n = torch.full((), s, dtype=torch.int32, device=dev)
-    it = iter(range(1 << 62))
-
-    def rotate(fn):
-        return lambda: fn(next(it) % layers)
-
     out["decode_attention"] = dict(
         shape="q (4, 1, 40, 128), caches (4, 256, 40, 128) bf16, len 256",
-        kernel=timed(rotate(lambda i: ops.decode_attention(q, kc[i], vc[i], n))),
+        kernel=timed(rotate(lambda i: ops.decode_attention(q, kc[i], vc[i], n), layers)),
         plain=timed(rotate(lambda i: ops.decode_attention(
-            q, kc[i], vc[i], n, plain=True)), 40),
+            q, kc[i], vc[i], n, plain=True), layers), 40),
         library=timed(rotate(lambda i: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc[i].transpose(1, 2), vc[i].transpose(1, 2)))),
+            *heads(q, kc[i], vc[i])), layers)),
         bound=bound_ms(2 * q.numel() * 2 + 2 * b * s * h * d * 2, 4 * d * b * h * s))
+    del kc, vc
+    b, s, h, kv, d = 4, 2048, 25, 5, 64
+    kc, vc = rnd(layers, b, s, kv, d), rnd(layers, b, s, kv, d)
+    q = rnd(b, 1, h, d)
+    n = torch.full((), s, dtype=torch.int32, device=dev)
+    out["decode_attention"]["extra"] = {"hymba_global": dict(
+        shape="q (4, 1, 25, 64), caches (4, 2048, 5, 64) bf16, len 2048",
+        ms=graph_ms(rotate(lambda i: ops.decode_attention(q, kc[i], vc[i], n), layers)),
+        library_ms=graph_ms(rotate(lambda i: F.scaled_dot_product_attention(
+            *heads(q, kc[i], vc[i]), enable_gqa=True), layers)),
+        bound=bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2, 4 * d * b * h * s))}
     return out
 
 
@@ -446,6 +509,11 @@ def profile_decode(cfg, params, cache, dev, step_ms: float, n_slots: int) -> dic
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
+    ours: dict[str, float] = {}
+    for e in on_card:                 # the port's kernels, by name
+        m = re.search(r"repro::(\w+)", e.key)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / steps
     result = {
         "card_busy_ms_per_step": busy_ms,
         "step_ms_unprofiled": step_ms,
@@ -453,6 +521,7 @@ def profile_decode(cfg, params, cache, dev, step_ms: float, n_slots: int) -> dic
         "kernel_launches_per_step": sum(e.count for e in on_card) / steps,
         "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
                                     for e in top},
+        "repro_kernels_ms_per_step": ours,
     }
     log(f"profile {cfg.name} decode step " + json.dumps(result))
     return result
@@ -488,16 +557,73 @@ def normwise_error(got: list, want: list, cfg, label: str) -> float:
     return worst
 
 
-def compare_logits(cfg, params, dev, tol: float, label: str, prompt: int = 32) -> float:
+def compare_logits(cfg, params, dev, tol: float, label: str, prompt: int = 32,
+                   floor: bool = False):
     """Kernel path against plain path on the same tokens: the worst normwise
-    relative logit error over a prefill and two decode steps."""
-    worst = normwise_error(logit_runs(cfg, params, dev, prompt, False),
-                           logit_runs(cfg, params, dev, prompt, True), cfg, label)
+    relative logit error over a prefill and two decode steps, gated at
+    ``tol``. With ``floor``, also the chaos floor beside it (the plain path
+    against itself with attention in float64, :func:`attention_f64_floor`);
+    returns both then."""
+    plain = logit_runs(cfg, params, dev, prompt, True)
+    worst = normwise_error(logit_runs(cfg, params, dev, prompt, False), plain, cfg, label)
     if worst > tol:
         raise AssertionError(f"{label}: normwise logit error {worst} > {tol}")
-    log(f"logits {label}: {prompt}-token prefill + 2 decode steps, kernel vs plain "
-        f"normwise rel err {worst:.3e} (tol {tol})")
-    return worst
+    msg = (f"logits {label}: {prompt}-token prefill + 2 decode steps, kernel vs plain "
+           f"normwise rel err {worst:.3e} (tol {tol})")
+    if not floor:
+        log(msg)
+        return worst
+    chaos = attention_f64_floor(cfg, params, dev, prompt, plain)
+    log(msg + f"; chaos floor (plain vs plain with attention in float64) {chaos:.3e}")
+    return {"kernel_vs_plain": worst, "plain_f32_vs_f64_attention": chaos}
+
+
+def mha_f64(q, k, v, *, causal: bool = True, window: int = 0):
+    """The plain prefill attention in float64, cast to q's type: a second
+    correct computation of the same function, for the chaos floor."""
+    import torch
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    k = torch.repeat_interleave(k.double(), h // kvh, dim=1)
+    v = torch.repeat_interleave(v.double(), h // kvh, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k) / d ** 0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window > 0:
+        keep &= kp > qp - window
+    s = torch.where(keep, s, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v).to(q.dtype)
+
+
+def decode_f64(q, k_cache, v_cache, cache_len):
+    """The plain decode attention in float64, cast to q's type."""
+    import torch
+    b, h, d = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    k = torch.repeat_interleave(k_cache.double(), h // kvh, dim=1)
+    v = torch.repeat_interleave(v_cache.double(), h // kvh, dim=1)
+    sc = torch.einsum("bhd,bhkd->bhk", q.double(), k) / d ** 0.5
+    sc = torch.where(torch.arange(s, device=q.device)[None, None, :] < cache_len, sc, -1e30)
+    return torch.einsum("bhk,bhkd->bhd", torch.softmax(sc, -1), v).to(q.dtype)
+
+
+def attention_f64_floor(cfg, params, dev, prompt: int, plain: list) -> float:
+    """The plain path's logits with both attention functions in float64,
+    against the plain path's (``plain``): how far two correct computations
+    of the model fall apart in bf16. A kernel-vs-plain error near it cannot
+    be told from rounding."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    saved = flash_attention.flash_attention_plain, decode_attention.decode_attention_plain
+    flash_attention.flash_attention_plain = mha_f64
+    decode_attention.decode_attention_plain = decode_f64
+    try:
+        f64 = logit_runs(cfg, params, dev, prompt, True)
+    finally:
+        flash_attention.flash_attention_plain, decode_attention.decode_attention_plain = saved
+    return normwise_error(f64, plain, cfg, f"{cfg.name} f64 attention")
 
 
 def wkv6_f64(r, k, v, w, u, state0=None, state_out=None):
@@ -611,6 +737,7 @@ def serve(cfg, params, dev) -> dict:
     import numpy as np
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels import flash_attention
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.telemetry import analyze_job
     from repro_torch.traces import generate_trace, get_trace
@@ -635,12 +762,16 @@ def serve(cfg, params, dev) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    wgmma = flash_attention.WGMMA_LAUNCHES
 
     n_prefill = len(engine.phase_ms["prefill"])
     n_decode = len(engine.phase_ms["decode"])
     expect = expected_launches(cfg, n_prefill, n_decode)
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if wgmma != launches["flash_attention"]:
+        raise AssertionError(f"{wgmma} of {launches['flash_attention']} bf16 prefill "
+                             "attention launches took the tensor-core kernel")
     if stats.n < 4:
         raise AssertionError(f"only {stats.n} requests completed (< 4)")
     if not all(0 <= r.req_id for r in engine.completed):
@@ -665,6 +796,7 @@ def serve(cfg, params, dev) -> dict:
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "wall_s": wall_s,
         "launches": launches,
+        "flash_wgmma_launches": wgmma,
     }
     log(f"serve {cfg.name} " + json.dumps(result))
     return result, engine.cache
@@ -699,7 +831,8 @@ def serve_model(name: str, dev) -> dict:
         checks["layers_bf16"] = rwkv_layers_check(cfg, params, dev, LOGITS_BF16_TOL, prompt)
     else:
         checks["logits_bf16"] = compare_logits(cfg, params, dev, LOGITS_BF16_TOL,
-                                               f"{name} bf16 ({cfg.n_layers} layers)", prompt)
+                                               f"{name} bf16 ({cfg.n_layers} layers)", prompt,
+                                               floor=cfg.family == "hybrid")
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     params32 = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg32)
     checks["logits_f32_2_layers"] = compare_logits(
@@ -728,6 +861,10 @@ def log_times(times: dict) -> None:
             pre = t["prefill"]
             log(f"time {name} prefill [{pre['shape']}] card ms: kernel {pre['ms']:.5f}, "
                 f"bound {pre['bound'][0]:.5f} ({pre['bound'][1]})")
+        for label, x in t.get("extra", {}).items():
+            log(f"time {name} {label} [{x['shape']}] card ms: kernel {x['ms']:.5f}, SDPA "
+                f"{x['library_ms']:.5f}, bound {x['bound'][0]:.5f} ({x['bound'][1]}), "
+                f"{x['bound'][0] / x['ms']:.1%} of the bound")
 
 
 # --------------------------------------------------------------------------- #
@@ -1096,7 +1233,12 @@ def main() -> int:
     _build.library()
     log(f"build: {len(_build.sources())} sources in {time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        entry = re.search(r"Compiling entry function '_Z(?:N5repro)?\d+(\w+)'", line)
+        if line.startswith("== "):
+            log("  nvcc " + line[3:])
+        elif entry:                     # the mangled name from the kernel's own name on
+            log("  ptxas entry " + entry.group(1))
+        elif "registers" in line or "spill" in line or "wgmma" in line:
             log("  ptxas " + line.strip().removeprefix("ptxas info    : "))
 
     errs = check_kernels(dev)
@@ -1125,6 +1267,7 @@ def main() -> int:
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs)
     for counts in [r["launches"] for r in runs] + [wresult["launches"]]:
         for name, n in counts.items():
             launches[name] += n
@@ -1148,6 +1291,11 @@ def main() -> int:
         }
         if "prefill" in t:
             row.update(prefill_ms=t["prefill"]["ms"], prefill_bound_ms=t["prefill"]["bound"][0])
+        for label, x in t.get("extra", {}).items():
+            row[label] = {"shape": x["shape"], "ms": x["ms"], "library_ms": x["library_ms"],
+                          "bound_ms": x["bound"][0], "bound_by": x["bound"][1]}
+        if name == "flash_attention":
+            row["launches_tensor_cores"] = wgmma_launches
         rows.append(row)
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}
     print(json.dumps({"kernels": rows}))

@@ -1,36 +1,67 @@
-// Forward attention with causal and sliding-window masks and GQA, for Hopper.
+// Forward attention with causal and sliding-window masks and GQA, for Hopper:
+// two hand-written kernels, chosen by element type.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel): online softmax over key tiles, f32
 // accumulator and row statistics, masked scores set to -1e30, fully masked
-// tiles skipped, output acc / max(l, 1e-30) in q's type. GQA is by index:
-// q head h reads kv head h / q_per_kv, with no repeated K/V in memory.
+// tiles skipped, output acc / max(l, 1e-30) rounded to nearest even in q's
+// type. GQA is by index: q head h reads kv head h / q_per_kv, with no
+// repeated K/V in memory. Tensors are read through their strides, so the
+// model's (B, S, H, d) layout needs no transpose copy, and any length works:
+// rows past Sq are not stored and keys past Sk weigh 0 (the TPU kernel
+// asserts divisibility instead).
 //
-// What bounds it on the card: at the serving path's prefill (B=1, H=KV=40,
-// S=32, d=128) it moves 4*B*H*S*d*2 bytes = 1.3 MB and does
-// 4*d*B*H*S*(S+1)/2 = 10.8 MFLOP, so bytes bound it (0.39 us against
-// 0.011 us at 989 TFLOP/s) and, at that size, launch latency bounds both.
-// At long prompts the causal FLOPs grow as S^2 and the tensor cores become
-// the limit; this first kernel uses the CUDA cores in f32 and leaves wgmma
-// and TMA to later work.
+// What bounds it on the card. llama-13b's 32-token prefill (B 1, H = KV =
+// 40, d 128) moves 4*B*H*S*d*2 bytes = 1.3 MB and does 4*d*B*H*S(S+1)/2 =
+// 10.8 MFLOP: bytes bound it (0.39 us), and at that size launch latency and
+// the first loads' latency bound both. hymba-1.5b's 2,048-token prefill
+// (B 1, 25 q / 5 kv heads, d 64) does 13.4 GFLOP in a global layer and 10.1
+// in a 1,024-token window layer against 15.7 MB: the tensor cores bound it
+// (13.6 and 10.2 us at 989 TFLOP/s bf16), and f32 CUDA cores could not go
+// below 13.4 GFLOP / 67 TFLOP/s = 200 us.
 //
-// Design: one block of 4 warps per (q tile of 32 rows, head, batch). The
-// block keeps its Q tile in shared memory and walks the K/V tiles of 32 keys
-// in order (the loop takes the place of the TPU grid's sequential kv axis),
-// skipping tiles wholly above the diagonal or outside the window. Each warp
-// owns 8 query rows; lane j scores key j of the tile for all 8 rows at once
-// (8 independent FMA chains per K load), so the row max and sum are warp
-// shuffles, and each lane accumulates d/32 output columns of the 8 rows,
-// reusing each V load 8 times. K rows are padded by one float in shared
-// memory so the 32 lanes read 32 banks.
-// Ragged edges are masked (rows past Sq are not stored, keys past Sk weigh
-// 0), so any prompt length works; the TPU kernel asserts divisibility.
-// Tensors are read through their strides (last axis contiguous), so the
-// model's (B, S, H, d) layout needs no transpose copy.
+// bf16: the tensor cores (flash_tc_kernel). One CTA per (64-row q tile, q
+// head, batch): one consumer warpgroup and one producer warp. The producer
+// fills a ring of 2-3 stages of K and V tiles (64 keys) in shared memory
+// with TMA (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPointByVersion, so nothing links libcuda), completion
+// counted in bytes on an mbarrier per stage; the consumers free a stage on
+// a second mbarrier. Tiles are stored in panels of 64 columns (32 at d 32)
+// with the 128-byte (64-byte) swizzle that wgmma reads without bank
+// conflicts. S = Q K^T is wgmma m64n64k16 with both operands in shared
+// memory, summed in f32. The online softmax runs on the accumulator
+// fragments in registers, in base 2 with the scale folded into the
+// exponent's FMA: a row's 64 scores lie on the 4 threads of a quad, so its
+// max takes two shuffles per tile and its sum two at the end. P is rounded to bf16 in registers and is the A operand of
+// wgmma m64n64k16 (m64n32k16 at d 32) against the V tile, which is read
+// transposed from the same layout; the output stays in f32 registers,
+// rescaled by alpha per tile. Masks are applied only on the tiles that need
+// them (the causal diagonal, the window's edge, the ragged end). Q arrives
+// once by TMA; out-of-range rows and keys arrive as zeros. The grid is one
+// dimension, every head's last q tile first: the longest causal rows start
+// first and the short ones fill the tail.
+//
+// f32: the CUDA cores (flash_f32_kernel). The tensor cores take f32 only
+// rounded to tf32 (about 1e-3 relative), which would break the f32 checks
+// (1e-4 normwise over two layers, 2e-5 per element), so f32 keeps this
+// kernel: one block of 4 warps per (q tile of 32 rows, head, batch); the
+// block keeps its Q tile in shared memory and walks the K/V tiles of 32
+// keys in order, skipping tiles wholly above the diagonal or outside the
+// window. Each warp owns 8 query rows; lane j scores key j of the tile for
+// all 8 rows at once, so the row max and sum are warp shuffles, and each
+// lane accumulates d/32 output columns of the 8 rows, reusing each V load 8
+// times. K rows are padded by one float in shared memory so the 32 lanes
+// read 32 banks.
+#include <stdio.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
 struct FlashParams {
   const void* q;
   const void* k;
@@ -51,9 +82,9 @@ constexpr int flash_smem_bytes() {
   return (kFlashBQ * D + kFlashBK * (D + 1) + kFlashBK * D) * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashWarps * 32)
-flash_kernel(const FlashParams p) {
+flash_f32_kernel(const FlashParams p) {
   constexpr int BQ = kFlashBQ, BK = kFlashBK;
   constexpr int RPW = BQ / kFlashWarps;  // query rows per warp
   constexpr int CPL = D / 32;            // output columns per lane
@@ -66,16 +97,16 @@ flash_kernel(const FlashParams p) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int g = head / p.q_per_kv;
-  const T* q = static_cast<const T*>(p.q) + b * p.qs[0] + head * p.qs[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.ks[0] + g * p.ks[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.vs[0] + g * p.vs[1];
-  T* o = static_cast<T*>(p.o) + b * p.os[0] + head * p.os[1];
+  const float* q = static_cast<const float*>(p.q) + b * p.qs[0] + head * p.qs[1];
+  const float* k = static_cast<const float*>(p.k) + b * p.ks[0] + g * p.ks[1];
+  const float* v = static_cast<const float*>(p.v) + b * p.vs[0] + g * p.vs[1];
+  float* o = static_cast<float*>(p.o) + b * p.os[0] + head * p.os[1];
   const int q0 = qt * BQ;
 
 #pragma unroll 8
   for (int idx = threadIdx.x; idx < BQ * D; idx += kFlashWarps * 32) {
     const int r = idx / D, c = idx % D;
-    s_q[idx] = q0 + r < p.sq ? to_f32(q[(q0 + r) * p.qs[2] + c]) : 0.f;
+    s_q[idx] = q0 + r < p.sq ? (q[(q0 + r) * p.qs[2] + c]) : 0.f;
   }
 
   float acc[RPW][CPL];
@@ -101,8 +132,8 @@ flash_kernel(const FlashParams p) {
     for (int idx = threadIdx.x; idx < BK * D; idx += kFlashWarps * 32) {
       const int r = idx / D, c = idx % D;
       const bool in = k0 + r < p.sk;
-      s_k[r * KSTRIDE + c] = in ? to_f32(k[(k0 + r) * p.ks[2] + c]) : 0.f;
-      s_v[idx] = in ? to_f32(v[(k0 + r) * p.vs[2] + c]) : 0.f;
+      s_k[r * KSTRIDE + c] = in ? (k[(k0 + r) * p.ks[2] + c]) : 0.f;
+      s_v[idx] = in ? (v[(k0 + r) * p.vs[2] + c]) : 0.f;
     }
     __syncthreads();
 
@@ -162,45 +193,344 @@ flash_kernel(const FlashParams p) {
     const float inv = 1.f / fmaxf(l[rr], 1e-30f);
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
-      o[qi * p.os[2] + lane + 32 * t] = from_f32<T>(acc[rr][t] * inv);
+      o[qi * p.os[2] + lane + 32 * t] = acc[rr][t] * inv;
     }
   }
 }
 
-template <typename T, int D>
-static cudaError_t launch(const FlashParams& p, int b, int h, cudaStream_t stream) {
+
+template <int D>
+static cudaError_t launch_f32(const FlashParams& p, int b, int h, cudaStream_t stream) {
   constexpr int kSmem = flash_smem_bytes<D>();
   // above 48 KB dynamic shared memory needs an opt-in, which is per device:
   // set it on every launch (a cheap host call), not once per process
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.sq + kFlashBQ - 1) / kFlashBQ, h, b);
-  flash_kernel<T, D><<<grid, kFlashWarps * 32, kSmem, stream>>>(p);
+  flash_f32_kernel<D><<<grid, kFlashWarps * 32, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t dispatch_d(const FlashParams& p, int b, int h, int d,
-                              cudaStream_t s) {
-  switch (d) {
-    case 32: return launch<T, 32>(p, b, h, s);
-    case 64: return launch<T, 64>(p, b, h, s);
-    case 128: return launch<T, 128>(p, b, h, s);
-    case 256: return launch<T, 256>(p, b, h, s);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kTcRows = 64;                     // q rows per CTA = keys per tile
+constexpr int kTcConsumers = 128;               // one warpgroup
+constexpr int kTcThreads = kTcConsumers + 32;   // and one producer warp
+
+template <int D>
+struct TcLayout {
+  static constexpr int PW = D < 64 ? D : 64;       // elements in a panel row
+  static constexpr int RB = PW * 2;                // its bytes: the swizzle span
+  static constexpr int PANEL = kTcRows * RB;       // one panel of a 64-row tile
+  static constexpr int NPANEL = D / PW;
+  static constexpr int TILE = PANEL * NPANEL;      // a 64-row tile, 64 * D * 2 bytes
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  static constexpr uint32_t SWIZZLE = RB == 128 ? 1 : 2;  // descriptor code: 128 B, 64 B
+  // Q, the K and V rings, 2 * STAGES + 1 mbarriers, and room to align to 1 KB
+  static constexpr int SMEM = TILE * (1 + 2 * STAGES) + 8 * (2 * STAGES + 1) + 1024;
+  static constexpr int MIN_BLOCKS = D >= 256 ? 1 : (D == 128 ? 2 : 3);
+};
+
+struct FlashTcParams {
+  void* o;
+  int64_t os[3];       // strides of o's axes (batch, head, seq)
+  int heads, batch, sq, sk, q_per_kv;
+  float scale_log2;    // 1/sqrt(d) * log2(e): the softmax runs in base 2
+  int causal, window;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The online softmax of one 64 x 64 score tile on the accumulator
+// fragments, in base 2: this thread holds columns 8 jb + 2 quad + {0, 1} of
+// rows qi and qi + 8, and the other three threads of its quad the rest of
+// those rows. Leaves P in `sc`, the rescale of the running output in
+// `alpha`. Inner tiles take the scale into the exponent's FMA; tiles on a
+// mask's edge (EDGE) scale first and mask to -1e30 as the TPU kernel does,
+// keys past Sk to weight 0.
+template <bool EDGE>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], const FlashTcParams& p, int k0,
+                                             int qi0, int quad) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qi0 + 8 * r;
+    float x[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int jb = t >> 1, e = t & 1;
+      x[t] = sc[jb * 4 + r * 2 + e];
+      if (EDGE) {
+        const int kj = k0 + jb * 8 + quad * 2 + e;
+        x[t] *= p.scale_log2;
+        if (kj >= p.sk)
+          x[t] = __int_as_float(0xff800000);  // -inf past the keys: weight 0
+        else if ((p.causal && kj > qi) || (p.window > 0 && kj <= qi - p.window))
+          x[t] = kNegInf;
+      }
+    }
+    float mx[8];  // the row max as a tree
+#pragma unroll
+    for (int t = 0; t < 8; ++t) mx[t] = fmaxf(x[t], x[t + 8]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) mx[t] = fmaxf(mx[t], mx[t + 4]);
+    float m = fmaxf(fmaxf(mx[0], mx[2]), fmaxf(mx[1], mx[3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[r], EDGE ? m : m * p.scale_log2);
+    alpha[r] = fast_exp2(m_run[r] - m_new);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const float pj = fast_exp2(EDGE ? x[t] - m_new : fmaf(x[t], p.scale_log2, -m_new));
+      sc[(t >> 1) * 4 + r * 2 + (t & 1)] = pj;
+      sum[t & 3] += pj;
+    }
+    // this thread's share of the row sum; the quad adds them up at the end
+    l_run[r] = l_run[r] * alpha[r] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+    m_run[r] = m_new;
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, TcLayout<D>::MIN_BLOCKS)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const FlashTcParams p) {
+  using L = TcLayout<D>;
+  constexpr int NST = L::STAGES;
+  constexpr int KSTEPS = D / 16;                 // k16 steps of S = Q K^T
+  constexpr int KPP = L::PW / 16;                // of them in one panel
+  constexpr int NCHUNK = D >= 64 ? D / 64 : 1;   // PV products of N = 64 (N = 32 at d 32)
+  constexpr int NO = D >= 64 ? 32 : 16;          // accumulator floats per thread per chunk
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;    // swizzle atoms need 1 KB alignment
+  const uint32_t s_k = s_q + L::TILE;
+  const uint32_t s_v = s_k + NST * L::TILE;
+  const uint32_t bar_full = s_v + NST * L::TILE;  // NST of each, 8 bytes apiece
+  const uint32_t bar_empty = bar_full + 8 * NST;
+  const uint32_t bar_q = bar_empty + 8 * NST;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // blocks run in index order: every head's last q tile (the longest causal
+  // rows) first, so the short ones fill the tail
+  const int per_qt = p.heads * p.batch;
+  const int qt = gridDim.x / per_qt - 1 - blockIdx.x / per_qt;
+  const int head = blockIdx.x % p.heads, b = blockIdx.x / p.heads % p.batch;
+  const int g = head / p.q_per_kv;
+  const int q0 = qt * kTcRows;
+  // the key tiles this q tile needs: the TPU kernel's skip tests
+  const int n_kt = (p.sk + kTcRows - 1) / kTcRows;
+  const int kt_end = p.causal ? min(n_kt, (q0 + kTcRows - 1) / kTcRows + 1) : n_kt;
+  const int first = q0 - p.window - (kTcRows - 1);
+  const int kt_begin = (p.window > 0 && first >= 0) ? first / kTcRows + 1 : 0;
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kTcConsumers);
+    }
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumers / 32) {
+    // producer: one lane issues every load
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, L::TILE);
+      for (int pn = 0; pn < L::NPANEL; ++pn)
+        tma_load_4d(s_q + pn * L::PANEL, &tq, bar_q, pn * L::PW, q0, head, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % NST;
+        mbar_wait(bar_empty + 8 * s, ((i / NST) & 1) ^ 1);  // a fresh stage passes at once
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::TILE);
+        const int k0 = (kt_begin + i) * kTcRows;
+        for (int pn = 0; pn < L::NPANEL; ++pn) {
+          tma_load_4d(s_k + s * L::TILE + pn * L::PANEL, &tk, bar_full + 8 * s, pn * L::PW, k0,
+                      g, b);
+          tma_load_4d(s_v + s * L::TILE + pn * L::PANEL, &tv, bar_full + 8 * s, pn * L::PW, k0,
+                      g, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread's accumulator rows are row0 and row0 + 8 of the
+  // tile; its columns are 8 * jb + 2 * quad + {0, 1} for each 8-column block jb
+  const int quad = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2);
+  float o[NCHUNK][NO];
+#pragma unroll
+  for (int n = 0; n < NCHUNK; ++n)
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[n][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % NST;
+    const uint32_t k_tile = s_k + s * L::TILE, v_tile = s_v + s * L::TILE;
+    mbar_wait(bar_full + 8 * s, (i / NST) & 1);
+
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = (kk / KPP) * L::PANEL + (kk % KPP) * 32;
+      wgmma_64_ss(sc, wgmma_desc(s_q + off, 8 * L::RB, 8 * L::RB, L::SWIZZLE),
+                  wgmma_desc(k_tile + off, 8 * L::RB, 8 * L::RB, L::SWIZZLE), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const int k0 = (kt_begin + i) * kTcRows;
+    const bool edge = k0 + kTcRows > p.sk || (p.causal && k0 + kTcRows - 1 > q0) ||
+                      (p.window > 0 && k0 <= q0 + kTcRows - 1 - p.window);
+    float alpha[2];
+    if (edge)
+      softmax_tile<true>(sc, m_run, l_run, alpha, p, k0, q0 + row0, quad);
+    else
+      softmax_tile<false>(sc, m_run, l_run, alpha, p, k0, q0 + row0, quad);
+#pragma unroll
+    for (int n = 0; n < NCHUNK; ++n)
+#pragma unroll
+      for (int jb = 0; jb < NO / 4; ++jb) {
+        o[n][jb * 4] *= alpha[0];
+        o[n][jb * 4 + 1] *= alpha[0];
+        o[n][jb * 4 + 2] *= alpha[1];
+        o[n][jb * 4 + 3] *= alpha[1];
+      }
+
+    // P in bf16: the S fragment of keys 16 kk .. 16 kk + 15 is the A
+    // fragment of the k16 step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) pa[kk][h] = pack_bf16(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+#pragma unroll
+    for (int n = 0; n < NCHUNK; ++n) fence_regs(o[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < NCHUNK; ++n) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = wgmma_desc(v_tile + n * L::PANEL + kk * 16 * L::RB, 8 * L::RB,
+                                       8 * L::RB, L::SWIZZLE);
+        if constexpr (NO == 32)
+          wgmma_64_rs(o[n], pa[kk], dv);
+        else
+          wgmma_32_rs(o[n], pa[kk], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < NCHUNK; ++n) fence_regs(o[n]);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] + head * p.os[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (qi >= p.sq) continue;
+    l = fmaxf(l, 1e-30f);
+    __nv_bfloat16* orow = out + qi * p.os[2];
+#pragma unroll
+    for (int n = 0; n < NCHUNK; ++n)
+#pragma unroll
+      for (int jb = 0; jb < NO / 4; ++jb) {
+        const int col = n * 64 + jb * 8 + quad * 2;
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(o[n][jb * 4 + r * 2] / l, o[n][jb * 4 + r * 2 + 1] / l);
+      }
+  }
+}
+
+template <int D>
+static cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                             const FlashTcParams& p, int b, int h, cudaStream_t stream) {
+  constexpr int kSmem = TcLayout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
+  flash_tc_kernel<D><<<n_qt * h * b, kTcThreads, kSmem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// A bf16 (batch, rows, heads, d) view, element strides (batch, head, seq),
+// as a 4-D tensor map of 64-row boxes one panel wide, swizzled as wgmma reads
+// them. Rows and heads past the ends load as zeros.
+static bool encode_tile_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
+                            int batch, const int64_t* st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) {
+    fprintf(stderr, "repro: cuTensorMapEncodeTiled not found in the driver\n");
+    return false;
+  }
+  const int pw = d < 64 ? d : 64;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(rows), cuuint64_t(heads),
+                              cuuint64_t(batch)};
+  // a dimension of size 1 is never stepped: give it a legal stride
+  const cuuint64_t strides[3] = {rows > 1 ? cuuint64_t(st[2]) * 2 : cuuint64_t(d) * 2,
+                                 heads > 1 ? cuuint64_t(st[1]) * 2 : cuuint64_t(d) * 2,
+                                 batch > 1 ? cuuint64_t(st[0]) * 2 : cuuint64_t(d) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(pw), cuuint32_t(kTcRows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        pw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) fprintf(stderr, "repro: cuTensorMapEncodeTiled failed (CUresult %d)\n", int(r));
+  return r == CUDA_SUCCESS;
 }
 
 }  // namespace repro
 
 // strides: 12 int64 values, (batch, head, seq) strides of q, k, v and o in
 // elements; the head-dim axis of each must be contiguous.
-extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, const int64_t* strides, int b,
-                                     int h, int kv, int sq, int sk, int d,
-                                     float scale, int causal, int window,
-                                     int dtype, void* stream) {
+extern "C" int repro_flash_attention_f32(const float* q, const float* k, const float* v,
+                                         float* o, const int64_t* strides, int b, int h, int kv,
+                                         int sq, int sk, int d, float scale, int causal,
+                                         int window, void* stream) {
   if (kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
   repro::FlashParams p;
   p.q = q;
@@ -220,9 +550,45 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   p.causal = causal;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case repro::kF32: return repro::dispatch_d<float>(p, b, h, d, s);
-    case repro::kBF16: return repro::dispatch_d<__nv_bfloat16>(p, b, h, d, s);
+  switch (d) {
+    case 32: return repro::launch_f32<32>(p, b, h, s);
+    case 64: return repro::launch_f32<64>(p, b, h, s);
+    case 128: return repro::launch_f32<128>(p, b, h, s);
+    case 256: return repro::launch_f32<256>(p, b, h, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The same interface for bf16, on the tensor cores. Every pointer must be
+// 16-byte aligned and every stride of an axis longer than 1 a multiple of 8
+// elements (the tensor maps' rule); o is written with 4-byte stores.
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                                          const int64_t* strides, int b, int h, int kv, int sq,
+                                          int sk, int d, float scale, int causal, int window,
+                                          void* stream) {
+  if (kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!repro::encode_tile_map(&tq, q, d, sq, h, b, strides) ||
+      !repro::encode_tile_map(&tk, k, d, sk, kv, b, strides + 3) ||
+      !repro::encode_tile_map(&tv, v, d, sk, kv, b, strides + 6))
+    return cudaErrorInvalidValue;
+  repro::FlashTcParams p;
+  p.o = o;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.heads = h;
+  p.batch = b;
+  p.sq = sq;
+  p.sk = sk;
+  p.q_per_kv = h / kv;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.causal = causal;
+  p.window = window;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return repro::launch_tc<32>(tq, tk, tv, p, b, h, s);
+    case 64: return repro::launch_tc<64>(tq, tk, tv, p, b, h, s);
+    case 128: return repro::launch_tc<128>(tq, tk, tv, p, b, h, s);
+    case 256: return repro::launch_tc<256>(tq, tk, tv, p, b, h, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,8 @@ its plain PyTorch version.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version. Each kernel module counts its launches in
-a plain integer ``LAUNCHES``.
+a plain integer ``LAUNCHES``; prefill attention also counts, in
+``WGMMA_LAUNCHES``, the launches that took its tensor-core kernel.
 
 The serving path runs RMSNorm, prefill attention and decode attention, and,
 for hymba and RWKV-6, the Mamba selective scan and the WKV recurrence; the
@@ -33,3 +34,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
+    flash_attention.WGMMA_LAUNCHES = 0

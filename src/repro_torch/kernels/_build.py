@@ -5,8 +5,11 @@ together) for ``sm_90a`` into an object file, and the objects are linked into
 one shared library with a plain C interface. The library lands in
 ``build/repro_torch_kernels/<hash of sources and flags>/`` at the root of the
 checkout (git-ignored), so a later process with the same sources loads it
-without compiling. ``ptxas -v`` output (registers, shared memory, spills) is
-kept beside it in ``build.log``.
+without compiling. Each source's compile time and ``ptxas -v`` output
+(registers, shared memory, spills) are kept beside it in ``build.log``.
+The sources include only the CUDA toolkit's headers (no CUTLASS or CuTe),
+and the tensor maps' encoder is taken from the driver at run time, so the
+library links against nothing but the CUDA runtime.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -19,6 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,10 +42,12 @@ _D = ctypes.c_double
 #: argument types of each exported C function (all return a cudaError_t)
 SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _I, _P],
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                               _I, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _I, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P],
     "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _P],
     "repro_downscale_replay": [_P, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P,
                                _L, _L, _L, _L, _P, _P, _P],
@@ -74,30 +81,33 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(cmd: list[str]) -> tuple[int, str, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def build(out_dir: Path) -> Path:
     """Compile every source in parallel and link the shared library into
     ``out_dir``. Raises with the compiler's output if any step fails."""
     out_dir.mkdir(parents=True, exist_ok=True)
     cc = nvcc()
+    srcs = sources()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        procs = []
-        for src in sources():
-            obj = Path(tmp) / (src.stem + ".o")
-            cmd = [cc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log, failed = [], []
-        for src, _, proc in procs:
-            out, _ = proc.communicate()
-            log.append(f"== {src.name} (exit {proc.returncode})\n{out}")
-            if proc.returncode:
-                failed.append(src.name)
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        cmds = [[cc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(srcs, objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            results = list(pool.map(_compile, cmds))
+        log = [f"== {src.name} (exit {rc}, {secs:.1f} s)\n{out}"
+               for src, (rc, out, secs) in zip(srcs, results)]
         (out_dir / "build.log").write_text("\n".join(log))
+        failed = [src.name for src, (rc, _, _) in zip(srcs, results) if rc]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
-            [cc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            [cc, "-shared", "-o", str(tmp_lib), *(str(o) for o in objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")

@@ -1,11 +1,13 @@
 """Forward attention with causal and sliding-window masks and GQA: the CUDA
-kernel ``csrc/flash_attention.cu`` on the card, :func:`flash_attention_plain`
+kernels of ``csrc/flash_attention.cu`` on the card, :func:`flash_attention_plain`
 on the CPU.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::
 flash_attention``. Unlike it, any sequence length works (ragged tiles are
 masked), and inputs are read through their strides, so head-major views of
-the model's (B, S, H, d) tensors need no copy.
+the model's (B, S, H, d) tensors need no copy. On the card the element type
+picks the kernel (:func:`route`): bf16 runs on the tensor cores (wgmma fed by
+TMA), f32 on the CUDA cores, whose f32 arithmetic the f32 checks need.
 """
 from __future__ import annotations
 
@@ -16,11 +18,36 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: launches of the CUDA kernel in this process
+#: launches of either CUDA kernel in this process
 LAUNCHES = 0
+#: of them, launches of the tensor-core (bf16) kernel
+WGMMA_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_Q_PER_KV = 8
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of ``dtype`` launches: ``"wgmma"`` (bf16, the
+    tensor cores) or ``"cuda_cores"`` (f32)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise ValueError(f"unsupported dtype {dtype}; the kernels take bfloat16 and float32")
+
+
+def require_16b_rows(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's rows (its last axis) can be read in 16-byte
+    units, as tensor maps and 16-byte copies read them: a 16-byte aligned
+    start and, on every other axis longer than 1, a stride of whole 16
+    bytes."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(n > 1 and (st * size) % 16
+                                    for n, st in zip(t.shape[:-1], t.stride()[:-1])):
+            raise ValueError(f"tensor of shape {tuple(t.shape)} and strides "
+                             f"{t.stride()} is not readable in 16-byte rows")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
@@ -35,7 +62,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card the result is a head-major view of memory laid out as
     (B, Sq, H, d), so the model layout is one free transpose away.
     """
-    global LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _build.require_cuda(q, k, v)
@@ -51,8 +78,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    kernel = route(q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head-dim axis must be contiguous")
+    if kernel == "wgmma":
+        require_16b_rows(q, k, v)
     if window < 0 or max(b, h, sq, sk) >= 2**31:
         raise ValueError("unsupported window or size")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -60,11 +90,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
-    err = _build.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), b, h, kv, sq, sk, d,
-        ctypes.c_float(1.0 / math.sqrt(d)), int(causal), window,
-        _build.dtype_code(q), _build.stream_ptr(q))
+    lib = _build.library()
+    fn = lib.repro_flash_attention_bf16 if kernel == "wgmma" else lib.repro_flash_attention_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             ctypes.addressof(strides), b, h, kv, sq, sk, d,
+             ctypes.c_float(1.0 / math.sqrt(d)), int(causal), window,
+             _build.stream_ptr(q))
     _build.check(err, "flash_attention")
     LAUNCHES += 1
+    if kernel == "wgmma":
+        WGMMA_LAUNCHES += 1
     return out
