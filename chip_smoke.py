@@ -11,12 +11,13 @@ paths:
   bf16 on the tensor cores and in f32 on the CUDA cores, K3 at cache
   lengths around its chunks, each called twice for the same bits), times
   each beside its bound, its plain version and a PyTorch yardstick call
-  (K2 and K3 also at hymba-1.5b's shapes), compares full-width llama-13b
-  logits between the kernel path and the plain path, then serves llama-13b
-  at full width (random weights from a seed, bf16) through
-  ``ServingEngine`` with the Algorithm-1 controller on, and checks every
-  kernel's launch count and that every bf16 K2 launch took the tensor
-  cores;
+  (K1, K2 and K3 also at hymba-1.5b's shapes, K1 at both prefills; K1's
+  launch floor, an empty kernel, and the time K1 adds after a GEMM),
+  compares full-width llama-13b logits between the kernel path and the
+  plain path, then serves llama-13b at full width (random weights from a
+  seed, bf16) through ``ServingEngine`` with the Algorithm-1 controller
+  on, and checks every kernel's launch count and that every bf16 K2 launch
+  took the tensor cores;
 * the recurrent families: holds K5 (Mamba selective scan) and K6 (RWKV-6
   WKV) against their plain versions (main shapes, a ragged length, S = 1
   from a carried state, a state carried across two calls, large dt,
@@ -31,7 +32,11 @@ paths:
   scan, K7 cooldown chain), holds the outcomes against the NumPy oracle
   (time and count fields exact, energies and penalties within 1e-9
   relative), checks K4 and K7 against their plain versions at the largest
-  padding bucket and times them.
+  padding bucket and times them; K7 also at every padding bucket (at 8 and
+  32 lanes a pair, each beside the bytes its fires need; their sum beside
+  K7's time in a profiled ``evaluate``) and on synthetic edge buckets (K past one staged chunk,
+  S = 1, pairs that fire on every run or never), each called twice for the
+  same bits.
 
 Output: one line per phase; before the last, a ``{"kernels": [...]}`` JSON
 line and the card's name and power limit from nvidia-smi; last, the
@@ -287,7 +292,22 @@ def time_kernels(dev) -> dict[str, dict]:
         kernel=timed(lambda: ops.rmsnorm(x, w, 1e-6)),
         plain=timed(lambda: ops.rmsnorm(x, w, 1e-6, plain=True)),
         library=timed(lambda: F.rms_norm(x, (5120,), w, 1e-6)),
-        bound=bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel()))
+        bound=bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel()), extra={},
+        launch=rmsnorm_launch(dev, rnd))
+    # hymba's prefill rows rotate over 8 copies (52 MB, past the L2), so its
+    # time is against device memory, as its bound is
+    it = iter(range(1 << 62))
+    for label, shape, copies in (("hymba_decode", (4, 1, 1600), 1),
+                                 ("llama_prefill", (1, 32, 5120), 1),
+                                 ("hymba_prefill", (1, 2048, 1600), 8)):
+        xs, w = rnd(copies, *shape), rnd(shape[-1])
+        x = xs[0]
+        out["rmsnorm"]["extra"][label] = dict(
+            shape=f"x {shape} bf16" + (f", rotated over {copies} copies" if copies > 1 else ""),
+            ms=graph_ms(lambda xs=xs, w=w, n=copies: ops.rmsnorm(xs[next(it) % n], w, 1e-6)),
+            library_ms=graph_ms(lambda xs=xs, w=w, n=copies: F.rms_norm(
+                xs[next(it) % n], (w.numel(),), w, 1e-6)),
+            bound=bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel()))
 
     b, s, h, d = 1, 32, 40, 128
     q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
@@ -344,6 +364,30 @@ def time_kernels(dev) -> dict[str, dict]:
             *heads(q, kc[i], vc[i]), enable_gqa=True), layers)),
         bound=bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2, 4 * d * b * h * s))}
     return out
+
+
+def rmsnorm_launch(dev, rnd) -> dict:
+    """K1's launch floor and marginal cost: the per-call time of an empty
+    one-warp kernel launched as K1 is, and of K1 at (4, 1, 5120), each in a
+    100-call graph; and in a graph of 100 x (the GEMM before K1 in the
+    decode step, then K1 on its output) the time beyond 100 x the GEMM
+    alone (the mean of one graph before and one after), for K1 and for the
+    empty kernel in its place. GEMMs: llama-13b's (4, 5120) x (5120, 5120)
+    and hymba-1.5b's attention out-projection (4, 1600) x (1600, 1600)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k1
+    res = {"empty_ms": graph_ms(lambda: k1.empty_launch(dev), replays=20)}
+    x, w = rnd(4, 1, 5120), rnd(5120)
+    res["k1_ms"] = graph_ms(lambda: ops.rmsnorm(x, w, 1e-6), replays=20)
+    for label, d in (("llama", 5120), ("hymba", 1600)):
+        a, wgt, w = rnd(4, 1, d), rnd(d, d), rnd(d)
+        gemm = graph_ms(lambda: a @ wgt, replays=20)
+        both = graph_ms(lambda: ops.rmsnorm(a @ wgt, w, 1e-6), replays=20)
+        empty = graph_ms(lambda: (a @ wgt, k1.empty_launch(dev)), replays=20)
+        gemm = (gemm + graph_ms(lambda: a @ wgt, replays=20)) / 2
+        res[label] = dict(gemm_ms=gemm, k1_marginal_ms=both - gemm,
+                          empty_marginal_ms=empty - gemm)
+    return res
 
 
 def ssm_args(g, dev, bsz, s, big_dt=False):
@@ -862,9 +906,12 @@ def log_times(times: dict) -> None:
             log(f"time {name} prefill [{pre['shape']}] card ms: kernel {pre['ms']:.5f}, "
                 f"bound {pre['bound'][0]:.5f} ({pre['bound'][1]})")
         for label, x in t.get("extra", {}).items():
-            log(f"time {name} {label} [{x['shape']}] card ms: kernel {x['ms']:.5f}, SDPA "
+            log(f"time {name} {label} [{x['shape']}] card ms: kernel {x['ms']:.5f}, torch "
                 f"{x['library_ms']:.5f}, bound {x['bound'][0]:.5f} ({x['bound'][1]}), "
                 f"{x['bound'][0] / x['ms']:.1%} of the bound")
+        if "launch" in t:
+            log(f"time {name} launch floor and marginal card ms (100-call graphs): "
+                + json.dumps(t["launch"]))
 
 
 # --------------------------------------------------------------------------- #
@@ -974,26 +1021,45 @@ def cap_scan_edge_cases(dev) -> None:
 
 
 def profile_evaluate(grid, store, kw) -> dict:
-    """One 10^4-config ``evaluate`` under torch.profiler: the card's busy
-    time against the wall time, and the kernels that take it."""
+    """One 10^4-config ``evaluate`` under torch.profiler, after one under its
+    warm-up step (late in this process, a profile's first device records
+    can be lost, and the cooldown chain's launches come first): the card's
+    busy time against the wall time, and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.whatif import evaluate
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    steps = []                        # the active step's events, as the profiler hands them over
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: steps.append(p.key_averages())) as prof:
+        evaluate(grid, store, **kw)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         evaluate(grid, store, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        prof.step()
+    on_card = [e for e in steps[0] if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]    # the step's own range
     busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    ours: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    for e in on_card:                 # the port's kernels, by name
+        m = re.search(r"repro::(\w+)", e.key)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3
+            launches[m.group(1)] = launches.get(m.group(1), 0) + e.count
     result = {"wall_ms_profiled": wall_ms, "card_busy_ms": busy_ms,
+              "repro_kernel_launches": launches,
               "card_idle_share": 1.0 - busy_ms / wall_ms,
               "device_ops": sum(e.count for e in on_card),
-              "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+              "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+              "repro_kernels_ms": ours}
     log("profile what-if evaluate " + json.dumps(result))
     return result
 
@@ -1066,20 +1132,153 @@ def replay_kernels(dev, grid, packed) -> dict:
         k7_err = max(k7_err, check_close("downscale_replay savings", g, w, WHATIF_RTOL))
     c7 = trig.numel()
     k_dim = a["lr_s0"].shape[1]
-    in_bytes = sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
     valid_runs = int(a["lr_valid"].sum())
     fired = int(got[0].sum())
+    bound, n_bytes = chain_bound(args)
     k7_row = dict(
         shape=f"lr_* ({s_dim}, {k_dim}), ds_cum ({s_dim}, 4, {a['ds_cum'].shape[2]}) "
               f"f64, {c7} (trigger, cooldown) pairs",
         kernel=timed(lambda: k7.downscale_replay(*args), 20),
         plain=timed(lambda: k7.downscale_replay_plain(*args), 2),
         library=None,
-        bound=bound_ms(in_bytes + 7 * s_dim * c7 * 8,
-                       3 * valid_runs * c7 + 40 * fired, F32_OPS_PER_S),
+        bound=bound, bound_bytes=n_bytes,
         max_abs_err=k7_err, plain_peak_gib=plain_gib, fired=fired,
-        valid_runs=valid_runs, pairs=c7)
+        valid_runs=valid_runs, pairs=c7,
+        buckets=chain_buckets(dev, packed, trig, y))
+    chain_edge_cases(dev)
     return {"cap_bucket_scan": k4_row, "downscale_replay": k7_row}
+
+
+def check_chain(name: str, args) -> tuple:
+    """K7 on ``args`` against its plain version: the integer outputs equal,
+    the savings within 1e-9 (rtol = atol), two calls the same bits, and the
+    same at every lanes-per-pair choice. Returns the default call's
+    outputs."""
+    import torch
+    from repro_torch.kernels import downscale_replay as k7
+    got, want = k7.downscale_replay(*args), k7.downscale_replay_plain(*args)
+    tensors = dict(zip([n for n, _, _ in k7._INPUTS], args[:8] + args[9:]))
+    plans = [k7.launch(tensors, args[8], k7.replay_plan(args[0].shape[1], args[9].numel(), n))
+             for n in k7.LANES]
+    for out in [got, *plans]:
+        for i, (g, w) in enumerate(zip(out, want)):
+            if i < 3 and not torch.equal(g, w):
+                raise AssertionError(f"{name}: integer output {i} kernel != plain")
+            if i >= 3:
+                check_close(f"{name} savings", g, w, WHATIF_RTOL)
+    if not all(torch.equal(g, h) for g, h in zip(got, k7.downscale_replay(*args))):
+        raise AssertionError(f"{name}: two calls differ")
+    return got
+
+
+def chain_bound(args) -> tuple[tuple[float, str], int]:
+    """K7's bound on ``args`` and the bytes it counts. Bytes: the run
+    tables, ``ts_first``, the pairs and the seven ``[S, C]`` results, each
+    moved once, and of the prefix tables only the 32-byte sectors that hold
+    a fired run's end row or trigger row, in ``cum_res`` and in each of
+    ``ds_cum``'s four planes (the rows this run's fires need, from the plain
+    version's decisions). Operations: a compare per (valid run, pair) and
+    some 40 per fire, at the float32 rate."""
+    import torch
+    from repro_torch.kernels import downscale_replay as k7
+    lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res, ds_cum, ts_first, dt, trig, y = args
+    s_dim, n1, c_dim = lr_s0.shape[0], cum_res.shape[1], trig.numel()
+    fire, gpos = k7.chain_rows(lr_s0, lr_len, lr_busy, lr_valid, ts_first, dt, trig, y)
+    k, s, _ = fire.nonzero(as_tuple=True)
+    rows = torch.cat([s * n1 + (lr_s0 + lr_len)[s, k], s * n1 + gpos[fire]]).unique()
+    s_of, r_of = rows // n1, rows % n1
+    addr = [cum_res.data_ptr() + rows * 8]
+    addr += [ds_cum.data_ptr() + ((s_of * 4 + p) * n1 + r_of) * 8 for p in range(4)]
+    sectors = (torch.cat(addr) // 32).unique().numel()
+    small = (lr_s0, lr_len, lr_busy, lr_valid, lr_trail, ts_first, trig, y)
+    n_bytes = (sum(t.numel() * t.element_size() for t in small) + 32 * sectors
+               + 7 * s_dim * c_dim * 8)
+    ops = 3 * int(lr_valid.sum()) * c_dim + 40 * int(fire.sum())
+    return bound_ms(n_bytes, ops, F32_OPS_PER_S), n_bytes
+
+
+def chain_buckets(dev, packed, trig, y) -> list[dict]:
+    """K7 at every padding bucket of the 10^4 run: checked by
+    :func:`check_chain`, then its card time (20 calls in a graph) at each
+    lanes-per-pair choice beside its bound (:func:`chain_bound`)."""
+    from repro_torch.kernels import downscale_replay as k7
+    rows = []
+    for b in packed.buckets:
+        a = b.device_tensors(dev)
+        args = (a["lr_s0"], a["lr_len"], a["lr_busy"], a["lr_valid"], a["lr_trail"],
+                a["cum_res"], a["ds_cum"], a["ts_first"], packed.dt_s, trig, y)
+        s_dim, k_dim = a["lr_s0"].shape
+        c7 = trig.numel()
+        got = check_chain(f"downscale_replay bucket K={k_dim}", args)
+        tensors = dict(zip([n for n, _, _ in k7._INPUTS], args[:8] + args[9:]))
+        ms = {n: graph_ms(lambda n=n: k7.launch(tensors, packed.dt_s,
+                                                k7.replay_plan(k_dim, c7, n)), 20)
+              for n in k7.LANES}
+        plan = k7.replay_plan(k_dim, c7)
+        fired, valid = int(got[0].sum()), int(a["lr_valid"].sum())
+        bound, n_bytes = chain_bound(args)
+        rows.append(dict(streams=s_dim, k=k_dim, n1=a["cum_res"].shape[1], pairs=c7,
+                         valid_runs=valid, fired=fired, lanes=plan.lanes, ms=ms[plan.lanes],
+                         ms_by_lanes=ms, bound_ms=bound[0], bound_by=bound[1],
+                         bound_bytes=n_bytes))
+        log(f"time downscale_replay bucket (S {s_dim}, K {k_dim}, N1 {rows[-1]['n1']}), "
+            f"{c7} pairs, {valid} valid runs, {fired} fires: card ms {ms[plan.lanes]:.5f} "
+            f"at {plan.lanes} lanes a pair (8 / 32: {ms[8]:.5f} / {ms[32]:.5f}), bound "
+            f"{bound[0]:.5f} ({bound[1]}; {n_bytes} bytes), "
+            f"{bound[0] / ms[plan.lanes]:.1%} of the bound")
+    total, bound = sum(r["ms"] for r in rows), sum(r["bound_ms"] for r in rows)
+    log(f"time downscale_replay, all {len(rows)} buckets: card ms {total:.5f} for one launch "
+        f"each, bound {bound:.5f} ({sum(r['bound_bytes'] for r in rows)} bytes), "
+        f"{bound / total:.1%} of the bound")
+    return rows
+
+
+def synthetic_bucket(seed: int, s_dim: int, k_dim: int, n_max: int | None = None,
+                     dt: float = 0.25) -> dict:
+    """A packed bucket of ``s_dim`` streams with 1 to ``n_max`` (default K)
+    low runs each out of ``k_dim``, the rest padding, as NumPy arrays keyed
+    by the kernel's argument names: runs of 1-20 rows with gaps of 1-10,
+    each run's busy time the timestamp of the row after it, one trailing
+    flag drawn per stream, random resident-sample and saving prefix tables
+    of ``31 * K + 2`` entries. Seconds per row: ``dt``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n1 = 31 * k_dim + 2
+    s0 = np.zeros((s_dim, k_dim), np.int64)
+    ln = np.zeros((s_dim, k_dim), np.int64)
+    valid = np.zeros((s_dim, k_dim), bool)
+    trail = np.zeros((s_dim, k_dim), bool)
+    tsf = rng.uniform(0.0, 1000.0, s_dim)
+    for i in range(s_dim):
+        n = int(rng.integers(1, (n_max or k_dim) + 1))
+        lens = rng.integers(1, 21, n)
+        s0[i, :n] = np.cumsum(rng.integers(1, 11, n) + np.r_[0, lens[:-1]])
+        ln[i, :n], valid[i, :n], trail[i, n - 1] = lens, True, bool(rng.integers(0, 2))
+    res = np.concatenate([np.zeros((s_dim, 1), np.int64),
+                          np.cumsum(rng.integers(0, 2, (s_dim, n1 - 1)), 1)], 1)
+    ds = np.cumsum(rng.uniform(0.0, 300.0, (s_dim, 4, n1)), 2)
+    return dict(lr_s0=s0, lr_len=ln, lr_busy=tsf[:, None] + dt * (s0 + ln), lr_valid=valid,
+                lr_trail=trail, cum_res=res, ds_cum=ds, ts_first=tsf)
+
+
+def chain_edge_cases(dev) -> None:
+    """K7 on :func:`synthetic_bucket`s: K past one staged chunk (1,300
+    runs), S = 1, every run padding but one; 25 pairs (no multiple of a
+    tile) holding trigger 0 at cooldown 0, which fires on every valid run,
+    and trigger 1 << 62, which never fires."""
+    import torch
+    pairs = [(t, yy) for t in (0, 1, 3, 8, 1 << 62) for yy in (0.0, 0.5, 2.0, 7.5, 30.0)]
+    trig = torch.tensor([p[0] for p in pairs], dtype=torch.int64, device=dev)
+    y = torch.tensor([p[1] for p in pairs], dtype=torch.float64, device=dev)
+    dt = 0.25
+    for seed, s_dim, k_dim, n_max in ((1, 3, 1300, 1300), (2, 1, 40, 40), (3, 4, 64, 1)):
+        a = synthetic_bucket(seed, s_dim, k_dim, n_max, dt)
+        t = [torch.from_numpy(v).to(dev) for v in a.values()]
+        got = check_chain(f"downscale_replay S={s_dim} K={k_dim}", (*t, dt, trig, y))
+        if not torch.equal(got[0][:, 0], t[3].sum(1)) or got[0][:, -5:].any():
+            raise AssertionError(f"downscale_replay S={s_dim} K={k_dim}: trigger 0 does not "
+                                 "fire on every run, or 1 << 62 fires")
+    torch.cuda.synchronize()
 
 
 def whatif(dev) -> dict:
@@ -1264,6 +1463,9 @@ def main() -> int:
     log(f"downscale_replay plain version at the main shape used "
         f"{k7['plain_peak_gib']:.3f} GiB of device memory; {k7['fired']} of "
         f"{k7['valid_runs'] * k7['pairs']} (valid run, pair) lanes fired")
+    prof_k7 = wresult["evaluate_profile"]["repro_kernels_ms"].get("downscale_chain_kernel")
+    log(f"downscale_replay card time: {sum(b['ms'] for b in k7['buckets']):.5f} ms over the "
+        f"{len(k7['buckets'])} buckets timed alone, {prof_k7} ms in the profiled 10^4 evaluate")
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
@@ -1294,6 +1496,9 @@ def main() -> int:
         for label, x in t.get("extra", {}).items():
             row[label] = {"shape": x["shape"], "ms": x["ms"], "library_ms": x["library_ms"],
                           "bound_ms": x["bound"][0], "bound_by": x["bound"][1]}
+        for key in ("launch", "buckets"):
+            if key in t:
+                row[key] = t[key]
         if name == "flash_attention":
             row["launches_tensor_cores"] = wgmma_launches
         rows.append(row)

@@ -41,7 +41,8 @@ _L = ctypes.c_int64
 _D = ctypes.c_double
 #: argument types of each exported C function (all return a cudaError_t)
 SIGNATURES = {
-    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "repro_empty_kernel": [_P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -50,7 +51,7 @@ SIGNATURES = {
                                _I, _I, _I, _F, _I, _P],
     "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _P],
     "repro_downscale_replay": [_P, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P,
-                               _L, _L, _L, _L, _P, _P, _P],
+                               _L, _L, _L, _L, _P, _P, _I, _I, _I, _P],
     "repro_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -6,8 +6,10 @@ Replaces ``src/repro/whatif/backend.py::_downscale_kernel``, which is not
 Pallas: a jitted ``lax.scan`` over each stream's low-activity runs (the
 cooldown chain) wrapped in vectorized ``[K, S, C]`` passes that resolve the
 trigger row and gather the prefix tables. The kernel does all of it in one
-pass, one thread per (stream, (trigger, cooldown) pair), with nothing but
-the seven ``[S, C]`` results in device memory.
+pass: one block per (stream, tile of pairs) stages the stream's run table in
+shared memory, and a group of lanes per pair walks the chain by warp votes
+(:func:`replay_plan` picks the lanes per pair and the chunk), with nothing
+but the seven ``[S, C]`` results in device memory.
 
 Inputs, per padding bucket of :func:`repro_torch.whatif.backend.pack_ir`
 (``S`` streams, ``K`` padded low runs, ``N1`` prefix entries):
@@ -34,12 +36,22 @@ searchsorted(ts[s0:e0], last_busy + y, "left"))``, found exactly by the
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import _build
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
+
+#: runs of the table staged in shared memory at a time (73 bytes each)
+CHUNK_RUNS = 512
+RUN_BYTES = 73
+#: warps per block (``kThreads / 32`` in the source); each walks 32 // lanes pairs
+WARPS = 8
+#: the lanes-per-pair choices (a template parameter of the kernel)
+LANES = (8, 32)
 
 _INPUTS = (("lr_s0", torch.int64, 2), ("lr_len", torch.int64, 2),
            ("lr_busy", torch.float64, 2), ("lr_valid", torch.bool, 2),
@@ -48,20 +60,17 @@ _INPUTS = (("lr_s0", torch.int64, 2), ("lr_len", torch.int64, 2),
            ("trig", torch.int64, 1), ("y", torch.float64, 1))
 
 
-def downscale_replay_plain(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res,
-                           ds_cum, ts_first, dt: float, trig, y):
-    """The vectorized transcription of the JAX package's
-    ``_downscale_kernel``: the chain is a Python loop over K, everything else
-    ``[K, S, C]`` tensors (so it needs K * S * C * ~40 bytes)."""
+def chain_rows(lr_s0, lr_len, lr_busy, lr_valid, ts_first, dt: float, trig, y):
+    """The chain's decisions, as the plain version takes them: ``fire``
+    ``[K, S, C]`` (run k of stream s fires under pair c) and ``gpos``
+    ``[K, S, C]``, the row of the prefix tables at a fired run's trigger (the
+    run's first row where it does not fire)."""
     s_dim, k_dim = lr_s0.shape
     c_dim = trig.shape[0]
     f64 = torch.float64
     tsf = ts_first[:, None]
-    e0 = lr_s0 + lr_len
-    res_end = torch.gather(cum_res, 1, e0)
-    end4 = torch.gather(ds_cum, 2, e0[:, None, :].expand(s_dim, 4, k_dim))
     # last-row timestamp per run, the same two roundings as StreamIR.ts()
-    ts_last = tsf + dt * (e0 - 1).to(f64)
+    ts_last = tsf + dt * (lr_s0 + lr_len - 1).to(f64)
     can_fire = lr_valid.T[:, :, None] & (lr_len.T[:, :, None] > trig[None, None, :])
 
     fire = torch.empty((k_dim, s_dim, c_dim), dtype=torch.bool, device=lr_s0.device)
@@ -86,7 +95,21 @@ def downscale_replay_plain(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res,
         ts_j = tsf3 + dt * (s0k + lo + w).to(f64)
         cnt += ((lo + w < lnk) & (ts_j < t_cd)).to(torch.int64)
     i_row = torch.maximum(trig[None, None, :], lo + cnt)
-    gpos = s0k + torch.where(fire, i_row, 0)
+    return fire, s0k + torch.where(fire, i_row, 0)
+
+
+def downscale_replay_plain(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res,
+                           ds_cum, ts_first, dt: float, trig, y):
+    """The vectorized transcription of the JAX package's
+    ``_downscale_kernel``: the chain is a Python loop over K
+    (:func:`chain_rows`), everything else ``[K, S, C]`` tensors (so it needs
+    K * S * C * ~40 bytes)."""
+    s_dim, k_dim = lr_s0.shape
+    c_dim = trig.shape[0]
+    e0 = lr_s0 + lr_len
+    res_end = torch.gather(cum_res, 1, e0)
+    end4 = torch.gather(ds_cum, 2, e0[:, None, :].expand(s_dim, 4, k_dim))
+    fire, gpos = chain_rows(lr_s0, lr_len, lr_busy, lr_valid, ts_first, dt, trig, y)
 
     idx = gpos.permute(1, 0, 2).reshape(s_dim, k_dim * c_dim)
     fire_sc = fire.permute(1, 0, 2)
@@ -100,6 +123,43 @@ def downscale_replay_plain(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res,
         return torch.where(fire_sc, end4[:, plane][:, :, None] - g, 0.0).sum(1)
 
     return (n_down, n_rest, thr, saved(0), saved(1), saved(2), saved(3))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayPlan:
+    """How one bucket is cut for the kernel: ``lanes`` per (stream, pair)
+    chain, ``chunk`` runs staged per pass, ``tiles`` blocks of :data:`WARPS`
+    warps per stream (the grid is ``S * tiles``, stream-major)."""
+    lanes: int
+    chunk: int
+    tiles: int
+
+    @property
+    def pairs_per_block(self) -> int:
+        return WARPS * (32 // self.lanes)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.chunk * RUN_BYTES
+
+
+def lanes_for(k_dim: int) -> int:
+    """Lanes per pair: 8 where they hold all K runs in one window (a warp
+    then carries four chains), else a warp per pair, which keeps the most
+    warps in flight for the long chains of the larger buckets."""
+    return 8 if k_dim <= 8 else 32
+
+
+def replay_plan(k_dim: int, c_dim: int, lanes: int | None = None) -> ReplayPlan:
+    """The launch plan of a ``[S, K]`` bucket over ``C`` pairs: ``lanes``
+    (one of :data:`LANES`; :func:`lanes_for` by default), the staged chunk a
+    multiple of 32 runs up to :data:`CHUNK_RUNS` (the whole table where it
+    fits), and enough tiles of :attr:`ReplayPlan.pairs_per_block` pairs to cover C."""
+    lanes = lanes_for(k_dim) if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"lanes per pair must be one of {LANES}, not {lanes}")
+    chunk = min(CHUNK_RUNS, max(32, -(-k_dim // 32) * 32))
+    return ReplayPlan(lanes, chunk, max(1, -(-c_dim // (WARPS * (32 // lanes)))))
 
 
 def _check(tensors: dict) -> tuple[int, int, int, int]:
@@ -126,7 +186,6 @@ def downscale_replay(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res, ds_cum
                      ts_first, dt: float, trig, y):
     """The whole-family Algorithm-1 replay over one bucket (see the module
     docstring for the arguments and results)."""
-    global LAUNCHES
     tensors = dict(lr_s0=lr_s0, lr_len=lr_len, lr_busy=lr_busy, lr_valid=lr_valid,
                    lr_trail=lr_trail, cum_res=cum_res, ds_cum=ds_cum,
                    ts_first=ts_first, trig=trig, y=y)
@@ -137,16 +196,28 @@ def downscale_replay(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res, ds_cum
     _build.require_cuda(*tensors.values())
     if not all(t.is_contiguous() for t in tensors.values()):
         raise ValueError("the replay tensors must be contiguous")
-    dev = lr_s0.device
+    return launch(tensors, float(dt), replay_plan(k_dim, c_dim))
+
+
+def launch(tensors: dict, dt: float, plan: ReplayPlan):
+    """Launches the kernel with ``plan`` on the CUDA tensors (keyed by
+    argument name) that :func:`downscale_replay` has checked; the results
+    as it returns them. ``chip_smoke.py`` times other plans through it."""
+    global LAUNCHES
+    s_dim, k_dim = tensors["lr_s0"].shape
+    n1 = tensors["cum_res"].shape[1]
+    c_dim = tensors["trig"].shape[0]
+    dev = tensors["lr_s0"].device
     ints = torch.empty((3, s_dim, c_dim), dtype=torch.int64, device=dev)
     flts = torch.empty((4, s_dim, c_dim), dtype=torch.float64, device=dev)
     if s_dim * c_dim:
+        ptr = {k: t.data_ptr() for k, t in tensors.items()}
         err = _build.library().repro_downscale_replay(
-            lr_s0.data_ptr(), lr_len.data_ptr(), lr_busy.data_ptr(),
-            lr_valid.data_ptr(), lr_trail.data_ptr(), cum_res.data_ptr(),
-            ds_cum.data_ptr(), ts_first.data_ptr(), float(dt), trig.data_ptr(),
-            y.data_ptr(), s_dim, k_dim, n1, c_dim, ints.data_ptr(),
-            flts.data_ptr(), _build.stream_ptr(lr_s0))
+            ptr["lr_s0"], ptr["lr_len"], ptr["lr_busy"], ptr["lr_valid"],
+            ptr["lr_trail"], ptr["cum_res"], ptr["ds_cum"], ptr["ts_first"], dt,
+            ptr["trig"], ptr["y"], s_dim, k_dim, n1, c_dim, ints.data_ptr(),
+            flts.data_ptr(), plan.lanes, plan.chunk, plan.tiles,
+            _build.stream_ptr(tensors["lr_s0"]))
         _build.check(err, "downscale_replay")
         LAUNCHES += 1
     return (ints[0], ints[1], ints[2], flts[0], flts[1], flts[2], flts[3])

@@ -94,3 +94,27 @@ def test_resolve_backend():
     for bad in ("jax", "tpu", "cuda"):
         with pytest.raises(ValueError, match="unknown backend"):
             resolve_backend(bad)
+
+
+#: the scripts at the root of the repository that drive the port on the card
+SCRIPTS = ("chip_smoke.py", "attention_sweep.py")
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_import_no_jax_or_repro(script):
+    text = (SRC.parent / script).read_text()
+    assert not FORBIDDEN.findall(text), script
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_exit_2_without_cuda(script, tmp_path):
+    """Without a card the scripts print no result and exit 2 (a CPU-only
+    torch reports no CUDA)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this test needs a machine without a CUDA device")
+    out = subprocess.run([sys.executable, str(SRC.parent / script)],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+    assert out.returncode == 2, out.stderr
+    assert '"ok"' not in out.stdout

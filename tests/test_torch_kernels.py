@@ -6,6 +6,7 @@ to ``repro.kernels.ref`` on the same numpy inputs, at that file's
 tolerances. The card's kernels are held to the plain versions by the
 ``gpu`` test, which skips where there is no card.
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -168,6 +169,50 @@ def test_rmsnorm_plain_matches_pallas(jk, shape, dtype):
                                **tol(dtype))
 
 
+@pytest.mark.parametrize("rows,d,itemsize,aligned,plan", [
+    # hymba-1.5b decode and prefill: a warp per row, 8 rows a block
+    (4, 1600, 2, True, (8, 8, 128, True, 1)),
+    (2048, 1600, 2, True, (8, 8, 256, True, 256)),
+    # llama-13b decode and prefill: a block per row of 160 threads x 4 vectors
+    (4, 5120, 2, True, (8, 4, 160, False, 4)),
+    (32, 5120, 2, True, (8, 4, 160, False, 32)),
+    (4, 5120, 4, True, (4, 8, 160, False, 4)),
+    (4, 3200, 2, True, (8, 2, 224, False, 4)),
+    (1, 8, 2, True, (8, 1, 32, True, 1)),
+    # the scalar path: D not a multiple of the vector, or a row not aligned
+    (3, 37, 2, True, (1, 2, 96, True, 1)),
+    (9, 37, 4, True, (1, 2, 256, True, 2)),
+    (4, 5120, 2, False, (1, 8, 512, False, 4)),
+    # past 8 vectors a thread at 512 threads: the kernel reads the rest again
+    (2, 65536, 2, True, (8, 8, 512, False, 2)),
+])
+def test_rmsnorm_launch_plan(rows, d, itemsize, aligned, plan):
+    from repro_torch.kernels import rmsnorm as k1
+    assert tuple(dataclasses.astuple(k1.launch_plan(rows, d, itemsize, aligned))) == plan
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_launch_plan_covers_every_row(itemsize, aligned):
+    """Every plan is one the kernel takes (threads a multiple of 32 within
+    its launch bounds, vpt a template choice), its grid covers the rows, and
+    a warp's row fits in the warp's registers."""
+    from repro_torch.kernels import rmsnorm as k1
+    for d in (1, 7, 8, 37, 256, 257, 1600, 2048, 2049, 3200, 5120, 8192, 20000, 70000):
+        for rows in (1, 3, 4, 8, 9, 32, 2048):
+            p = k1.launch_plan(rows, d, itemsize, aligned)
+            vec = 16 // itemsize
+            assert p.width == (vec if aligned and d % vec == 0 else 1)
+            assert p.vpt in k1.VPT_CHOICES and p.threads % 32 == 0 and p.threads >= 32
+            nv = d // p.width
+            if p.warp_rows:
+                assert nv <= 32 * p.vpt and p.threads <= 256
+                assert p.blocks * (p.threads // 32) >= rows > (p.blocks - 1) * (p.threads // 32)
+            else:
+                assert nv > k1.WARP_ROW_VECTORS and p.threads <= k1.BLOCK_THREADS_MAX
+                assert p.blocks == rows
+
+
 def test_cpu_tensors_never_launch():
     """On the CPU every wrapper takes the plain version and counts nothing."""
     tk.reset_launch_counts()
@@ -216,3 +261,36 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     assert {k: after[k] - before[k] for k in after} == {
         "rmsnorm": 1, "flash_attention": 4, "decode_attention": 8,
         "cap_bucket_scan": 0, "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_launch_shapes_on_card(cuda, dtype):
+    """K1 against its plain version at every launch shape its plan gives:
+    a warp per row and a block per row, the scalar path (D = 37, and a row
+    view that is not 16-byte aligned), a row past the registers (D = 40000);
+    two calls give the same bits."""
+    from repro_torch.kernels import rmsnorm as k1
+    atol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    before, calls = tk.launch_counts()["rmsnorm"], 0
+    for d in (8, 37, 1600, 3200, 5120, 40000):
+        for rows in (1, 4, 32, 2048):
+            if d * rows > 2**24:        # D = 40000 at up to 32 rows
+                continue
+            x, w = rnd(rows, 1, d), rnd(d)
+            got = rmsnorm(x, w)
+            torch.testing.assert_close(got, rmsnorm_plain(x, w), rtol=atol, atol=atol)
+            assert torch.equal(got, rmsnorm(x, w)), (d, rows)
+            calls += 2
+    buf = rnd(4 * 1600 + 3)
+    x, w = buf[3:].view(4, 1600), rnd(1600)
+    assert x.data_ptr() % 16 and k1.launch_plan(4, 1600, x.element_size(), False).width == 1
+    torch.testing.assert_close(rmsnorm(x, w), rmsnorm_plain(x, w), rtol=atol, atol=atol)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["rmsnorm"] - before == calls + 1
+

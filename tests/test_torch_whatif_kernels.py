@@ -8,6 +8,8 @@ version is held to the NumPy oracle's per-stream decision replay: counts
 exact, savings within 1e-9 relative. The ``gpu`` test holds both CUDA
 kernels to their plain versions on the card and skips where there is none.
 """
+import importlib.util
+import pathlib
 import tempfile
 import types
 
@@ -19,7 +21,7 @@ from repro_torch import kernels as tk
 from repro_torch.cluster import generate_cluster
 from repro_torch.core.controller import ControllerConfig, DownscaleMode
 from repro_torch.kernels import ops
-from repro_torch.kernels.downscale_replay import (downscale_replay,
+from repro_torch.kernels.downscale_replay import (chain_rows, downscale_replay,
                                                   downscale_replay_plain)
 from repro_torch.kernels.run_replay import cap_bucket_scan, cap_bucket_scan_plain
 from repro_torch.telemetry import TelemetryStore
@@ -28,6 +30,12 @@ from repro_torch.whatif import backend as B
 from repro_torch.whatif.policies import DownscaleBatch, _run_downscale
 
 RTOL = ATOL = 1e-9        # float savings: the sum order differs from NumPy's
+
+#: chip_smoke.py, for the synthetic buckets and the byte bound it shares
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(scope="module")
@@ -150,6 +158,11 @@ def test_downscale_plain_matches_numpy_oracle(packed):
     assert fired > 0
 
 
+#: the bucket arrays K7 reads, in the order of its arguments
+K7_ARRAYS = ("lr_s0", "lr_len", "lr_busy", "lr_valid", "lr_trail", "cum_res", "ds_cum",
+             "ts_first")
+
+
 def k7_args(bucket, trig, y):
     a = {k: torch.from_numpy(v) for k, v in bucket.arrays.items()}
     return (a["lr_s0"], a["lr_len"], a["lr_busy"], a["lr_valid"], a["lr_trail"],
@@ -185,6 +198,129 @@ def test_cpu_tensors_never_launch(packed):
                     torch.ones(b.idx.size, 4, 3, dtype=torch.float64))
     assert tk.launch_counts()["cap_bucket_scan"] == 0
     assert tk.launch_counts()["downscale_replay"] == 0
+
+
+def synthetic_bucket(seed, s_dim, k_dim, n_max=None, dt=0.25):
+    """``chip_smoke.synthetic_bucket`` as a bucket: runs of 1-20 rows with
+    gaps of 1-10 in up to ``k_dim`` slots a stream, random prefix tables."""
+    return types.SimpleNamespace(
+        arrays=chip_smoke.synthetic_bucket(seed, s_dim, k_dim, n_max, dt), dt=dt)
+
+
+def walk_chains(arrays, dt, trig, y):
+    """Per (stream, pair), the chain walked run by run in Python: the fired
+    runs and each one's trigger row, ``s0 + max(trig, searchsorted(ts[s0:e0],
+    last_busy + y, "left"))`` on the timestamps ``fl(ts_first + fl(dt * i))``."""
+    fired = {}
+    s_dim, k_dim = arrays["lr_s0"].shape
+    for s in range(s_dim):
+        tsf = arrays["ts_first"][s]
+        for c, (tr, yc) in enumerate(zip(trig, y)):
+            last, fires = -np.inf, []
+            for k in range(k_dim):
+                s0, ln = int(arrays["lr_s0"][s, k]), int(arrays["lr_len"][s, k])
+                t_cd = last + yc
+                if arrays["lr_valid"][s, k] and ln > tr and tsf + dt * (s0 + ln - 1) >= t_cd:
+                    ts = tsf + dt * np.arange(s0, s0 + ln, dtype=np.float64)
+                    fires.append((k, s0 + max(tr, int(np.searchsorted(ts, t_cd, "left")))))
+                    last = arrays["lr_busy"][s, k]
+            fired[s, c] = fires
+    return fired
+
+
+#: (trigger, cooldown) pairs: every eligible run fires at (0, 0.0); no run
+#: passes a trigger of 1 << 62; 25 pairs, not a multiple of any tile
+EDGE_PAIRS = [(t, y) for t in (0, 1, 3, 8, 1 << 62) for y in (0.0, 0.5, 2.0, 7.5, 30.0)]
+
+
+def test_downscale_plain_fires_every_eligible_run():
+    """On the synthetic bucket the plain version fires every valid run at
+    trigger 0 and cooldown 0 and none at trigger 1 << 62, and its inputs
+    hold the layout the kernel reads (runs inside the prefix tables)."""
+    b = synthetic_bucket(1, 3, 40)
+    a = {k: torch.from_numpy(v) for k, v in b.arrays.items()}
+    assert bool(((a["lr_s0"] + a["lr_len"]) < a["cum_res"].shape[1]).all())
+    args = list(k7_args(b, [p[0] for p in EDGE_PAIRS], [p[1] for p in EDGE_PAIRS]))
+    args[8] = b.dt
+    out = downscale_replay_plain(*args)
+    assert torch.equal(out[0][:, 0], a["lr_valid"].sum(1))
+    never = [i for i, (t, _) in enumerate(EDGE_PAIRS) if t == 1 << 62]
+    assert all(int(t[:, never].abs().sum()) == 0 for t in out)
+
+
+@pytest.fixture(params=["synthetic", "fixture"])
+def chain_case(request, packed):
+    """A bucket, its seconds per row and EDGE_PAIRS as (trig, y) lists."""
+    if request.param == "synthetic":
+        b = synthetic_bucket(6, 3, 40)
+        return b.arrays, b.dt, [p[0] for p in EDGE_PAIRS], [p[1] for p in EDGE_PAIRS]
+    return (packed.buckets[0].arrays, 1.0, [p[0] for p in EDGE_PAIRS],
+            [p[1] for p in EDGE_PAIRS])
+
+
+def test_chain_rows_match_a_walk_in_python(chain_case):
+    """The plain version's decisions and trigger rows (``chain_rows``) equal
+    a run-by-run walk with an exact ``searchsorted``: the 4-probe window
+    finds the same row."""
+    arrays, dt, trig, y = chain_case
+    a = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    fire, gpos = chain_rows(a["lr_s0"], a["lr_len"], a["lr_busy"], a["lr_valid"],
+                            a["ts_first"], dt, torch.tensor(trig),
+                            torch.tensor(y, dtype=torch.float64))
+    want = walk_chains(arrays, dt, trig, y)
+    assert sum(len(f) for f in want.values()) > 0
+    for (s, c), fires in want.items():
+        assert fire[:, s, c].nonzero().flatten().tolist() == [k for k, _ in fires]
+        assert [int(gpos[k, s, c]) for k, _ in fires] == [g for _, g in fires]
+
+
+def test_chain_bound_counts_the_sectors_fires_need(chain_case):
+    """``chip_smoke.chain_bound`` counts the run tables, ts_first, the pairs
+    and the seven results once each, and of the prefix tables the 32-byte
+    sectors that hold a fired run's end or trigger row (in cum_res and each
+    of ds_cum's planes): the rows of the walk in Python, counted apart."""
+    arrays, dt, trig, y = chain_case
+    t = [torch.from_numpy(arrays[name]) for name in K7_ARRAYS]
+    args = (*t, dt, torch.tensor(trig), torch.tensor(y, dtype=torch.float64))
+    (ms, by), n_bytes = chip_smoke.chain_bound(args)
+    s_dim, n1 = arrays["cum_res"].shape
+    rows = {(s, int(arrays["lr_s0"][s, k] + arrays["lr_len"][s, k]))
+            for (s, _), fires in walk_chains(arrays, dt, trig, y).items() for k, _ in fires}
+    rows |= {(s, g) for (s, _), fires in walk_chains(arrays, dt, trig, y).items()
+             for _, g in fires}
+    res_ptr, ds_ptr = t[5].data_ptr(), t[6].data_ptr()
+    sectors = {(res_ptr + (s * n1 + r) * 8) // 32 for s, r in rows}
+    sectors |= {(ds_ptr + ((s * 4 + p) * n1 + r) * 8) // 32 for s, r in rows for p in range(4)}
+    small = sum(arrays[k].nbytes for k in K7_ARRAYS if k not in ("cum_res", "ds_cum"))
+    small += len(trig) * 16 + 7 * s_dim * len(trig) * 8
+    assert n_bytes == small + 32 * len(sectors)
+    assert n_bytes < small + arrays["cum_res"].nbytes + arrays["ds_cum"].nbytes
+    assert by in ("bytes", "operations") and ms > 0
+
+
+#: the padded run counts of chip_smoke.py's 64-device x 3 h fleet, of the
+#: fixture fleet, and one past a chunk
+PLAN_KS = (8, 16, 32, 64, 128, 256, 512, 1300)
+
+
+@pytest.mark.parametrize("k_dim", PLAN_KS)
+@pytest.mark.parametrize("c_dim", [1, 25, 544])
+def test_replay_plan(k_dim, c_dim):
+    """The chunk is a multiple of 32 runs, the whole table where it fits
+    (at most CHUNK_RUNS, so K past it takes several passes), within the
+    48 KB of static shared memory; the tiles cover every pair; the lanes
+    follow K."""
+    from repro_torch.kernels import downscale_replay as k7
+    for lanes in (None, *k7.LANES):
+        p = k7.replay_plan(k_dim, c_dim, lanes)
+        assert p.lanes == (k7.lanes_for(k_dim) if lanes is None else lanes)
+        assert p.chunk % 32 == 0 and p.chunk == min(k7.CHUNK_RUNS, -(-k_dim // 32) * 32)
+        assert p.smem_bytes <= 48 * 1024 and p.pairs_per_block == k7.WARPS * 32 // p.lanes
+        assert p.tiles * p.pairs_per_block >= c_dim > (p.tiles - 1) * p.pairs_per_block
+    assert [k7.lanes_for(k) for k in PLAN_KS] == [8, 32, 32, 32, 32, 32, 32, 32]
+    for lanes in (4, 16):
+        with pytest.raises(ValueError, match="lanes"):
+            k7.replay_plan(k_dim, c_dim, lanes)
 
 
 # --------------------------------------------------------------------------- #
@@ -229,3 +365,46 @@ def test_replay_kernels_match_plain_on_card(cuda, packed):
     after = tk.launch_counts()
     assert after["cap_bucket_scan"] - before["cap_bucket_scan"] == 5
     assert after["downscale_replay"] - before["downscale_replay"] == len(packed.buckets)
+
+
+@pytest.mark.gpu
+def test_downscale_chain_edges_on_card(cuda, packed):
+    """K7 at every lanes-per-pair choice on the fixture's bucket and on
+    synthetic buckets: K past one staged chunk (1,300 runs), S = 1, a pair
+    that fires on every eligible run (trigger 0, cooldown 0) and one that
+    never fires (1 << 62), C = 25 (not a multiple of any tile); counts
+    exact, savings within 1e-9 relative, and two calls the same bits."""
+    from repro_torch.kernels import downscale_replay as k7
+    trig = [p[0] for p in EDGE_PAIRS]
+    y = [p[1] for p in EDGE_PAIRS]
+    cases = [(packed.buckets[0], 1.0), *[(b, b.dt) for b in (
+        synthetic_bucket(2, 3, 1300), synthetic_bucket(3, 1, 40),
+        synthetic_bucket(4, 5, 512), synthetic_bucket(5, 2, 8))]]
+    before = tk.launch_counts()["downscale_replay"]
+    calls = 0
+    for bucket, dt in cases:
+        args = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+                for a in k7_args(bucket, trig, y)]
+        args[8] = dt
+        want = downscale_replay_plain(*args)
+        assert torch.equal(want[0][:, 0], args[3].sum(1))       # (0, 0.0) fires on every run
+        got = downscale_replay(*args)
+        calls += 1
+        for g, w in zip(got, downscale_replay(*args)):
+            assert torch.equal(g, w)
+        calls += 1
+        names = [n for n, _, _ in k7._INPUTS]
+        tensors = dict(zip(names, args[:8] + args[9:]))
+        for lanes in k7.LANES:
+            plan = k7.replay_plan(args[0].shape[1], len(trig), lanes)
+            outs = [got, k7.launch(tensors, dt, plan)]
+            calls += 1
+            for out in outs:
+                for i, (g, w) in enumerate(zip(out, want)):
+                    if i < 3:
+                        assert torch.equal(g, w), (lanes, i)
+                    else:
+                        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["downscale_replay"] - before == calls
+
