@@ -8,8 +8,9 @@ paths:
 
 * serving: holds K1-K3 against their plain PyTorch versions at the serving
   path's shapes and around the attention kernels' tiles and splits (K2 in
-  bf16 on the tensor cores and in f32 on the CUDA cores, K3 at cache
-  lengths around its chunks, each called twice for the same bits), times
+  bf16 on the tensor cores and in f32 on the CUDA cores, also without the
+  causal mask and at Sq != Sk, K3 at cache lengths around its chunks, each
+  called twice for the same bits), times
   each beside its bound, its plain version and a PyTorch yardstick call
   (K1, K2 and K3 also at hymba-1.5b's shapes, K1 at both prefills; K1's
   launch floor, an empty kernel, and the time K1 adds after a GEMM),
@@ -19,9 +20,12 @@ paths:
   on, and checks every kernel's launch count and that every bf16 K2 launch
   took the tensor cores;
 * the recurrent families: holds K5 (Mamba selective scan) and K6 (RWKV-6
-  WKV) against their plain versions (main shapes, a ragged length, S = 1
-  from a carried state, a state carried across two calls, large dt,
-  extreme decays) and times them at the decode step's shape; then, for
+  WKV) against their plain versions (main shapes, every branch of their
+  launch plans, a ragged length, S = 1 from a carried state, a state
+  carried across two calls, large dt, extreme decays, each called twice for
+  the same bits) and times them at the decode step's shape and the
+  32-token prefill (K5 also at the 2,048-token one) under each plan, beside
+  an in-place read and write of the same state; then, for
   hymba-1.5b and rwkv6-3b at full width, compares kernel-path and
   plain-path logits (each beside its chaos floor: the plain path against
   itself with attention, or the WKV recurrence, in float64) and serves each
@@ -83,6 +87,13 @@ REPLACES = {
     "ssm_scan": "src/repro/kernels/ssm_scan.py:24",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:30",
 }
+#: K2's cases at Sq != Sk or without the causal mask: (Sq, Sk, H, KV, d,
+#: causal, window)
+CROSS_CASES = ((65, 1500, 20, 20, 64, False, 0), (1500, 1500, 20, 20, 64, False, 0),
+               (65, 200, 8, 2, 128, True, 0), (65, 200, 8, 2, 128, True, 16),
+               (65, 200, 8, 2, 128, False, 16), (130, 70, 8, 2, 64, True, 0),
+               (130, 70, 8, 2, 64, False, 64), (130, 70, 8, 2, 64, True, 64),
+               (70, 130, 8, 1, 256, False, 0))
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan", "wkv6")
 #: per model: the serve run's cache length and the logit check's prompt
 #: (hymba: 2,048 tokens cross its 1,024-token window, a multiple of it)
@@ -235,6 +246,23 @@ def check_kernels(dev) -> dict[str, float]:
             raise AssertionError(f"{name}: two calls differ")
         if main:
             errs["flash_attention"] = e
+    # K2 without the causal mask and at Sq != Sk (the causal and window masks
+    # aligned top-left, as the TPU kernel aligns them), in both dtypes:
+    # Whisper's cross-attention (65 queries over 1,500 encoder frames, 20
+    # heads of 64) and encoder self-attention, then ragged tiles on either
+    # side of Sq = Sk with and without a window (each row keeps a key)
+    for sq, sk, h, kv, d, causal, window in CROSS_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (rnd(1, sq, h, d, dtype=dtype), rnd(1, sk, kv, d, dtype=dtype),
+                       rnd(1, sk, kv, d, dtype=dtype))
+            name = (f"flash sq={sq} sk={sk} h={h} kv={kv} d={d} causal={causal} w={window} "
+                    f"{str(dtype)[6:]}")
+            kw = dict(causal=causal, window=window)
+            got = ops.flash_attention(q, k, v, **kw)
+            check_close(name, got, ops.flash_attention(q, k, v, plain=True, **kw),
+                        BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+            if not torch.equal(got, ops.flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"{name}: two calls differ")
     # K3 decode attention, read in place from an (L, B, S, KV, d) cache, at
     # cache lengths around the split plan's chunks: llama-13b, hymba-1.5b's
     # global cache, MQA at d = 256 with S not a multiple of the chunk
@@ -424,19 +452,27 @@ def wkv_args(g, dev, b, s, extreme=False):
 
 
 def check_recurrent_kernels(dev) -> dict[str, float]:
-    """K5 and K6 against their plain versions per element: the serving
-    path's prefill and decode shapes (hymba-1.5b I = 3200, N = 16; rwkv6-3b
-    H = 40, K = 64), the 2,048-token prefill of the logit check, a ragged
-    length, S = 1 from a carried state, a state carried across two calls
-    against one call, large dt (exp(dt a) -> 0) and extreme decays. Returns
-    the max abs error at the decode-step shape of each."""
+    """K5 and K6 against their plain versions per element, each call twice
+    for the same bits: the serving path's prefill and decode shapes
+    (hymba-1.5b I = 3200, N = 16; rwkv6-3b H = 40, K = 64), the 2,048-token
+    prefill of the logit check, a ragged length, S = 1 from a carried state,
+    a state carried across two calls against one call, large dt (exp(dt a)
+    -> 0) and extreme decays; at the decode and the 32-token prefill shapes
+    also every launch plan's branch (K5 with 1, 2 and 4 state entries a
+    thread and the scalar path with a strided a; K6 with 1, 2 and 4 column
+    slices). Returns the max abs error at the decode-step shape of each."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.kernels import ssm_scan as k5
 
     g = torch.Generator(device=dev).manual_seed(11)
     errs = {}
 
-    def both(name, tol, got, want):
+    def both(name, tol, fn, args, want, **kw):
+        got = fn(*args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(*args, **kw))):
+            raise AssertionError(f"{name}: two calls differ")
         return max(check_close(f"{name} {i}", a, b, tol)
                    for i, (a, b) in enumerate(zip(got, want)))
 
@@ -446,29 +482,46 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
         u, dt, a, b, c = ssm_args(g, dev, bsz, s, big_dt=big_dt)
         h0 = torch.randn(bsz, 3200, 16, generator=g, device=dev) if state else None
         name = f"ssm_scan B={bsz} S={s} h0={state} big_dt={big_dt}"
-        e = both(name, SSM_TOL, ops.ssm_scan(u, dt, a, b, c, h0),
-                 ops.ssm_scan(u, dt, a, b, c, h0, plain=True))
+        want = ops.ssm_scan(u, dt, a, b, c, h0, plain=True)
+        e = both(name, SSM_TOL, ops.ssm_scan, (u, dt, a, b, c, h0), want)
         if (bsz, s) == (4, 1):
             errs["ssm_scan"] = e
+        if (bsz, s) in ((4, 1), (1, 32)):           # every branch of the plan
+            for group in k5.GROUPS:
+                plan = k5.launch_plan(bsz, s, 3200, 16, True, group)
+                both(f"{name} group={group}", SSM_TOL, k5.ssm_scan, (u, dt, a, b, c, h0),
+                     want, plan=plan)
+            strided = a.t().contiguous().t()
+            both(f"{name} strided a", SSM_TOL, ops.ssm_scan, (u, dt, strided, b, c, h0), want)
         if s > 1:                       # carried across two calls, the second in place
             y1, h1 = ops.ssm_scan(u[:, :13], dt[:, :13], a, b[:, :13], c[:, :13], h0)
             y2, h2 = ops.ssm_scan(u[:, 13:], dt[:, 13:], a, b[:, 13:], c[:, 13:], h1, h1)
-            both(name + " carried", SSM_TOL, (torch.cat([y1, y2], 1), h2),
-                 ops.ssm_scan(u, dt, a, b, c, h0, plain=True))
+            for i, (x, w) in enumerate(zip((torch.cat([y1, y2], 1), h2), want)):
+                check_close(f"{name} carried {i}", x, w, SSM_TOL)
     for bsz, s, state, extreme in ((1, 32, False, False), (4, 1, True, False),
                                    (2, 37, True, False), (1, 64, True, True)):
         r, k, v, w, u = wkv_args(g, dev, bsz, s, extreme=extreme)
         st0 = torch.randn(bsz, 40, 64, 64, generator=g, device=dev) if state else None
         name = f"wkv6 B={bsz} S={s} state={state} extreme={extreme}"
-        e = both(name, WKV_TOL, ops.wkv6(r, k, v, w, u, st0),
-                 ops.wkv6(r, k, v, w, u, st0, plain=True))
+        want = ops.wkv6(r, k, v, w, u, st0, plain=True)
+        e = both(name, WKV_TOL, ops.wkv6, (r, k, v, w, u, st0), want)
         if (bsz, s) == (4, 1):
             errs["wkv6"] = e
+        if (bsz, s) in ((4, 1), (1, 32)):
+            heads = [x.transpose(1, 2) for x in (r, k, v, w)]
+            for slices in k6.SLICES:
+                plan = k6.launch_plan(bsz, 40, s, 64, slices)
+                y, st = k6.wkv6(*heads, u, st0, plan=plan)
+                again = k6.wkv6(*heads, u, st0, plan=plan)
+                if not (torch.equal(y, again[0]) and torch.equal(st, again[1])):
+                    raise AssertionError(f"{name} slices={slices}: two calls differ")
+                check_close(f"{name} slices={slices} 0", y.transpose(1, 2), want[0], WKV_TOL)
+                check_close(f"{name} slices={slices} 1", st, want[1], WKV_TOL)
         if s > 1:
             y1, st1 = ops.wkv6(r[:, :13], k[:, :13], v[:, :13], w[:, :13], u, st0)
             y2, st2 = ops.wkv6(r[:, 13:], k[:, 13:], v[:, 13:], w[:, 13:], u, st1, st1)
-            both(name + " carried", WKV_TOL, (torch.cat([y1, y2], 1), st2),
-                 ops.wkv6(r, k, v, w, u, st0, plain=True))
+            for i, (x, want_i) in enumerate(zip((torch.cat([y1, y2], 1), st2), want)):
+                check_close(f"{name} carried {i}", x, want_i, WKV_TOL)
     torch.cuda.synchronize()
     return errs
 
@@ -477,12 +530,19 @@ def time_recurrent_kernels(dev) -> dict[str, dict]:
     """K5 and K6 at the decode step's shape, the state carried in place as
     the models carry it and rotated over enough layers' states (105 MB) to
     miss the 50 MB L2, as a decode step finds it; also their card time at the
-    32-token prefill. Bounds from this run's bytes (each input read once,
-    each output written once) and operations (K5 ~8 per (row, step,
-    channel, state), K6 ~7 per (row, step, head, k, v), at the float32
-    rate). No single PyTorch call computes either function."""
+    32-token prefill and K5's at the 2,048-token prefill of the logit check
+    (u and dt rotated over 2 copies, 105 MB). Each beside the plan it used
+    and, under "plans", the time under each other plan (K5's state entries
+    a thread, K6's column slices). Bounds from this run's bytes (each input
+    read once, each output written once) and operations (K5 ~8 per (row,
+    step, channel, state), K6 ~7 per (row, step, head, k, v), at the float32
+    rate). No single PyTorch call computes either function; beside the
+    decode time, "state_floor_ms" is an in-place ``mul_(1.0)`` of the same
+    state, rotated the same way: one streaming read and write of its bytes."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.kernels import ssm_scan as k5
 
     g = torch.Generator(device=dev).manual_seed(12)
     it = iter(range(1 << 62))
@@ -490,46 +550,94 @@ def time_recurrent_kernels(dev) -> dict[str, dict]:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
+    def plan_str(plan):
+        return ", ".join(f"{k}={v}" for k, v in dataclasses.asdict(plan).items())
+
     out = {}
     u, dt, a, b, c = ssm_args(g, dev, 4, 1)
     copies = 128                                   # 128 x 0.82 MB of state
     hs = torch.randn(copies, 4, 3200, 16, generator=g, device=dev)
 
-    def k5(plain=False):
+    def k5_decode(plan=None, plain=False):
         h = hs[next(it) % copies]
-        return lambda: ops.ssm_scan(u, dt, a, b, c, h, h, plain=plain)
+        if plain:
+            return ops.ssm_scan(u, dt, a, b, c, h, h, plain=True)
+        return k5.ssm_scan(u, dt, a, b, c, h, h, plan=plan)
 
     pu, pdt, pa, pb, pc = ssm_args(g, dev, 1, 32)
+    lus, ldts = [], []
+    for _ in range(2):
+        lu, ldt, la, lb, lc = ssm_args(g, dev, 1, 2048)
+        lus.append(lu)
+        ldts.append(ldt)
+
+    def k5_long(plan=None):
+        i = next(it) % 2
+        return k5.ssm_scan(lus[i], ldts[i], la, lb, lc, plan=plan)
+
+    shapes = {"decode": (4, 1), "prefill": (1, 32), "prefill_2048": (1, 2048)}
+    calls = {"decode": k5_decode,
+             "prefill": lambda plan=None: k5.ssm_scan(pu, pdt, pa, pb, pc, plan=plan),
+             "prefill_2048": k5_long}
+    plans = {label: {f"group={grp}": dict(
+        plan=plan_str(k5.launch_plan(*shapes[label], 3200, 16, True, grp)),
+        ms=graph_ms(lambda p=k5.launch_plan(*shapes[label], 3200, 16, True, grp), f=fn: f(p),
+                    20 if label == "prefill_2048" else 100))
+        for grp in k5.GROUPS} for label, fn in calls.items()}
     out["ssm_scan"] = dict(
         shape="u, dt (4, 1, 3200), a (3200, 16), B, C (4, 1, 16), h (4, 3200, 16) "
               "f32, state in place",
-        kernel=timed(lambda: k5()()), plain=timed(lambda: k5(True)(), 40), library=None,
+        state_floor_ms=graph_ms(lambda: hs[next(it) % copies].mul_(1.0)),
+        plan=plan_str(k5.launch_plan(4, 1, 3200, 16, True)),
+        kernel=timed(k5_decode), plain=timed(lambda: k5_decode(plain=True), 40), library=None,
         bound=bound_ms(nbytes(u, dt, a, b, c, hs[0]) + nbytes(u, hs[0]),
                        8 * u.numel() * 16, F32_OPS_PER_S),
         prefill=dict(shape="u, dt (1, 32, 3200) f32, zero state",
-                     ms=graph_ms(lambda: ops.ssm_scan(pu, pdt, pa, pb, pc)),
+                     plan=plan_str(k5.launch_plan(1, 32, 3200, 16, True)),
+                     ms=graph_ms(calls["prefill"]),
                      bound=bound_ms(nbytes(pu, pdt, pa, pb, pc, pu) + 3200 * 16 * 4,
-                                    8 * pu.numel() * 16, F32_OPS_PER_S)))
+                                    8 * pu.numel() * 16, F32_OPS_PER_S)),
+        prefill_2048=dict(shape="u, dt (1, 2048, 3200) f32 rotated over 2 copies, zero state",
+                          plan=plan_str(k5.launch_plan(1, 2048, 3200, 16, True)),
+                          ms=graph_ms(k5_long, 20),
+                          bound=bound_ms(nbytes(lus[0], ldts[0], la, lb, lc, lus[0])
+                                         + 3200 * 16 * 4, 8 * lus[0].numel() * 16,
+                                         F32_OPS_PER_S)),
+        plans=plans)
 
     r, k, v, w, uu = wkv_args(g, dev, 4, 1)
     copies = 40                                    # 40 x 2.6 MB of state
     sts = torch.randn(copies, 4, 40, 64, 64, generator=g, device=dev)
+    heads = [x.transpose(1, 2) for x in (r, k, v, w)]
 
-    def k6(plain=False):
+    def k6_decode(plan=None, plain=False):
         st = sts[next(it) % copies]
-        return lambda: ops.wkv6(r, k, v, w, uu, st, st, plain=plain)
+        if plain:
+            return ops.wkv6(r, k, v, w, uu, st, st, plain=True)
+        return k6.wkv6(*heads, uu, st, st, plan=plan)
 
     pr, pk, pv, pw, pu6 = wkv_args(g, dev, 1, 32)
+    pheads = [x.transpose(1, 2) for x in (pr, pk, pv, pw)]
+    calls = {"decode": (k6_decode, (4, 40, 1, 64)),
+             "prefill": (lambda plan=None: k6.wkv6(*pheads, pu6, plan=plan), (1, 40, 32, 64))}
+    plans = {label: {f"slices={c}": dict(
+        plan=plan_str(k6.launch_plan(*shape, c)),
+        ms=graph_ms(lambda p=k6.launch_plan(*shape, c), f=fn: f(p)))
+        for c in k6.SLICES} for label, (fn, shape) in calls.items()}
     out["wkv6"] = dict(
         shape="r, k, v, w (4, 1, 40, 64), u (40, 64), state (4, 40, 64, 64) f32, "
               "state in place",
-        kernel=timed(lambda: k6()()), plain=timed(lambda: k6(True)(), 40), library=None,
+        state_floor_ms=graph_ms(lambda: sts[next(it) % copies].mul_(1.0)),
+        plan=plan_str(k6.launch_plan(4, 40, 1, 64)),
+        kernel=timed(k6_decode), plain=timed(lambda: k6_decode(plain=True), 40), library=None,
         bound=bound_ms(nbytes(r, k, v, w, uu, sts[0]) + nbytes(r, sts[0]),
                        7 * r.numel() * 64, F32_OPS_PER_S),
         prefill=dict(shape="r, k, v, w (1, 32, 40, 64) f32, zero state",
-                     ms=graph_ms(lambda: ops.wkv6(pr, pk, pv, pw, pu6)),
+                     plan=plan_str(k6.launch_plan(1, 40, 32, 64)),
+                     ms=graph_ms(calls["prefill"][0]),
                      bound=bound_ms(nbytes(pr, pk, pv, pw, pu6, pr) + 40 * 64 * 64 * 4,
-                                    7 * pr.numel() * 64, F32_OPS_PER_S)))
+                                    7 * pr.numel() * 64, F32_OPS_PER_S)),
+        plans=plans)
     return out
 
 
@@ -900,11 +1008,18 @@ def log_times(times: dict) -> None:
             f"{t['kernel']['ms']:.5f} ({t['kernel']['call_ms']:.5f}), plain "
             f"{t['plain']['ms']:.5f} ({t['plain']['call_ms']:.5f}), torch "
             + (f"{lib['ms']:.5f} ({lib['call_ms']:.5f})" if lib else "none")
-            + f", bound {t['bound'][0]:.5f} ({t['bound'][1]})")
-        if "prefill" in t:
-            pre = t["prefill"]
-            log(f"time {name} prefill [{pre['shape']}] card ms: kernel {pre['ms']:.5f}, "
-                f"bound {pre['bound'][0]:.5f} ({pre['bound'][1]})")
+            + f", bound {t['bound'][0]:.5f} ({t['bound'][1]})"
+            + (f"; plan {t['plan']}" if "plan" in t else "")
+            + (f"; state read and written in place by mul_ {t['state_floor_ms']:.5f}"
+               if "state_floor_ms" in t else ""))
+        for label in ("prefill", "prefill_2048"):
+            if label in t:
+                pre = t[label]
+                log(f"time {name} {label} [{pre['shape']}] card ms: kernel {pre['ms']:.5f}, "
+                    f"bound {pre['bound'][0]:.5f} ({pre['bound'][1]}); plan {pre['plan']}")
+        for label, plans in t.get("plans", {}).items():
+            log(f"time {name} {label} by plan, card ms: " + "; ".join(
+                f"{x['ms']:.5f} ({x['plan']})" for x in plans.values()))
         for label, x in t.get("extra", {}).items():
             log(f"time {name} {label} [{x['shape']}] card ms: kernel {x['ms']:.5f}, torch "
                 f"{x['library_ms']:.5f}, bound {x['bound'][0]:.5f} ({x['bound'][1]}), "
@@ -1491,12 +1606,15 @@ def main() -> int:
             "library_call_ms": lib["call_ms"] if lib else None,
             "shape": t["shape"],
         }
-        if "prefill" in t:
-            row.update(prefill_ms=t["prefill"]["ms"], prefill_bound_ms=t["prefill"]["bound"][0])
+        for label in ("prefill", "prefill_2048"):
+            if label in t:
+                row.update({f"{label}_ms": t[label]["ms"],
+                            f"{label}_bound_ms": t[label]["bound"][0],
+                            f"{label}_plan": t[label]["plan"]})
         for label, x in t.get("extra", {}).items():
             row[label] = {"shape": x["shape"], "ms": x["ms"], "library_ms": x["library_ms"],
                           "bound_ms": x["bound"][0], "bound_by": x["bound"][1]}
-        for key in ("launch", "buckets"):
+        for key in ("plan", "plans", "state_floor_ms", "launch", "buckets"):
             if key in t:
                 row[key] = t[key]
         if name == "flash_attention":

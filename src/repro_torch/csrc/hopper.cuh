@@ -1,5 +1,5 @@
-// Hopper primitives for the port's kernels, written out in PTX: 16-byte
-// cp.async, warp-level tensor-core products (ldmatrix, mma.sync), mbarriers,
+// Hopper primitives for the port's kernels, written out in PTX: 16- and
+// 4-byte cp.async, warp-level tensor-core products (ldmatrix, mma.sync), mbarriers,
 // TMA tile loads, and warpgroup matrix multiplies (wgmma) with their
 // shared-memory descriptors. Built for sm_90a.
 #pragma once
@@ -13,9 +13,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ---- cp.async: 16 bytes global -> shared, in groups ----------------------
+// ---- cp.async: 16 or 4 bytes global -> shared, in groups ------------------
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -7,10 +7,15 @@ is a scan of one step), any length works, and r, k, v, w are read through
 their strides, so head-major views of the model's (B, S, H, K) projections
 need no copy. ``state_out`` receives the final state and may be ``state0``
 itself.
+
+On the card a (batch row, head) is split by column slice over
+``slices`` blocks, and a thread owns a quad of columns over ``rows`` rows of
+its slice; :func:`launch_plan` picks both from the shape.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -21,6 +26,24 @@ LAUNCHES = 0
 
 #: head sizes the kernel is compiled for
 HEAD_SIZES = (16, 32, 64)
+#: column slices a (row, head) may be split into, fewest first
+SLICES = (1, 2, 4)
+#: blocks the plan aims for: two on each of the H100's 132 SMs. The fewest
+#: slices that give this many are taken, up to DEFAULT_MAX_SLICES.
+TARGET_BLOCKS = 2 * 132
+#: the most slices the plan takes unasked: 4 were slower than 2 at both of
+#: rwkv6-3b's shapes, the decode step and the B = 1 prefill (8 row groups a
+#: warp to reduce, r, k and w staged 4 times; chip_smoke.py's plans sweep on
+#: an H100)
+DEFAULT_MAX_SLICES = 2
+#: rows a thread may own, fewest first
+ROWS = (1, 2, 4, 8)
+#: threads a block, at most
+BLOCK_THREADS = 128
+#: steps a tile stages in shared memory, at most
+TILE_STEPS = 32
+#: shared memory a block may take without opting in
+SMEM_LIMIT = 48 * 1024
 
 
 def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
@@ -30,12 +53,65 @@ def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
     return y, state
 
 
+@dataclasses.dataclass(frozen=True)
+class WkvPlan:
+    """One launch: each (row, head) split into ``slices`` blocks of
+    ``K / slices`` columns; a thread owns 4 columns over ``rows`` rows, so a
+    block is ``threads`` = (K / slices / 4) x (K / rows); ``steps`` a tile
+    staged in shared memory, ``smem_bytes`` of it (as
+    ``csrc/wkv6.cu::wkv_smem_floats``), ``blocks`` in the grid."""
+    slices: int
+    rows: int
+    threads: int
+    steps: int
+    smem_bytes: int
+    blocks: int
+
+
+def _smem_bytes(steps: int, kd: int, slices: int, threads: int) -> int:
+    """Two buffers of r, k, w (K each) and the slice's v (K / slices) for
+    every step of a tile, each warp's partial y (K / slices) a step, and u."""
+    cols = kd // slices
+    return 4 * (steps * (2 * (3 * kd + cols) + threads // 32 * cols) + kd)
+
+
+def launch_plan(bsz: int, h: int, s: int, kd: int, slices: int | None = None) -> WkvPlan:
+    """The plan for B = ``bsz`` rows of ``h`` heads of size ``kd`` over ``s``
+    steps. ``slices`` (one of :data:`SLICES`) is by default the fewest that
+    give :data:`TARGET_BLOCKS` blocks, up to :data:`DEFAULT_MAX_SLICES` and
+    to as many as leave a block at least a warp; rows a thread the fewest
+    that keep a block within :data:`BLOCK_THREADS` threads
+    (``csrc/wkv6.cu::WkvShape``); the tile the most steps, up to
+    :data:`TILE_STEPS`, whose shared memory fits in :data:`SMEM_LIMIT`, a
+    whole number of the steps a warp reduces at once (its row groups) where
+    it holds more than that."""
+    fits = [c for c in SLICES if kd // (4 * c) * kd >= 32]
+    if slices is None:
+        unasked = [c for c in fits if c <= DEFAULT_MAX_SLICES]
+        slices = next((c for c in unasked if bsz * h * c >= TARGET_BLOCKS), unasked[-1])
+    if slices not in fits:
+        raise ValueError(f"{slices} column slices of K = {kd} leave less than a warp a block")
+    quads = kd // (4 * slices)
+    rows = next(r for r in ROWS if quads * kd // r <= BLOCK_THREADS)
+    threads = quads * kd // rows
+    steps = max(1, min(s, TILE_STEPS))
+    while steps > 1 and _smem_bytes(steps, kd, slices, threads) > SMEM_LIMIT:
+        steps -= 1
+    group = 32 // quads
+    if steps > group:
+        steps -= steps % group
+    return WkvPlan(slices, rows, threads, steps, _smem_bytes(steps, kd, slices, threads),
+                   bsz * h * slices)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, state0: torch.Tensor | None = None,
-         state_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+         state_out: torch.Tensor | None = None,
+         plan: WkvPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B, H, S, K), w the per-step decay in (0, 1); u: (H, K);
     state0: (B, H, K, K) or None (zeros). All float32. Returns (y (B, H, S, K),
     final state (B, H, K, K)), the state in ``state_out`` when given.
+    ``plan`` (:func:`launch_plan` by default) is for measuring other plans.
 
     On the card y is a head-major view of memory laid out as (B, S, H, K), so
     the model layout is one free transpose away.
@@ -59,20 +135,24 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError("the head-size axis of r, k, v, w must be contiguous")
     if not (u.is_contiguous() and all(t.is_contiguous() for t in states)):
         raise ValueError("u, state0 and state_out must be contiguous")
-    if max(h, s) >= 2**31 or bsz >= 2**16:
+    if any(t.data_ptr() % 16 for t in states):
+        raise ValueError("state0 and state_out must start on a 16-byte boundary")
+    if max(h, s) >= 2**31 // 4 or bsz >= 2**16:
         raise ValueError(f"unsupported shape {tuple(r.shape)}")
     y = torch.empty((bsz, s, h, kd), dtype=torch.float32, device=r.device).transpose(1, 2)
     if state_out is None:
         state_out = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
     if bsz * h == 0:
         return y, state_out
+    if plan is None:
+        plan = launch_plan(bsz, h, s, kd)
     strides = (ctypes.c_int64 * 15)(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                     *w.stride()[:3], *y.stride()[:3])
     err = _build.library().repro_wkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state0 is None else state0.data_ptr(), y.data_ptr(),
-        state_out.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd,
-        _build.stream_ptr(r))
+        state_out.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd, plan.slices,
+        plan.rows, plan.threads, plan.steps, _build.stream_ptr(r))
     _build.check(err, "wkv6")
     LAUNCHES += 1
     return y, state_out

@@ -5,10 +5,15 @@ Replaces the TPU kernel ``src/repro/kernels/ssm_scan.py::ssm_scan``. Unlike
 it, the scan may start from a carried state ``h0`` (a decode step is a scan
 of one step), any length works, and the inputs are read through their
 strides. ``h_out`` receives the final state and may be ``h0`` itself.
+
+On the card a thread owns ``group`` consecutive state entries of one (batch
+row, channel), so ``N / group`` lanes hold a channel; :func:`launch_plan`
+picks the group from the shape.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -19,6 +24,19 @@ LAUNCHES = 0
 
 #: SSM state sizes the kernel is compiled for
 STATE_SIZES = (8, 16)
+#: state entries a thread may own (a template parameter), largest first
+GROUPS = (4, 2, 1)
+#: threads the plan aims to run: a block of 128 on each of the H100's 132
+#: SMs. The largest group that still gives this many is taken (G = 4 at
+#: hymba-1.5b's decode step, 2 at its B = 1 prefills: the fastest of the
+#: three at each, chip_smoke.py's plans sweep on an H100).
+TARGET_THREADS = 132 * 128
+#: threads a block (``csrc/ssm_scan.cu::kSsmThreads``)
+BLOCK_THREADS = 128
+#: steps a tile stages in shared memory, at most
+TILE_STEPS = 32
+#: shared memory a block may take without opting in
+SMEM_LIMIT = 48 * 1024
 
 
 def ssm_scan_plain(u, dt, a, b, c, h0=None, h_out=None):
@@ -28,12 +46,57 @@ def ssm_scan_plain(u, dt, a, b, c, h0=None, h_out=None):
     return y, h
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One launch: ``group`` state entries a thread, ``lanes`` (N / group)
+    threads a channel, ``threads`` a block (``threads // lanes`` channels),
+    ``steps`` a tile staged in shared memory, ``blocks`` along the channels
+    (times B in the grid)."""
+    group: int
+    lanes: int
+    threads: int
+    steps: int
+    blocks: int
+
+    @property
+    def channels(self) -> int:
+        return self.threads // self.lanes
+
+    @property
+    def smem_bytes(self) -> int:
+        """Two buffers of B_t and C_t (N each) and u, dt of the block's
+        channels for each step of a tile, and the tile's y, as
+        ``csrc/ssm_scan.cu::ssm_smem_floats``."""
+        n = self.lanes * self.group
+        return 4 * self.steps * (2 * (2 * n + 2 * self.channels) + self.channels)
+
+
+def launch_plan(bsz: int, s: int, di: int, n: int, aligned: bool,
+                group: int | None = None) -> ScanPlan:
+    """The plan for a scan over (``bsz``, ``s``, ``di``) with state size
+    ``n``. ``group`` (one of :data:`GROUPS`) is by default the largest that
+    still runs :data:`TARGET_THREADS` threads over the B I channels, so a
+    small B I (a B = 1 prefill) takes a small group; it is 1, the scalar
+    path, unless ``aligned`` (a contiguous and, with h0 and h_out, on the
+    16-byte grid). A block holds :data:`BLOCK_THREADS` threads; a tile up
+    to :data:`TILE_STEPS` steps."""
+    if group is None:
+        group = next((g for g in GROUPS if aligned and bsz * di * (n // g) >= TARGET_THREADS), 1)
+    if group not in GROUPS or n % group or (group > 1 and not aligned):
+        raise ValueError(f"group {group} cannot hold N = {n} (aligned: {aligned})")
+    lanes = n // group
+    return ScanPlan(group, lanes, BLOCK_THREADS, max(1, min(s, TILE_STEPS)),
+                    -(-di // (BLOCK_THREADS // lanes)))
+
+
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, h0: torch.Tensor | None = None,
-             h_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+             h_out: torch.Tensor | None = None,
+             plan: ScanPlan | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """u/dt: (B, S, I); a: (I, N), negative; b/c: (B, S, N); h0: (B, I, N) or
     None (zeros). All float32. Returns (y (B, S, I) without the D-skip term,
-    final state (B, I, N)), the state in ``h_out`` when given."""
+    final state (B, I, N)), the state in ``h_out`` when given. ``plan``
+    (:func:`launch_plan` by default) is for measuring other plans."""
     global LAUNCHES
     if u.device.type == "cpu":
         return ssm_scan_plain(u, dt, a, b, c, h0, h_out)
@@ -60,12 +123,19 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         h_out = torch.empty((bsz, di, n), dtype=torch.float32, device=u.device)
     if bsz * di == 0:
         return y, h_out
+    aligned = a.is_contiguous() and all(t.data_ptr() % 16 == 0 for t in (a, *states, h_out))
+    if plan is None:
+        plan = launch_plan(bsz, s, di, n, aligned)
+    if plan.group > 1 and not aligned:
+        raise ValueError(f"a plan of {plan.group} entries a thread needs a contiguous a "
+                         "and 16-byte aligned a, h0 and h_out")
     strides = (ctypes.c_int64 * 14)(*u.stride(), *dt.stride(), *b.stride(),
                                     *c.stride(), *a.stride())
     err = _build.library().repro_ssm_scan(
         u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        ctypes.addressof(strides), bsz, s, di, n, _build.stream_ptr(u))
+        ctypes.addressof(strides), bsz, s, di, n, plan.group, plan.threads, plan.steps,
+        _build.stream_ptr(u))
     _build.check(err, "ssm_scan")
     LAUNCHES += 1
     return y, h_out

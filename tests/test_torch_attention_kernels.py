@@ -188,7 +188,10 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_edges_on_card(cuda, dtype):
     """K2 at Sq = Sk in {63, 64, 65} (the 64-row tiles' edges), at 2,048
-    tokens with and without a 1,024-token window and at every head dim; K3
+    tokens with and without a 1,024-token window and at every head dim, and
+    without the causal mask and at Sq != Sk (Whisper's cross-attention, 65
+    queries over 1,500 frames; ragged tiles on either side of Sq = Sk, with
+    and without a window, the masks aligned top-left); K3
     at cache_len in {0, 1, C-1, C, C+1, S/2+1, S, S+9} on llama-13b's and
     hymba-1.5b's caches. Each against its plain version (0 at cache_len 0),
     each second call bit-identical, and every bf16 K2 launch on the
@@ -215,6 +218,15 @@ def test_attention_edges_on_card(cuda, dtype):
         check(fa.flash_attention(*args, window=window),
               fa.flash_attention_plain(*args, window=window),
               fa.flash_attention(*args, window=window))
+    cross_cases = [(65, 1500, 20, 20, 64, False, 0), (65, 200, 8, 2, 128, True, 16),
+                   (65, 200, 8, 2, 128, False, 16), (130, 70, 8, 2, 64, True, 0),
+                   (130, 70, 8, 2, 64, False, 64), (70, 130, 8, 1, 256, False, 0)]
+    for sq, sk, h, kv, d, causal, window in cross_cases:
+        q, k, v = rnd(1, sq, h, d), rnd(1, sk, kv, d), rnd(1, sk, kv, d)
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        kw = dict(causal=causal, window=window)
+        check(fa.flash_attention(*args, **kw), fa.flash_attention_plain(*args, **kw),
+              fa.flash_attention(*args, **kw))
     n_decode = 0
     for b, kv, s, d in (LLAMA, HYMBA_GLOBAL):
         h = 40 if kv == 40 else 25
@@ -228,7 +240,7 @@ def test_attention_edges_on_card(cuda, dtype):
             n_decode += 2
     torch.cuda.synchronize()
     after = tk.launch_counts()
-    assert after["flash_attention"] - before["flash_attention"] == 2 * len(flash_cases)
+    n_flash = 2 * (len(flash_cases) + len(cross_cases))
+    assert after["flash_attention"] - before["flash_attention"] == n_flash
     assert after["decode_attention"] - before["decode_attention"] == n_decode
-    assert fa.WGMMA_LAUNCHES - wgmma_before == (2 * len(flash_cases)
-                                                if dtype == "bfloat16" else 0)
+    assert fa.WGMMA_LAUNCHES - wgmma_before == (n_flash if dtype == "bfloat16" else 0)

@@ -6,7 +6,9 @@ to ``repro.kernels.ref`` on the same numpy inputs, at that file's
 tolerances. The card's kernels are held to the plain versions by the
 ``gpu`` test, which skips where there is no card.
 """
+import ctypes
 import dataclasses
+import re
 import types
 
 import numpy as np
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as tk
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -294,3 +296,28 @@ def test_rmsnorm_launch_shapes_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert tk.launch_counts()["rmsnorm"] - before == calls + 1
 
+
+
+def _c_entry_points() -> dict[str, str]:
+    """Each ``extern "C" int repro_*(...)`` of ``csrc/*.cu``: its parameter
+    list, by name."""
+    found = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern "C" int (repro_\w+)\(([^)]*)\)', src.read_text()):
+            found[m.group(1)] = m.group(2)
+    return found
+
+
+_CTYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64, "float": ctypes.c_float,
+           "double": ctypes.c_double}
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_c_entry_point(name):
+    """Each binding's argument types match its C function's parameters, one
+    for one: a pointer as c_void_p, an integer or float at its width. A
+    missing entry would hand the arguments after it to the C function
+    converted as the wrong type (a stream pointer cut to 32 bits)."""
+    params = [p.strip() for p in _c_entry_points()[name].split(",")]
+    want = [ctypes.c_void_p if "*" in p else _CTYPES[p.rsplit(" ", 1)[0]] for p in params]
+    assert _build.SIGNATURES[name] == want

@@ -20,6 +20,8 @@ import torch
 from repro_torch import kernels as tk
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as k6
+from repro_torch.kernels import ssm_scan as k5
 from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 from repro_torch.models import hymba
@@ -259,6 +261,92 @@ def test_cpu_tensors_never_launch():
 
 
 # --------------------------------------------------------------------------- #
+# launch plans
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("bsz,s,di,n,aligned,plan", [
+    (4, 1, 3200, 16, True, (4, 4, 128, 1, 100)),       # hymba-1.5b decode: 51,200 threads
+    (2, 5, 3200, 16, True, (4, 4, 128, 5, 100)),
+    (1, 32, 3200, 16, True, (2, 8, 128, 32, 200)),     # hymba-1.5b prefill, B = 1
+    (1, 2048, 3200, 16, True, (2, 8, 128, 32, 200)),
+    (1, 5, 1600, 16, True, (1, 16, 128, 5, 200)),
+    (4, 1, 3200, 16, False, (1, 16, 128, 1, 400)),     # the scalar path
+    (8, 1, 3200, 8, True, (4, 2, 128, 1, 50)),
+    (2, 37, 200, 8, True, (1, 8, 128, 32, 13)),        # I not a multiple of the block
+    (1, 3, 3, 8, True, (1, 8, 128, 3, 1)),             # most of the block past I
+])
+def test_ssm_launch_plan(bsz, s, di, n, aligned, plan):
+    assert dataclasses.astuple(k5.launch_plan(bsz, s, di, n, aligned)) == plan
+
+
+@pytest.mark.parametrize("n", k5.STATE_SIZES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ssm_launch_plan_covers_the_scan(n, aligned):
+    """Every plan: lanes x group = N, whole warps, every channel in a block,
+    the tile within the shared memory, G = 1 off the 16-byte grid; G
+    falls as B I falls; each group can be asked for when aligned."""
+    for bsz in (1, 2, 4, 16):
+        for di in (1, 7, 33, 200, 1600, 3200, 4096):
+            for s in (0, 1, 31, 32, 33, 2048):
+                groups = [None, *k5.GROUPS] if aligned else [None, 1]
+                for group in groups:
+                    p = k5.launch_plan(bsz, s, di, n, aligned, group)
+                    assert p.lanes * p.group == n
+                    assert p.threads == k5.BLOCK_THREADS and p.threads % p.lanes == 0
+                    assert p.blocks * p.channels >= di > (p.blocks - 1) * p.channels
+                    assert 1 <= p.steps <= max(1, min(s, k5.TILE_STEPS))
+                    assert p.smem_bytes <= k5.SMEM_LIMIT
+                    assert aligned or p.group == 1
+                    if group is not None:
+                        assert p.group == group
+                    else:
+                        assert (p.group == 1 or bsz * di * p.lanes >= k5.TARGET_THREADS)
+    with pytest.raises(ValueError):
+        k5.launch_plan(4, 1, 3200, n, False, 4)    # strided or misaligned a: scalar only
+
+
+@pytest.mark.parametrize("bsz,h,s,kd,plan", [
+    (4, 40, 1, 64, (2, 4, 128, 1, 2560, 320)),      # rwkv6-3b decode
+    (1, 40, 32, 64, (2, 4, 128, 20, 46336, 80)),    # rwkv6-3b prefill, B = 1
+    (8, 40, 1, 64, (1, 8, 128, 1, 3328, 320)),
+    (16, 40, 64, 64, (1, 8, 128, 14, 43264, 640)),  # the tile cut to fit
+    (2, 3, 37, 16, (2, 1, 32, 32, 15424, 12)),      # K = 16: at most 2 slices
+    (1, 2, 70, 32, (2, 1, 128, 32, 36992, 4)),
+])
+def test_wkv_launch_plan(bsz, h, s, kd, plan):
+    assert dataclasses.astuple(k6.launch_plan(bsz, h, s, kd)) == plan
+
+
+@pytest.mark.parametrize("kd", k6.HEAD_SIZES)
+def test_wkv_launch_plan_covers_the_state(kd):
+    """Every plan: the column slices tile K in quads, a block of whole warps
+    and whole row groups a warp covers all K rows, the tile within the
+    shared memory; the fewest slices that reach the target."""
+    for bsz in (1, 2, 4, 64):
+        for h in (1, 3, 40, 64):
+            for s in (0, 1, 13, 32, 33, 512):
+                for slices in (None, *k6.SLICES):
+                    if slices is not None and kd // (4 * slices) * kd < 32:
+                        with pytest.raises(ValueError):
+                            k6.launch_plan(bsz, h, s, kd, slices)
+                        continue
+                    p = k6.launch_plan(bsz, h, s, kd, slices)
+                    cols = kd // p.slices
+                    quads = cols // 4
+                    assert p.slices * cols == kd and cols % 4 == 0
+                    assert kd % p.rows == 0 and p.threads == quads * (kd // p.rows)
+                    assert p.threads % 32 == 0 and 32 <= p.threads <= k6.BLOCK_THREADS
+                    assert 32 % quads == 0
+                    assert 1 <= p.steps <= max(1, min(s, k6.TILE_STEPS))
+                    assert p.steps <= 32 // quads or p.steps % (32 // quads) == 0
+                    assert p.smem_bytes <= k6.SMEM_LIMIT
+                    assert p.blocks == bsz * h * p.slices
+                    if slices is None:
+                        assert p.slices <= k6.DEFAULT_MAX_SLICES
+                    if slices is None and p.slices > 1:
+                        assert bsz * h * (p.slices // 2) < k6.TARGET_BLOCKS
+
+
+# --------------------------------------------------------------------------- #
 # the card
 # --------------------------------------------------------------------------- #
 @pytest.fixture
@@ -271,42 +359,99 @@ def cuda():
 @pytest.mark.gpu
 def test_recurrent_kernels_match_plain_on_card(cuda):
     """K5 and K6 against their plain versions per element, |kernel - plain|
-    <= tol (1 + |plain|): the serving shapes, a ragged length, S = 1 from a
-    carried state, a state carried across two calls, large dt and extreme
-    decays."""
+    <= tol (1 + |plain|), at every branch of their launch plans: K5 with 1,
+    2 and 4 state entries a thread (by shape and asked for), I not a
+    multiple of the block, a strided and a misaligned a (the scalar path);
+    K6 with 1, 2 and 4 column slices (by shape and asked for), the model's
+    (B, S, H, K) views and a state off the 16-byte grid (refused). Both at
+    the serving shapes, a ragged length, S = 1 from a carried state, a state
+    carried across two calls (the second in place), large dt and extreme
+    decays; every call twice for the same bits."""
     before = tk.launch_counts()
+    launches = {"ssm_scan": 0, "wkv6": 0}
 
     def dev(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]
 
-    for bsz, s, di, n, big_dt in [(1, 32, 3200, 16, False), (4, 1, 3200, 16, False),
-                                  (2, 37, 200, 8, False), (2, 40, 160, 16, True)]:
+    def twice(name, fn, *args, **kw):
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        launches[name] += 2
+        return got
+
+    def check_ssm(args, h0, plan=None):
+        want = ssm_scan_plain(*args, h0=h0)
+        for got, ref_ in zip(twice("ssm_scan", ssm_scan, *args, h0=h0, plan=plan), want):
+            torch.testing.assert_close(got, ref_, **SSM_TOL)
+
+    for bsz, s, di, n, big_dt, group in [
+            (1, 32, 3200, 16, False, 2), (4, 1, 3200, 16, False, 4),
+            (1, 5, 1600, 16, False, 1), (4, 3, 3000, 16, False, 4),
+            (2, 37, 200, 8, False, 1), (8, 2, 3200, 8, False, 4),
+            (2, 40, 160, 16, True, 1)]:
         u, dt, a, b, c = ssm_inputs(20, bsz, s, di, n)
         if big_dt:
             dt = dt * 100.0
         args = dev(u, dt, a, b, c)
         h0 = torch.randn(bsz, di, n, device=cuda)
-        for got, want in zip(ssm_scan(*args, h0=h0), ssm_scan_plain(*args, h0=h0)):
-            torch.testing.assert_close(got, want, **SSM_TOL)
+        assert k5.launch_plan(bsz, s, di, n, True).group == group
+        check_ssm(args, h0)
+        if (bsz, s, di) == (4, 1, 3200):            # every group asked for
+            for g in k5.GROUPS:
+                check_ssm(args, h0, k5.launch_plan(bsz, s, di, n, True, g))
         y1, h1 = ssm_scan(*(x[:, :13] if x.ndim == 3 else x for x in args))
         y2, h2 = ssm_scan(*(x[:, 13:] if x.ndim == 3 else x for x in args), h0=h1, h_out=h1)
+        launches["ssm_scan"] += 2
+        assert h2 is h1
         y, h = ssm_scan_plain(*args)
         torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, **SSM_TOL)
         torch.testing.assert_close(h2, h, **SSM_TOL)
-    for b, h, s, kd, extreme in [(1, 40, 32, 64, False), (4, 40, 1, 64, False),
-                                 (2, 3, 37, 16, False), (1, 2, 70, 32, True)]:
+    # the scalar path: a transposed (strided) a, and an a off the 16-byte grid;
+    # B and C cut from one projection, as the Mamba branch passes them
+    u, dt, a, b, c = dev(*ssm_inputs(22, 4, 1, 3200, 16))
+    proj = torch.cat([torch.zeros(4, 1, 3, device=cuda), b, c], dim=-1)
+    strided = a.t().contiguous().t()
+    shifted = torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape).copy_(a)
+    h0 = torch.randn(4, 3200, 16, device=cuda)
+    for a_ in (strided, shifted):
+        check_ssm([u, dt, a_, proj[..., 3:19], proj[..., 19:]], h0)
+    with pytest.raises(ValueError):
+        ssm_scan(u, dt, strided, b, c, h0, plan=k5.launch_plan(4, 1, 3200, 16, True, 4))
+
+    def check_wkv(args, st0, plan=None):
+        want = wkv6_plain(*args, state0=st0)
+        for got, ref_ in zip(twice("wkv6", wkv6, *args, state0=st0, plan=plan), want):
+            torch.testing.assert_close(got, ref_, **WKV_TOL)
+
+    for b, h, s, kd, extreme, slices in [(1, 40, 32, 64, False, 2), (4, 40, 1, 64, False, 2),
+                                         (8, 40, 1, 64, False, 1), (2, 3, 37, 16, False, 2),
+                                         (1, 2, 70, 32, True, 2)]:
         args = dev(*wkv_inputs(21, b, h, s, kd, extreme))
         st0 = torch.randn(b, h, kd, kd, device=cuda)
-        for got, want in zip(wkv6(*args, state0=st0), wkv6_plain(*args, state0=st0)):
-            torch.testing.assert_close(got, want, **WKV_TOL)
+        assert k6.launch_plan(b, h, s, kd).slices == slices
+        check_wkv(args, st0)
+        if (b, s) in ((4, 1), (1, 32)):             # every slice count asked for
+            for c in k6.SLICES:
+                check_wkv(args, st0, k6.launch_plan(b, h, s, kd, c))
         part = [x[:, :, :13] if x.ndim == 4 else x for x in args]
         rest = [x[:, :, 13:] if x.ndim == 4 else x for x in args]
         y1, st1 = wkv6(*part)
         y2, st2 = wkv6(*rest, state0=st1, state_out=st1)
+        launches["wkv6"] += 2
+        assert st2 is st1
         y, st = wkv6_plain(*args)
         torch.testing.assert_close(torch.cat([y1, y2], dim=2), y, **WKV_TOL)
         torch.testing.assert_close(st2, st, **WKV_TOL)
+        # the model's (B, S, H, K) projections, read through head-major views
+        bshk = [x.transpose(1, 2).contiguous().transpose(1, 2) if x.ndim == 4 else x
+                for x in args]
+        check_wkv(bshk, st0)
+    # the state moves in 16-byte vectors: a state off that grid is refused
+    shifted = torch.empty(st0.numel() + 1, device=cuda)[1:].view(st0.shape)
+    with pytest.raises(ValueError):
+        wkv6(*args, state0=shifted)
     torch.cuda.synchronize()
     after = tk.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == dict(
-        dict.fromkeys(after, 0), ssm_scan=12, wkv6=12)
+    assert launches == {"ssm_scan": 38, "wkv6": 42}
+    assert {k: after[k] - before[k] for k in after} == dict(dict.fromkeys(after, 0), **launches)
