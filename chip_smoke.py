@@ -459,8 +459,9 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
     a state carried across two calls against one call, large dt (exp(dt a)
     -> 0) and extreme decays; at the decode and the 32-token prefill shapes
     also every launch plan's branch (K5 with 1, 2 and 4 state entries a
-    thread and the scalar path with a strided a; K6 with 1, 2 and 4 column
-    slices). Returns the max abs error at the decode-step shape of each."""
+    thread and the scalar path with a strided a; K6 with 1 and 2 column
+    slices, and a state off the 16-byte grid, moved as single floats).
+    Returns the max abs error at the decode-step shape of each."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as k6
@@ -517,6 +518,10 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
                     raise AssertionError(f"{name} slices={slices}: two calls differ")
                 check_close(f"{name} slices={slices} 0", y.transpose(1, 2), want[0], WKV_TOL)
                 check_close(f"{name} slices={slices} 1", st, want[1], WKV_TOL)
+            if state:
+                shifted = torch.empty(st0.numel() + 1, device=dev)[1:].view(st0.shape)
+                both(f"{name} state off the 16-byte grid", WKV_TOL, ops.wkv6,
+                     (r, k, v, w, u, shifted.copy_(st0)), want)
         if s > 1:
             y1, st1 = ops.wkv6(r[:, :13], k[:, :13], v[:, :13], w[:, :13], u, st0)
             y2, st2 = ops.wkv6(r[:, 13:], k[:, 13:], v[:, 13:], w[:, 13:], u, st1, st1)

@@ -70,19 +70,13 @@ struct SsmParams {
 
 constexpr int kSsmThreads = 128;  // a block (the launch plan's BLOCK_THREADS)
 
-// Shared floats of a block: two buffers of B_t and C_t (N each) and u, dt
-// of its `channels` channels for each of a tile's `steps` steps, and the
-// tile's y. The launch plan (kernels/ssm_scan.py, ScanPlan.smem_bytes)
-// counts the same.
-__host__ __device__ constexpr int ssm_smem_floats(int steps, int channels, int n) {
-  return steps * (2 * (2 * n + 2 * channels) + channels);
-}
-
 template <int N, int G>
 __global__ void __launch_bounds__(kSsmThreads)
 ssm_scan_kernel(const SsmParams p) {
   constexpr int L = N / G;                     // lanes a channel
   constexpr int CH = kSsmThreads / L;          // channels a block
+  // two buffers of [steps][N] B and C and [steps][CH] u and dt, then the
+  // tile's y: the launch plan's smem_bytes (kernels/ssm_scan.py)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tile = p.steps * (2 * N + 2 * CH); // one buffer's floats
@@ -200,12 +194,10 @@ ssm_scan_kernel(const SsmParams p) {
 }
 
 template <int N, int G>
-static cudaError_t launch(const SsmParams& p, int bsz, int threads, cudaStream_t stream) {
+static cudaError_t launch(const SsmParams& p, int bsz, int smem_bytes, cudaStream_t stream) {
   constexpr int CH = kSsmThreads / (N / G);
-  if (threads != kSsmThreads) return cudaErrorInvalidValue;
   const dim3 grid((p.di + CH - 1) / CH, bsz);
-  const size_t smem = ssm_smem_floats(p.steps, CH, N) * sizeof(float);
-  ssm_scan_kernel<N, G><<<grid, kSsmThreads, smem, stream>>>(p);
+  ssm_scan_kernel<N, G><<<grid, kSsmThreads, smem_bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -213,15 +205,15 @@ static cudaError_t launch(const SsmParams& p, int bsz, int threads, cudaStream_t
 
 // strides: 14 int64 values in elements: (batch, seq, channel) of u and dt,
 // (batch, seq, state) of b and c, then (channel, state) of a. All inputs are
-// float32; h0 may be null. The launch plan (kernels/ssm_scan.py::launch_plan):
-// `group` state entries a thread (1, 2 or 4; above 1, a must be contiguous
-// and a, h0 and h_out 16-byte aligned), `threads` a block (128), `steps` a
-// tile.
+// float32; h0 may be null. The launch plan (kernels/ssm_scan.py::launch_plan),
+// taken as given: `group` state entries a thread (1, 2 or 4; above 1, a must
+// be contiguous and a, h0 and h_out 16-byte aligned), `steps` a tile and
+// `smem_bytes` of shared memory for it.
 extern "C" int repro_ssm_scan(const void* u, const void* dt, const void* a,
                               const void* b, const void* c, const void* h0,
                               void* y, void* h_out, const int64_t* strides,
-                              int bsz, int s, int di, int n, int group, int threads,
-                              int steps, void* stream) {
+                              int bsz, int s, int di, int n, int group, int steps,
+                              int smem_bytes, void* stream) {
   repro::SsmParams p;
   p.u = static_cast<const float*>(u);
   p.dt = static_cast<const float*>(dt);
@@ -245,12 +237,12 @@ extern "C" int repro_ssm_scan(const void* u, const void* dt, const void* a,
   if (steps < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n * 10 + group) {
-    case 81: return repro::launch<8, 1>(p, bsz, threads, st);
-    case 82: return repro::launch<8, 2>(p, bsz, threads, st);
-    case 84: return repro::launch<8, 4>(p, bsz, threads, st);
-    case 161: return repro::launch<16, 1>(p, bsz, threads, st);
-    case 162: return repro::launch<16, 2>(p, bsz, threads, st);
-    case 164: return repro::launch<16, 4>(p, bsz, threads, st);
+    case 81: return repro::launch<8, 1>(p, bsz, smem_bytes, st);
+    case 82: return repro::launch<8, 2>(p, bsz, smem_bytes, st);
+    case 84: return repro::launch<8, 4>(p, bsz, smem_bytes, st);
+    case 161: return repro::launch<16, 1>(p, bsz, smem_bytes, st);
+    case 162: return repro::launch<16, 2>(p, bsz, smem_bytes, st);
+    case 164: return repro::launch<16, 4>(p, bsz, smem_bytes, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -24,7 +24,7 @@
 // sequential recurrence is exact (the oracle's own form) and needs no log
 // space: it only multiplies by w in (0, 1), so decays of 1e-4 and 0.999 stay
 // finite. Column j of S needs only r_t, k_t, w_t, u and v_t[j], so a (row,
-// head) is split by column slice over C blocks (C in {1, 2, 4}, a template
+// head) is split by column slice over C blocks (C in {1, 2}, a template
 // parameter picked by the launch plan: 2 at rwkv6-3b's decode step, 320
 // blocks, and at its B = 1 prefill, 80), with no reduction across blocks.
 // Within a block a thread owns a quad of columns (a float4) over R
@@ -47,7 +47,8 @@
 // projections need no transpose copy.
 //
 // The final state may be written over the initial one (state_out ==
-// state0): each thread reads its own entries before it writes them.
+// state0): each thread reads its own entries before it writes them. A
+// state off the 16-byte grid moves as single floats.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -59,42 +60,35 @@ struct WkvParams {
   const float* v;
   const float* w;
   const float* u;       // (H, K) contiguous
-  const float* state0;  // (B, H, K, K) contiguous, 16-byte aligned, may be null: zeros
+  const float* state0;  // (B, H, K, K) contiguous, may be null: zeros
   float* y;
-  float* state_out;     // (B, H, K, K) contiguous, 16-byte aligned
+  float* state_out;     // (B, H, K, K) contiguous
   int64_t rs[3], ks[3], vs[3], ws[3], ys[3];  // strides of (batch, head, seq)
   int h, s;
   int steps;            // steps a tile
 };
 
-// The block shape of K columns split into C slices, as the launch plan
-// (kernels/rwkv6_scan.py::launch_plan) takes it: a thread owns a quad of
-// columns over the fewest rows (1, 2, 4 or 8) that keep a block within 128
-// threads; P row groups share a warp.
-template <int K, int C>
-struct WkvShape {
-  static constexpr int COLS = K / C;
-  static constexpr int QUADS = COLS / 4;
-  static constexpr int ROWS = QUADS * K <= 128 ? 1 : QUADS * K <= 256 ? 2 : QUADS * K <= 512 ? 4 : 8;
-  static constexpr int THREADS = QUADS * (K / ROWS);
+// The block of a plan (kernels/rwkv6_scan.py::launch_plan, which picks R):
+// K columns split into C slices of CW, a thread owning a quad of columns
+// over R rows, QUADS threads across a slice and P row groups a warp.
+template <int K, int C, int R>
+struct WkvBlock {
+  static constexpr int CW = K / C;
+  static constexpr int QUADS = CW / 4;
+  static constexpr int THREADS = QUADS * (K / R);
   static constexpr int WARPS = THREADS / 32;
   static constexpr int P = 32 / QUADS;
   static_assert(THREADS % 32 == 0 && 32 % QUADS == 0, "whole warps of whole row groups");
 };
 
-// Shared floats of a block: two buffers of r_t, k_t, w_t (K each) and the
-// slice's v_t (K / C) for each of a tile's `steps` steps, each warp's
-// partial y (K / C) for each step, and u. The launch plan
-// (kernels/rwkv6_scan.py, WkvPlan.smem_bytes) counts the same.
-__host__ __device__ constexpr int wkv_smem_floats(int steps, int kd, int slices, int warps) {
-  return steps * (2 * (3 * kd + kd / slices) + warps * (kd / slices)) + kd;
-}
-
-template <int K, int C>
-__global__ void __launch_bounds__(WkvShape<K, C>::THREADS)
+// VEC: both states lie on the 16-byte grid and move as float4, else as floats
+template <int K, int C, int R, bool VEC>
+__global__ void __launch_bounds__(WkvBlock<K, C, R>::THREADS)
 wkv6_kernel(const WkvParams p) {
-  using S = WkvShape<K, C>;
-  constexpr int CW = S::COLS, R = S::ROWS, P = S::P, WARPS = S::WARPS;
+  using S = WkvBlock<K, C, R>;
+  constexpr int CW = S::CW, P = S::P, WARPS = S::WARPS;
+  // two buffers of [steps][K] r, k, w and [steps][CW] v, then the warps'
+  // partial y and u: the launch plan's smem_bytes (kernels/rwkv6_scan.py)
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tile = p.steps * (3 * K + CW);     // one buffer's floats
@@ -114,13 +108,26 @@ wkv6_kernel(const WkvParams p) {
   float st[R][4];
 #pragma unroll
   for (int rr = 0; rr < R; ++rr) {
-    if (p.state0 != nullptr) {
-      load_floats<4>(st[rr], p.state0 + soff + (k0 + rr) * K + j0);
+    const float* src = p.state0 + soff + (k0 + rr) * K + j0;
+    if (p.state0 != nullptr && VEC) {
+      load_floats<4>(st[rr], src);
     } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) st[rr][c] = 0.f;
+      for (int c = 0; c < 4; ++c) st[rr][c] = p.state0 != nullptr ? src[c] : 0.f;
     }
   }
+  auto store_state = [&]() {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      float* dst = p.state_out + soff + (k0 + rr) * K + j0;
+      if constexpr (VEC) {
+        store_floats<4>(dst, st[rr]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dst[c] = st[rr][c];
+      }
+    }
+  };
   const float* r = p.r + b * p.rs[0] + head * p.rs[1];
   const float* k = p.k + b * p.ks[0] + head * p.ks[1];
   const float* v = p.v + b * p.vs[0] + head * p.vs[1];
@@ -206,10 +213,7 @@ wkv6_kernel(const WkvParams p) {
       for (int c = 0; c < 4; ++c) yp[c] = lanes_sum<P, S::QUADS>(yp[c]);
       if (rg == 0) store_floats<4>(s_part + (tb * WARPS + warp) * CW + quad * 4, yp);
     }
-    if (last) {  // the final state goes out before the tile's y, to overlap the two
-#pragma unroll
-      for (int rr = 0; rr < R; ++rr) store_floats<4>(p.state_out + soff + (k0 + rr) * K + j0, st[rr]);
-    }
+    if (last) store_state();  // before the tile's y, to overlap the two stores
     __syncthreads();  // every warp's partials are in, and the tile is read
     for (int idx = threadIdx.x; idx < steps * CW; idx += S::THREADS) {
       const int t = idx / CW, c = idx % CW;
@@ -220,20 +224,19 @@ wkv6_kernel(const WkvParams p) {
       y[(t0 + t) * p.ys[2] + c0 + c] = yj;
     }
   }
-  if (p.s == 0) {
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) store_floats<4>(p.state_out + soff + (k0 + rr) * K + j0, st[rr]);
-  }
+  if (p.s == 0) store_state();
 }
 
-template <int K, int C>
-static cudaError_t launch(const WkvParams& p, int bsz, int rows, int threads,
+template <int K, int C, int R>
+static cudaError_t launch(const WkvParams& p, int bsz, int smem_bytes, bool vec,
                           cudaStream_t stream) {
-  using S = WkvShape<K, C>;
-  if (rows != S::ROWS || threads != S::THREADS) return cudaErrorInvalidValue;
   const dim3 grid(p.h * C, bsz);
-  const size_t smem = wkv_smem_floats(p.steps, K, C, S::WARPS) * sizeof(float);
-  wkv6_kernel<K, C><<<grid, S::THREADS, smem, stream>>>(p);
+  constexpr int threads = WkvBlock<K, C, R>::THREADS;
+  if (vec) {
+    wkv6_kernel<K, C, R, true><<<grid, threads, smem_bytes, stream>>>(p);
+  } else {
+    wkv6_kernel<K, C, R, false><<<grid, threads, smem_bytes, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -242,14 +245,14 @@ static cudaError_t launch(const WkvParams& p, int bsz, int rows, int threads,
 // strides: 15 int64 values in elements, the (batch, head, seq) strides of r,
 // k, v, w and y; the last axis of each is contiguous. All tensors are
 // float32; state0 may be null. The launch plan (kernels/rwkv6_scan.py::
-// launch_plan): `slices` column slices a (row, head), `rows` rows a thread,
-// `threads` a block (K / slices / 4 column quads x K / rows row groups),
-// `steps` a tile.
+// launch_plan), taken as given: `slices` column slices a (row, head),
+// `rows` rows a thread (the two pick the block), `steps` a tile and
+// `smem_bytes` of shared memory for it.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* state0,
                           void* y, void* state_out, const int64_t* strides,
                           int bsz, int h, int s, int kd, int slices, int rows,
-                          int threads, int steps, void* stream) {
+                          int steps, int smem_bytes, void* stream) {
   repro::WkvParams p;
   p.r = static_cast<const float*>(r);
   p.k = static_cast<const float*>(k);
@@ -269,17 +272,17 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   p.h = h;
   p.s = s;
   p.steps = steps;
+  const bool vec =
+      (reinterpret_cast<uintptr_t>(state0) | reinterpret_cast<uintptr_t>(state_out)) % 16 == 0;
   if (steps < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kd * 10 + slices) {  // the (K, slices) pairs the plan takes
-    case 161: return repro::launch<16, 1>(p, bsz, rows, threads, st);
-    case 162: return repro::launch<16, 2>(p, bsz, rows, threads, st);
-    case 321: return repro::launch<32, 1>(p, bsz, rows, threads, st);
-    case 322: return repro::launch<32, 2>(p, bsz, rows, threads, st);
-    case 324: return repro::launch<32, 4>(p, bsz, rows, threads, st);
-    case 641: return repro::launch<64, 1>(p, bsz, rows, threads, st);
-    case 642: return repro::launch<64, 2>(p, bsz, rows, threads, st);
-    case 644: return repro::launch<64, 4>(p, bsz, rows, threads, st);
+  switch ((kd * 10 + slices) * 10 + rows) {  // the (K, slices, rows) the plan takes
+    case 1611: return repro::launch<16, 1, 1>(p, bsz, smem_bytes, vec, st);
+    case 1621: return repro::launch<16, 2, 1>(p, bsz, smem_bytes, vec, st);
+    case 3212: return repro::launch<32, 1, 2>(p, bsz, smem_bytes, vec, st);
+    case 3221: return repro::launch<32, 2, 1>(p, bsz, smem_bytes, vec, st);
+    case 6418: return repro::launch<64, 1, 8>(p, bsz, smem_bytes, vec, st);
+    case 6424: return repro::launch<64, 2, 4>(p, bsz, smem_bytes, vec, st);
     default: return cudaErrorInvalidValue;
   }
 }

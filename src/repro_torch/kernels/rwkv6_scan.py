@@ -27,15 +27,10 @@ LAUNCHES = 0
 #: head sizes the kernel is compiled for
 HEAD_SIZES = (16, 32, 64)
 #: column slices a (row, head) may be split into, fewest first
-SLICES = (1, 2, 4)
+SLICES = (1, 2)
 #: blocks the plan aims for: two on each of the H100's 132 SMs. The fewest
-#: slices that give this many are taken, up to DEFAULT_MAX_SLICES.
+#: slices that give this many are taken, else the most.
 TARGET_BLOCKS = 2 * 132
-#: the most slices the plan takes unasked: 4 were slower than 2 at both of
-#: rwkv6-3b's shapes, the decode step and the B = 1 prefill (8 row groups a
-#: warp to reduce, r, k and w staged 4 times; chip_smoke.py's plans sweep on
-#: an H100)
-DEFAULT_MAX_SLICES = 2
 #: rows a thread may own, fewest first
 ROWS = (1, 2, 4, 8)
 #: threads a block, at most
@@ -58,8 +53,9 @@ class WkvPlan:
     """One launch: each (row, head) split into ``slices`` blocks of
     ``K / slices`` columns; a thread owns 4 columns over ``rows`` rows, so a
     block is ``threads`` = (K / slices / 4) x (K / rows); ``steps`` a tile
-    staged in shared memory, ``smem_bytes`` of it (as
-    ``csrc/wkv6.cu::wkv_smem_floats``), ``blocks`` in the grid."""
+    staged in shared memory, ``smem_bytes`` of it, ``blocks`` in the grid.
+    The kernel takes the plan as given: its block and shared-memory layout
+    follow from these numbers."""
     slices: int
     rows: int
     threads: int
@@ -78,19 +74,16 @@ def _smem_bytes(steps: int, kd: int, slices: int, threads: int) -> int:
 def launch_plan(bsz: int, h: int, s: int, kd: int, slices: int | None = None) -> WkvPlan:
     """The plan for B = ``bsz`` rows of ``h`` heads of size ``kd`` over ``s``
     steps. ``slices`` (one of :data:`SLICES`) is by default the fewest that
-    give :data:`TARGET_BLOCKS` blocks, up to :data:`DEFAULT_MAX_SLICES` and
-    to as many as leave a block at least a warp; rows a thread the fewest
-    that keep a block within :data:`BLOCK_THREADS` threads
-    (``csrc/wkv6.cu::WkvShape``); the tile the most steps, up to
+    give :data:`TARGET_BLOCKS` blocks, else the most; rows a thread the
+    fewest that keep a block within :data:`BLOCK_THREADS` threads; the tile
+    the most steps, up to
     :data:`TILE_STEPS`, whose shared memory fits in :data:`SMEM_LIMIT`, a
     whole number of the steps a warp reduces at once (its row groups) where
     it holds more than that."""
-    fits = [c for c in SLICES if kd // (4 * c) * kd >= 32]
     if slices is None:
-        unasked = [c for c in fits if c <= DEFAULT_MAX_SLICES]
-        slices = next((c for c in unasked if bsz * h * c >= TARGET_BLOCKS), unasked[-1])
-    if slices not in fits:
-        raise ValueError(f"{slices} column slices of K = {kd} leave less than a warp a block")
+        slices = next((c for c in SLICES if bsz * h * c >= TARGET_BLOCKS), SLICES[-1])
+    if slices not in SLICES or kd not in HEAD_SIZES:
+        raise ValueError(f"{slices} column slices of K = {kd} are not compiled")
     quads = kd // (4 * slices)
     rows = next(r for r in ROWS if quads * kd // r <= BLOCK_THREADS)
     threads = quads * kd // rows
@@ -135,8 +128,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError("the head-size axis of r, k, v, w must be contiguous")
     if not (u.is_contiguous() and all(t.is_contiguous() for t in states)):
         raise ValueError("u, state0 and state_out must be contiguous")
-    if any(t.data_ptr() % 16 for t in states):
-        raise ValueError("state0 and state_out must start on a 16-byte boundary")
     if max(h, s) >= 2**31 // 4 or bsz >= 2**16:
         raise ValueError(f"unsupported shape {tuple(r.shape)}")
     y = torch.empty((bsz, s, h, kd), dtype=torch.float32, device=r.device).transpose(1, 2)
@@ -152,7 +143,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state0 is None else state0.data_ptr(), y.data_ptr(),
         state_out.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd, plan.slices,
-        plan.rows, plan.threads, plan.steps, _build.stream_ptr(r))
+        plan.rows, plan.steps, plan.smem_bytes, _build.stream_ptr(r))
     _build.check(err, "wkv6")
     LAUNCHES += 1
     return y, state_out

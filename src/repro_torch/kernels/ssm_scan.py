@@ -65,8 +65,8 @@ class ScanPlan:
     @property
     def smem_bytes(self) -> int:
         """Two buffers of B_t and C_t (N each) and u, dt of the block's
-        channels for each step of a tile, and the tile's y, as
-        ``csrc/ssm_scan.cu::ssm_smem_floats``."""
+        channels for each step of a tile, and the tile's y: the layout the
+        kernel takes as given."""
         n = self.lanes * self.group
         return 4 * self.steps * (2 * (2 * n + 2 * self.channels) + self.channels)
 
@@ -134,7 +134,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     err = _build.library().repro_ssm_scan(
         u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        ctypes.addressof(strides), bsz, s, di, n, plan.group, plan.threads, plan.steps,
+        ctypes.addressof(strides), bsz, s, di, n, plan.group, plan.steps, plan.smem_bytes,
         _build.stream_ptr(u))
     _build.check(err, "ssm_scan")
     LAUNCHES += 1

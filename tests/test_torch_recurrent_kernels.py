@@ -325,10 +325,6 @@ def test_wkv_launch_plan_covers_the_state(kd):
         for h in (1, 3, 40, 64):
             for s in (0, 1, 13, 32, 33, 512):
                 for slices in (None, *k6.SLICES):
-                    if slices is not None and kd // (4 * slices) * kd < 32:
-                        with pytest.raises(ValueError):
-                            k6.launch_plan(bsz, h, s, kd, slices)
-                        continue
                     p = k6.launch_plan(bsz, h, s, kd, slices)
                     cols = kd // p.slices
                     quads = cols // 4
@@ -340,8 +336,6 @@ def test_wkv_launch_plan_covers_the_state(kd):
                     assert p.steps <= 32 // quads or p.steps % (32 // quads) == 0
                     assert p.smem_bytes <= k6.SMEM_LIMIT
                     assert p.blocks == bsz * h * p.slices
-                    if slices is None:
-                        assert p.slices <= k6.DEFAULT_MAX_SLICES
                     if slices is None and p.slices > 1:
                         assert bsz * h * (p.slices // 2) < k6.TARGET_BLOCKS
 
@@ -362,8 +356,9 @@ def test_recurrent_kernels_match_plain_on_card(cuda):
     <= tol (1 + |plain|), at every branch of their launch plans: K5 with 1,
     2 and 4 state entries a thread (by shape and asked for), I not a
     multiple of the block, a strided and a misaligned a (the scalar path);
-    K6 with 1, 2 and 4 column slices (by shape and asked for), the model's
-    (B, S, H, K) views and a state off the 16-byte grid (refused). Both at
+    K6 with 1 and 2 column slices (by shape and asked for), the model's
+    (B, S, H, K) views and a state off the 16-byte grid (moved as single
+    floats), carried and in place. Both at
     the serving shapes, a ragged length, S = 1 from a carried state, a state
     carried across two calls (the second in place), large dt and extreme
     decays; every call twice for the same bits."""
@@ -447,11 +442,16 @@ def test_recurrent_kernels_match_plain_on_card(cuda):
         bshk = [x.transpose(1, 2).contiguous().transpose(1, 2) if x.ndim == 4 else x
                 for x in args]
         check_wkv(bshk, st0)
-    # the state moves in 16-byte vectors: a state off that grid is refused
-    shifted = torch.empty(st0.numel() + 1, device=cuda)[1:].view(st0.shape)
-    with pytest.raises(ValueError):
-        wkv6(*args, state0=shifted)
+    # a state off the 16-byte grid moves as single floats, also in place
+    shifted = torch.empty(st0.numel() + 1, device=cuda)[1:].view(st0.shape).copy_(st0)
+    check_wkv(args, shifted)
+    want = wkv6_plain(*args, state0=st0)
+    got = wkv6(*args, state0=shifted, state_out=shifted)
+    launches["wkv6"] += 1
+    assert got[1] is shifted
+    for x, ref_ in zip(got, want):
+        torch.testing.assert_close(x, ref_, **WKV_TOL)
     torch.cuda.synchronize()
     after = tk.launch_counts()
-    assert launches == {"ssm_scan": 38, "wkv6": 42}
+    assert launches == {"ssm_scan": 38, "wkv6": 41}
     assert {k: after[k] - before[k] for k in after} == dict(dict.fromkeys(after, 0), **launches)
