@@ -36,7 +36,14 @@ paths:
   scan, K7 cooldown chain), holds the outcomes against the NumPy oracle
   (time and count fields exact, energies and penalties within 1e-9
   relative), checks K4 and K7 against their plain versions at the largest
-  padding bucket and times them; K7 also at every padding bucket (at 8 and
+  padding bucket and times them; K4 also at every padding bucket (against
+  its plain version under every launch plan and ``torch.searchsorted``;
+  timed back to back under each plan and after an L2-sized read, beside
+  ``torch.searchsorted`` and its bounds as stored and for the real samples;
+  their sum beside K4's time in a profiled ``evaluate``) and on edge cases
+  (NaN and infinite caps, rows all padding, a tail of 1 or off the 16-byte
+  grid, rows past the shared-memory branch, C = 1, strided caps); K7 also
+  at every padding bucket (at 8 and
   32 lanes a pair, each beside the bytes its fires need; their sum beside
   K7's time in a profiled ``evaluate``) and on synthetic edge buckets (K past one staged chunk,
   S = 1, pairs that fire on every run or never), each called twice for the
@@ -1117,27 +1124,211 @@ def compare_outcomes(ref, out, label: str) -> dict:
     return worst
 
 
+def cap_scan_plans(n: int, c: int, rows: int) -> dict:
+    """Every plan K4 may take for these shapes, by label: the plan's own
+    choice, and each number of tiles a row it weighs at each number of caps
+    a thread for the row branch (where the row fits) and at the plan's
+    number for the tree branch."""
+    from repro_torch.kernels import run_replay as k4
+    plans = {"plan": k4.launch_plan(n, c, rows)}
+    for branch, choices in (("row", k4.CAPS), ("tree", (None,))):
+        for caps in choices:
+            for t in k4.TILES:
+                try:
+                    plan = k4.launch_plan(n, c, rows, t, branch, caps)
+                except ValueError:          # a row too wide for the row branch
+                    continue
+                plans[f"{branch} {plan.caps} x{t}"] = plan
+    return plans
+
+
+def check_cap_scan(name: str, sp, caps, plans=(), yardstick: bool = True):
+    """K4 on (``sp``, ``caps``) exactly equal to its plain version under its
+    own plan and every plan in ``plans``, two calls the same bits, and,
+    where ``yardstick`` (rows without NaN), equal to ``torch.searchsorted``
+    wherever the cap is not NaN (a NaN cap counts Np, as in the Pallas
+    kernel). Returns the counts."""
+    import torch
+    from repro_torch.kernels import run_replay as k4
+    got, want = k4.cap_bucket_scan(sp, caps), k4.cap_bucket_scan_plain(sp, caps)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain")
+    if not torch.equal(got, k4.cap_bucket_scan(sp, caps)):
+        raise AssertionError(f"{name}: two calls differ")
+    for plan in plans:
+        if not torch.equal(k4.cap_bucket_scan(sp, caps, plan), want):
+            raise AssertionError(f"{name}: kernel != plain under {plan}")
+    if yardstick:
+        n, c = sp.shape[-1], caps.shape[-1]
+        flat = caps.reshape(-1, c)
+        yard = n - torch.searchsorted(sp.reshape(-1, n), flat.contiguous(), right=True)
+        if not (torch.isnan(flat) | (yard == got.reshape(-1, c))).all():
+            raise AssertionError(f"{name}: kernel != torch.searchsorted")
+    return got
+
+
 def cap_scan_edge_cases(dev) -> None:
-    """K4 exactly equal to its plain version and to NumPy on ties, -inf
-    padded rows, Np = 1 and a non-power-of-two Np."""
+    """K4 against its plain version, under every plan (:func:`cap_scan_plans`),
+    and against ``torch.searchsorted``, on ties and -inf padded rows: Np = 1,
+    Np not a power of two, NaN, +inf and -inf caps, rows all padding, a
+    finite tail of 1, an odd padding count (the staged part starts off the
+    16-byte grid), the widest row the row branch takes, widths past it
+    (2^15 and 40,000), C = 1, C no multiple of a tile, caps as a stride-0
+    expand and as a transposed view, and rows ending in +inf and NaN (as
+    ``torch.sort`` orders them)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import run_replay
     rng = np.random.default_rng(5)
-    for rows, n, c, pad in ((1, 1, 7, 0), (3, 17, 5, 4), (4, 1000, 33, 40),
-                            (2, 6, 5, 0)):
+
+    def inputs(rows, n, c, pad, special=False):
         sp = np.sort(rng.integers(-40, 40, (rows, n)).astype(np.float64) * 2.5, axis=1)
         sp[:, :pad] = -np.inf
         caps = rng.integers(-45, 45, (rows, c)).astype(np.float64) * 2.5
-        want = np.stack([n - np.searchsorted(sp[r], caps[r], side="right")
-                         for r in range(rows)])
-        sp_t = torch.from_numpy(sp).to(dev)
-        caps_t = torch.from_numpy(caps).to(dev)
-        got = run_replay.cap_bucket_scan(sp_t, caps_t)
-        if not (torch.equal(got, run_replay.cap_bucket_scan_plain(sp_t, caps_t))
-                and np.array_equal(got.cpu().numpy(), want)):
-            raise AssertionError(f"cap_bucket_scan rows={rows} n={n} c={c} pad={pad}: "
-                                 "kernel != plain/numpy")
+        if special:
+            caps[:, 0::4], caps[:, 1::4], caps[:, 2::4] = np.nan, np.inf, -np.inf
+        return torch.from_numpy(sp).to(dev), torch.from_numpy(caps).to(dev)
+
+    for rows, n, c, pad, special in (
+            (1, 1, 7, 0, False), (3, 17, 5, 4, False), (4, 1000, 33, 40, False),
+            (2, 6, 5, 0, False), (3, 17, 13, 0, True), (2, 64, 9, 64, True),
+            (2, 33, 8, 32, True), (4, 4096, 300, 1001, True), (3, 8191, 1000, 2, False),
+            (2, 29055, 300, 7, True), (2, 1 << 15, 513, 20001, True),
+            (3, 40000, 257, 12345, True), (5, 8192, 1, 5000, False),
+            (6, 4096, 1000, 3, False)):
+        sp, caps = inputs(rows, n, c, pad, special)
+        got = check_cap_scan(f"cap_bucket_scan rows={rows} n={n} c={c} pad={pad}", sp, caps,
+                             cap_scan_plans(n, c, rows).values())
+        if special and not (got[:, 0::4] == n).all():
+            raise AssertionError(f"cap_bucket_scan n={n}: a NaN cap did not count Np")
+    sp, caps = inputs(12, 2048, 301, 999)
+    grouped = sp.reshape(3, 4, 2048)
+    table = caps[:3]
+    check_cap_scan("cap_bucket_scan caps expanded over 4 buckets", grouped,
+                   table[:, None, :].expand(3, 4, 301), cap_scan_plans(2048, 301, 12).values())
+    check_cap_scan("cap_bucket_scan transposed caps", sp, caps.t().contiguous().t(),
+                   cap_scan_plans(2048, 301, 12).values())
+    ends = sp.clone()                                   # as torch.sort leaves them
+    ends[:, 1800:], ends[:, 1900:] = float("inf"), float("nan")
+    check_cap_scan("cap_bucket_scan +inf and NaN samples last", ends, caps,
+                   cap_scan_plans(2048, 301, 12).values(), yardstick=False)
+    torch.cuda.synchronize()
+
+
+def cap_bounds(sp, caps_table, n_out: int) -> dict:
+    """K4's bounds: the rows as stored, and only their real samples, which
+    is all a kernel that skips the padding must read; each with every
+    distinct cap (``caps_table``) read and every count written once.
+    Operations: ~5 a probe, bit_length(Np) probes a count, at the float32
+    rate."""
+    n_p = sp.shape[-1]
+    ops = n_out * max(n_p.bit_length(), 1) * 5
+    rest = caps_table.numel() * 8 + n_out * 4
+    real = int((sp != float("-inf")).sum())
+    return {"stored": bound_ms(sp.numel() * 8 + rest, ops, F32_OPS_PER_S),
+            "stored_bytes": sp.numel() * 8 + rest,
+            "real": bound_ms(real * 8 + rest, ops, F32_OPS_PER_S),
+            "real_bytes": real * 8 + rest, "real_samples": real}
+
+
+def after_read_ms(fn, flush, pattern: str, iters: int = 20) -> float:
+    """Card ms a launch of the kernels matching ``pattern`` that ``fn``
+    runs, each call after a read of ``flush`` (past the L2, so ``fn``'s
+    inputs come from HBM, as in ``evaluate``): profiled over ``iters``
+    calls after as many under the profiler's warm-up step, the mean over
+    the launches the profile kept (it can drop a record or two)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    steps = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: steps.append(p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    hits = [e for e in steps[0] if e.device_type == DeviceType.CUDA
+            and re.search(pattern, e.key)]
+    n = sum(e.count for e in hits)
+    if not iters // 2 < n <= iters:
+        raise AssertionError(f"after_read_ms: {n} launches matching {pattern!r} in the "
+                             f"profile of {iters} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n
+
+
+#: bytes read between launches to leave the L2 (50 MB on an H100) cold
+FLUSH_BYTES = 128 << 20
+
+
+def cap_buckets(dev, packed, fracs, alternatives: bool = True) -> list[dict]:
+    """K4 at every padding bucket of the 10^4 run, as the power-cap family
+    calls it ([S, 4, Np] rows, the grid's C caps a stream expanded over its
+    4 buckets): checked by :func:`check_cap_scan` (under every plan where
+    ``alternatives``), then its card time back to back (20 calls in a
+    graph; all seven buckets' rows fit in the L2) under its plan and, where
+    ``alternatives``, every other, and after an L2-sized read (profiled);
+    its time on the first cap alone under the bucket's plan (the launch,
+    the padding probe and the staging of every row with the same blocks,
+    one search a row: the blocks' set-up; without ``alternatives``, under
+    the plan for C = 1); ``torch.searchsorted``'s in both settings; both
+    bounds (:func:`cap_bounds`). Without ``alternatives`` it calls only the
+    wrapper's two-argument form, which earlier commits share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import run_replay as k4
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    out = []
+    for b in packed.buckets:
+        sp = b.device_tensors(dev)["cap_sorted"]
+        s_dim, n_b, n_p = sp.shape
+        table = torch.from_numpy(np.asarray(fracs)[None, :] * packed.tdp[b.idx][:, None]).to(dev)
+        c = table.shape[1]
+        view = table[:, None, :].expand(s_dim, n_b, c)
+        name = f"cap_bucket_scan bucket ({s_dim}, {n_b}, {n_p})"
+        plans = cap_scan_plans(n_p, c, s_dim * n_b) if alternatives else {}
+        got = check_cap_scan(name, sp, view, plans.values())
+        flat_sp, flat_caps = sp.reshape(-1, n_p), view.reshape(-1, c)    # materialised
+        first = view[..., :1]
+        one_cap = ((lambda: k4.cap_bucket_scan(sp, first, plans["plan"])) if alternatives
+                   else (lambda: k4.cap_bucket_scan(sp, first)))
+        row = dict(streams=s_dim, n=n_p, caps=c,
+                   ms=graph_ms(lambda: k4.cap_bucket_scan(sp, view), 20),
+                   one_cap_ms=graph_ms(one_cap, 20),
+                   ms_by_plan={k: graph_ms(lambda p=p: k4.cap_bucket_scan(sp, view, p), 20)
+                               for k, p in plans.items()},
+                   library_ms=graph_ms(lambda: torch.searchsorted(
+                       flat_sp, flat_caps, right=True), 20),
+                   cold_ms=after_read_ms(lambda: k4.cap_bucket_scan(sp, view), flush,
+                                         r"cap_bucket_scan_kernel"),
+                   cold_library_ms=after_read_ms(lambda: torch.searchsorted(
+                       flat_sp, flat_caps, right=True), flush, r"searchsorted"),
+                   **cap_bounds(sp, table, got.numel()))
+        if alternatives:
+            row["plan"] = str(plans["plan"])
+        out.append(row)
+        log(f"time {name}, {c} caps, {row['real_samples']} real samples: card ms "
+            f"{row['ms']:.5f} back to back, {row['cold_ms']:.5f} after a "
+            f"{FLUSH_BYTES >> 20} MB read, {row['one_cap_ms']:.5f} on one cap; "
+            f"torch.searchsorted {row['library_ms']:.5f} / "
+            f"{row['cold_library_ms']:.5f}; bound {row['stored'][0]:.5f} as stored "
+            f"({row['stored_bytes']} bytes), {row['real'][0]:.5f} real samples only "
+            f"({row['real_bytes']} bytes), {row['real'][0] / row['ms']:.1%} of the "
+            f"second" + (f"; {row['plan']}; by plan: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in row["ms_by_plan"].items()) if alternatives else ""))
+    tot = {k: sum(r[k] for r in out)
+           for k in ("ms", "cold_ms", "one_cap_ms", "library_ms", "cold_library_ms")}
+    log(f"time cap_bucket_scan, all {len(out)} buckets, card ms for one launch each: "
+        f"{tot['ms']:.5f} back to back, {tot['cold_ms']:.5f} after a read, "
+        f"{tot['one_cap_ms']:.5f} on one cap; "
+        f"torch.searchsorted {tot['library_ms']:.5f} / {tot['cold_library_ms']:.5f}; bound "
+        f"{sum(r['stored'][0] for r in out):.5f} as stored, "
+        f"{sum(r['real'][0] for r in out):.5f} real samples only")
+    if alternatives:
+        log("time cap_bucket_scan, all buckets by plan: " + ", ".join(
+            f"{k} {sum(r['ms_by_plan'][k] for r in out):.5f}"
+            for k in out[0]["ms_by_plan"] if all(k in r["ms_by_plan"] for r in out)))
+    return out
 
 
 def profile_evaluate(grid, store, kw) -> dict:
@@ -1208,27 +1399,22 @@ def replay_kernels(dev, grid, packed) -> dict:
     n_b, n_p = sp.shape[1], sp.shape[2]
     c4 = caps.shape[1]
     view = caps[:, None, :].expand(s_dim, n_b, c4)
-    got = k4.cap_bucket_scan(sp, view)
-    want = k4.cap_bucket_scan_plain(sp, view)
-    if not torch.equal(got, want):
-        raise AssertionError("cap_bucket_scan: kernel != plain at the main shape")
-    k4_err = float((got - want).abs().max())
+    got = check_cap_scan("cap_bucket_scan at the main shape", sp, view)
+    k4_err = float((got - k4.cap_bucket_scan_plain(sp, view)).abs().max())
     cap_scan_edge_cases(dev)
     rows = sp.reshape(s_dim * n_b, n_p)
     caps_rows = view.reshape(s_dim * n_b, c4)           # materialised for searchsorted
-    yard = n_p - torch.searchsorted(rows, caps_rows, right=True)
-    if not torch.equal(yard.to(torch.int32).reshape(got.shape), got):
-        raise AssertionError("cap_bucket_scan: kernel != torch.searchsorted")
-    iters = max(n_p.bit_length(), 1)
+    bounds = cap_bounds(sp, caps, got.numel())
     k4_row = dict(
         shape=f"sorted_p ({s_dim}, 4, {n_p}) f64, caps ({s_dim}, {c4}) f64 "
               f"expanded over 4 buckets",
         kernel=timed(lambda: k4.cap_bucket_scan(sp, view)),
         plain=timed(lambda: k4.cap_bucket_scan_plain(sp, view), 20),
         library=timed(lambda: torch.searchsorted(rows, caps_rows, right=True)),
-        bound=bound_ms(sp.numel() * 8 + caps.numel() * 8 + got.numel() * 4,
-                       got.numel() * iters * 5, F32_OPS_PER_S),
-        max_abs_err=k4_err)
+        bound=bounds["real"], bound_stored=bounds["stored"],
+        plan=str(k4.launch_plan(n_p, c4, s_dim * n_b)),
+        max_abs_err=k4_err,
+        buckets=cap_buckets(dev, packed, cap_batch._fracs))
 
     # K7, as the downscale family calls it: the unique (trigger, cooldown) pairs
     key = np.stack([ds_batch._trig.astype(np.float64), ds_batch._y], axis=1)
@@ -1586,6 +1772,12 @@ def main() -> int:
     prof_k7 = wresult["evaluate_profile"]["repro_kernels_ms"].get("downscale_chain_kernel")
     log(f"downscale_replay card time: {sum(b['ms'] for b in k7['buckets']):.5f} ms over the "
         f"{len(k7['buckets'])} buckets timed alone, {prof_k7} ms in the profiled 10^4 evaluate")
+    k4 = wtimes["cap_bucket_scan"]
+    prof_k4 = wresult["evaluate_profile"]["repro_kernels_ms"].get("cap_bucket_scan_kernel")
+    log(f"cap_bucket_scan card time: {sum(b['ms'] for b in k4['buckets']):.5f} ms over the "
+        f"{len(k4['buckets'])} buckets timed alone back to back, "
+        f"{sum(b['cold_ms'] for b in k4['buckets']):.5f} ms each after an L2-sized read, "
+        f"{prof_k4} ms in the profiled 10^4 evaluate")
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
@@ -1619,6 +1811,8 @@ def main() -> int:
         for label, x in t.get("extra", {}).items():
             row[label] = {"shape": x["shape"], "ms": x["ms"], "library_ms": x["library_ms"],
                           "bound_ms": x["bound"][0], "bound_by": x["bound"][1]}
+        if "bound_stored" in t:
+            row["bound_stored_ms"] = t["bound_stored"][0]
         for key in ("plan", "plans", "state_floor_ms", "launch", "buckets"):
             if key in t:
                 row[key] = t[key]

@@ -1,7 +1,8 @@
-// Hopper primitives for the port's kernels, written out in PTX: 16- and
-// 4-byte cp.async, warp-level tensor-core products (ldmatrix, mma.sync), mbarriers,
-// TMA tile loads, and warpgroup matrix multiplies (wgmma) with their
-// shared-memory descriptors. Built for sm_90a.
+// Hopper primitives for the port's kernels, written out in PTX: loads from
+// shared memory by byte address, 16- and 4-byte cp.async, warp-level
+// tensor-core products (ldmatrix, mma.sync), mbarriers, TMA tile loads, and
+// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors.
+// Built for sm_90a.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: nothing links against libcuda)
@@ -11,6 +12,14 @@ namespace repro {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// one double from shared memory at a byte address (volatile: it stays
+// after the barrier that publishes what it reads)
+__device__ __forceinline__ double ld_shared_f64(uint32_t addr) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
+  return v;
 }
 
 // ---- cp.async: 16 or 4 bytes global -> shared, in groups ------------------

@@ -49,7 +49,8 @@ SIGNATURES = {
                                    _F, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P],
-    "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _P],
+    "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
+                              _I, _I, _P],
     "repro_downscale_replay": [_P, _P, _P, _P, _P, _P, _P, _P, _D, _P, _P,
                                _L, _L, _L, _L, _P, _P, _I, _I, _I, _P],
     "repro_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
