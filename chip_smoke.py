@@ -17,8 +17,13 @@ paths:
   compares full-width llama-13b logits between the kernel path and the
   plain path, then serves llama-13b at full width (random weights from a
   seed, bf16) through ``ServingEngine`` with the Algorithm-1 controller
-  on, and checks every kernel's launch count and that every bf16 K2 launch
-  took the tensor cores;
+  on, its decode step and prefill replayed from the CUDA graphs the engine
+  captures, and checks every kernel's launch count (replays x launches per
+  graph) and that every bf16 K2 launch took the tensor cores; times the
+  replayed decode step and the eager one on the same engine, each beside
+  the card's busy time from torch.profiler; and holds the replays to the
+  eager step functions bit for bit over 8 lockstep decode steps across the
+  cache's end and one prefill;
 * the recurrent families: holds K5 (Mamba selective scan) and K6 (RWKV-6
   WKV) against their plain versions (main shapes, every branch of their
   launch plans, a ragged length, S = 1 from a carried state, a state
@@ -29,7 +34,9 @@ paths:
   hymba-1.5b and rwkv6-3b at full width, compares kernel-path and
   plain-path logits (each beside its chaos floor: the plain path against
   itself with attention, or the WKV recurrence, in float64) and serves each
-  through ``ServingEngine`` as above, with exact launch counts;
+  through ``ServingEngine`` as above, with exact launch counts, the step
+  times and the lockstep check (hymba's steps also cross its 1,024-slot
+  ring);
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -47,7 +54,13 @@ paths:
   32 lanes a pair, each beside the bytes its fires need; their sum beside
   K7's time in a profiled ``evaluate``) and on synthetic edge buckets (K past one staged chunk,
   S = 1, pairs that fire on every run or never), each called twice for the
-  same bits.
+  same bits; times ``pareto_flags`` against the pairwise loop it replaced
+  on the 10^4 grid's outcomes (the same flags); then runs the closed-loop
+  ``search_frontier`` (default families, 100 evaluations, a budget of 1% of
+  active time) on the card and on the NumPy oracle over the same store:
+  the same configs in the same order, trace, knee and budget answer,
+  counts exact, floats within 1e-9; with its time, each round's, and K4's
+  and K7's launches in each.
 
 Output: one line per phase; before the last, a ``{"kernels": [...]}`` JSON
 line and the card's name and power limit from nvidia-smi; last, the
@@ -653,41 +666,180 @@ def time_recurrent_kernels(dev) -> dict[str, dict]:
     return out
 
 
-def profile_decode(cfg, params, cache, dev, step_ms: float, n_slots: int) -> dict:
-    """Three decode steps under torch.profiler: the card's busy time per step
-    against the unprofiled step time from the serve run, and the kernels
-    that take it."""
+def step_ms(fn, steps: int = 10, warmup: int = 2) -> float:
+    """Mean time of one call of ``fn`` as the engine's phases time a step:
+    CUDA events around the call, then a synchronisation, so the host's
+    launch cost is in the number wherever it exceeds the card's time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / steps
+
+
+def covered(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: the time in
+    which at least one of them runs."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def profile_steps(fn, steps: int = 3) -> dict:
+    """``steps`` calls of ``fn`` under torch.profiler, after a profiled
+    warm-up step (a profile's first device records can be lost): per call,
+    the card's busy time as the sum of its operations' times (as earlier
+    versions of this script read it) and as the time in which at least one runs (their intervals'
+    union: a kernel launched early by programmatic dependent launch, as
+    cuBLAS's may be, overlaps the one before it, and the sum counts the
+    overlap twice), its device operations, and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import api
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    tokens = torch.full((n_slots, 1), 7, dtype=torch.long, device=dev)
-    cache, _ = api.decode_step(params, cache, tokens, cfg)
+    fn()
     torch.cuda.synchronize()
-    steps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            cache, _ = api.decode_step(params, cache, tokens, cfg)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / steps
+    active = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: active.append((p.key_averages(),
+                                                         p.events()))) as prof:
+        for _ in range(2):
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    averages, events = active[0]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
     ours: dict[str, float] = {}
+    launches: dict[str, float] = {}
     for e in on_card:                 # the port's kernels, by name
         m = re.search(r"repro::(\w+)", e.key)
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / steps
-    result = {
-        "card_busy_ms_per_step": busy_ms,
-        "step_ms_unprofiled": step_ms,
-        "card_idle_share": (1.0 - busy_ms / step_ms) if busy_ms else None,
-        "kernel_launches_per_step": sum(e.count for e in on_card) / steps,
+            launches[m.group(1)] = launches.get(m.group(1), 0) + e.count / steps
+    return {
+        "card_busy_ms_per_step": sum(e.self_device_time_total for e in on_card) / 1e3 / steps,
+        "card_active_ms_per_step": covered(spans) / 1e3 / steps,
+        "device_ops_per_step": sum(e.count for e in on_card) / steps,
         "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
                                     for e in top},
         "repro_kernels_ms_per_step": ours,
+        "repro_launches_per_step": launches,
     }
-    log(f"profile {cfg.name} decode step " + json.dumps(result))
+
+
+def decode_step_times(engine, serve_ms: float) -> dict:
+    """The engine's decode step as a CUDA-graph replay and eagerly, on the
+    same parameters and cache: each step's time (:func:`step_ms`) beside the
+    card's busy time (:func:`profile_steps`) and the idle share between
+    them; the serve run's mean decode phase beside them."""
+    import torch
+    from repro_torch.models import api
+
+    tokens = torch.full((engine.ec.n_slots, 1), 7, dtype=torch.long,
+                        device=engine.torch_device)
+    steps = {"replayed": lambda: engine.decode(tokens),
+             "eager": lambda: api.decode_step(engine.params, engine.cache, tokens, engine.cfg)}
+    result = {}
+    for label, fn in steps.items():
+        ms = step_ms(fn)
+        prof = profile_steps(fn)
+        busy = prof["card_busy_ms_per_step"]
+        if busy <= 0:
+            raise AssertionError(f"{label} decode step: the profiler saw no device time")
+        result[label] = {"step_ms": ms, "card_idle_share": 1.0 - busy / ms,
+                         "card_idle_share_active": 1.0 - prof["card_active_ms_per_step"] / ms,
+                         **prof}
+    result["serve_run_mean_decode_ms"] = serve_ms
+    name = engine.cfg.name
+    log(f"profile {name} decode step " + json.dumps(result))
+    rep, eag = result["replayed"], result["eager"]
+    log(f"decode step {name} (4 slots): " + "; ".join(
+        f"{label} {r['step_ms']:.4f} ms, card busy {r['card_busy_ms_per_step']:.4f} ms "
+        f"(idle {r['card_idle_share']:.1%}), active {r['card_active_ms_per_step']:.4f} ms "
+        f"(idle {r['card_idle_share_active']:.1%}), {r['device_ops_per_step']:.0f} device ops"
+        for label, r in (("replayed", rep), ("eager", eag)))
+        + f"; serve run's replayed phase {serve_ms:.4f} ms; card {nvidia_smi_line()}")
+    return result
+
+
+def same_bits(label: str, got, want) -> None:
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        diff = (got.double() - want.double()).abs().max()
+        raise AssertionError(f"{label}: the replay differs from the eager step "
+                             f"(max abs diff {float(diff)})")
+
+
+def lockstep(engine, start_len: int, steps: int = 8, seed: int = 5) -> dict:
+    """The engine's captured graphs against the eager step functions, bit
+    for bit: its cache is filled with seeded values and its shared ``len``
+    set to ``start_len``, a clone of it goes forward ``steps`` decode steps
+    by eager ``api.decode_step`` while the engine replays its decode graph
+    on the same tokens, and the logits, every cache tensor and ``len`` are
+    compared after each step; then one prefill, replayed and eager, on the
+    same tokens. From ``max_seq_len - 4`` the steps cross the shared-length
+    clamp, and for hymba its window layers' ring wrap. Leaves the engine's
+    cache in its last state; launches count as they happen."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving.engine import clone_cache
+
+    cfg, dev, n = engine.cfg, engine.torch_device, engine.ec.n_slots
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for t, _ in api.cache_rows(cfg, engine.cache):
+        t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
+    engine.cache["len"].fill_(start_len)
+    eager = clone_cache(engine.cache)
+    for step in range(steps):
+        tokens = torch.randint(2, cfg.vocab_size, (n, 1), generator=g, device=dev)
+        _, want = api.decode_step(engine.params, eager, tokens, cfg)
+        got = engine.decode(tokens)
+        same_bits(f"{cfg.name} decode step {step} logits", got, want)
+        for i, ((a, _), (b, _)) in enumerate(zip(api.cache_rows(cfg, engine.cache),
+                                                 api.cache_rows(cfg, eager))):
+            same_bits(f"{cfg.name} decode step {step} cache tensor {i}", a, b)
+        same_bits(f"{cfg.name} decode step {step} len", engine.cache["len"], eager["len"])
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name} decode step {step}: non-finite logits")
+    end_len = int(engine.cache["len"])
+    if end_len != start_len + steps:
+        raise AssertionError(f"{cfg.name}: len {end_len} after {steps} steps from {start_len}")
+    tokens = torch.randint(2, cfg.vocab_size, (1, engine.bucket), generator=g, device=dev)
+    want_cache, want = api.prefill(engine.params, tokens, cfg)
+    got_cache, got = engine.prefill(tokens)
+    same_bits(f"{cfg.name} prefill logits", got, want)
+    for i, ((a, _), (b, _)) in enumerate(zip(api.cache_rows(cfg, got_cache),
+                                             api.cache_rows(cfg, want_cache))):
+        same_bits(f"{cfg.name} prefill cache tensor {i}", a, b)
+    same_bits(f"{cfg.name} prefill len", got_cache["len"], want_cache["len"])
+    result = {"steps": steps, "len": [start_len, end_len], "cache_len": engine.ec.max_seq_len,
+              "cache_tensors": len(api.cache_rows(cfg, engine.cache)),
+              "prefill_tokens": engine.bucket}
+    log(f"lockstep {cfg.name}: {steps} replayed decode steps (len {start_len} -> {end_len}, "
+        f"cache {engine.ec.max_seq_len} slots) and one replayed {engine.bucket}-token "
+        f"prefill == the eager steps bit for bit (logits, {result['cache_tensors']} cache "
+        f"tensors, len)")
     return result
 
 
@@ -895,7 +1047,7 @@ def expected_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     return expect
 
 
-def serve(cfg, params, dev) -> dict:
+def serve(cfg, params, dev) -> tuple:
     """A main path: ServingEngine on azure_code requests, controller on, with
     every kernel's launches counted from 0 and checked exactly."""
     import numpy as np
@@ -963,7 +1115,7 @@ def serve(cfg, params, dev) -> dict:
         "flash_wgmma_launches": wgmma,
     }
     log(f"serve {cfg.name} " + json.dumps(result))
-    return result, engine.cache
+    return result, engine
 
 
 def count_params(tree) -> int:
@@ -976,8 +1128,9 @@ def count_params(tree) -> int:
 
 def serve_model(name: str, dev) -> dict:
     """One model at full width: parameters made on the card from a seed, the
-    logit checks (full depth in bf16, two layers in f32), the serve run and
-    a profiled decode step. Frees the model before it returns."""
+    logit checks (full depth in bf16, two layers in f32), the serve run, the
+    replayed and eager decode steps timed and profiled, and the lockstep
+    check of the engine's graphs. Frees the model before it returns."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
@@ -1004,11 +1157,11 @@ def serve_model(name: str, dev) -> dict:
     del params32
     torch.cuda.empty_cache()
 
-    result, cache = serve(cfg, params, dev)
-    result["profile"] = profile_decode(cfg, params, cache, dev,
-                                       result["mean_decode_step_ms"], n_slots=4)
+    result, engine = serve(cfg, params, dev)
+    result["decode_step"] = decode_step_times(engine, result["mean_decode_step_ms"])
+    result["lockstep"] = lockstep(engine, SERVE_MAX_SEQ[name] - 4)
     result["checks"] = checks
-    del params, cache
+    del params, engine
     torch.cuda.empty_cache()
     return result
 
@@ -1329,6 +1482,138 @@ def cap_buckets(dev, packed, fracs, alternatives: bool = True) -> list[dict]:
             f"{k} {sum(r['ms_by_plan'][k] for r in out):.5f}"
             for k in out[0]["ms_by_plan"] if all(k in r["ms_by_plan"] for r in out)))
     return out
+
+
+def pareto_flags_pairwise(saved, penalty) -> list[bool]:
+    """The O(n^2) Pareto flags the port's ``pareto_flags`` replaced (the
+    JAX package's loop, which the port copied first): the yardstick of its
+    time and of its flags."""
+    flags = []
+    for i, (s_i, p_i) in enumerate(zip(saved, penalty)):
+        dominated = any(
+            (s_j >= s_i and p_j <= p_i) and (s_j > s_i or p_j < p_i)
+            for j, (s_j, p_j) in enumerate(zip(saved, penalty)) if j != i)
+        flags.append(not dominated)
+    return flags
+
+
+def pareto_times(outcomes) -> dict:
+    """``pareto_flags`` against the pairwise loop on the 10^4 grid's
+    outcomes: the same flags, each one's host time."""
+    from repro_torch.whatif import pareto_flags
+
+    saved = [o.energy_saved_j for o in outcomes]
+    penalty = [o.penalty_s for o in outcomes]
+    t0 = time.perf_counter()
+    new = pareto_flags(saved, penalty)
+    new_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    old = pareto_flags_pairwise(saved, penalty)
+    old_s = time.perf_counter() - t0
+    if new != old:
+        raise AssertionError("10^4 grid: pareto_flags differs from the pairwise loop")
+    result = {"points": len(saved), "pareto": sum(new), "sort_s": new_s, "pairwise_s": old_s}
+    log(f"what-if pareto_flags on the 10^4 grid ({len(saved)} points, {sum(new)} on the "
+        f"front): O(n log n) {new_s * 1e3:.3f} ms, the pairwise loop {old_s * 1e3:.1f} ms, "
+        f"the same flags (host time)")
+    return result
+
+
+#: the search's budgets on the card: every default family, the operator's
+#: budget of 1% of the recorded active time
+SEARCH_EVALS = 100
+SEARCH_BUDGET_FRACTION = 0.01
+
+
+def search(dev, store, kw) -> dict:
+    """The closed-loop search (``search_frontier``, default families,
+    ``SEARCH_EVALS`` evaluations, a penalty budget of 1% of active time) on
+    the card, held against the same search on the NumPy oracle: the same
+    configs in the same order, rounds, trace, knee and budget answer;
+    counts exact, floats within 1e-9. Times the search and each round, and
+    counts K4's and K7's launches in each round."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.whatif import PenaltyBudget, search_frontier
+    from repro_torch.whatif import search as search_mod
+
+    rounds: list[dict] = []
+    evaluate_outcomes = search_mod._evaluate_outcomes
+
+    def counted(configs, *args, **kwargs):
+        """One round's evaluate, timed to its end on the card, with the
+        kernels it launched."""
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        out = evaluate_outcomes(configs, *args, **kwargs)
+        if kwargs.get("backend") == "torch":
+            torch.cuda.synchronize(dev)
+        after = kernels.launch_counts()
+        rounds.append({"configs": len(configs), "s": time.perf_counter() - t0,
+                       **{k: after[k] - before[k] for k in ("cap_bucket_scan",
+                                                            "downscale_replay")}})
+        return out
+
+    budget = PenaltyBudget(max_penalty_fraction=SEARCH_BUDGET_FRACTION)
+    runs = {}
+    search_mod._evaluate_outcomes = counted
+    try:
+        for backend in ("torch", "numpy"):
+            rounds.clear()
+            torch.cuda.synchronize(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = search_frontier(store, budget=budget, max_evals=SEARCH_EVALS,
+                                  backend=backend, **kw)
+            torch.cuda.synchronize(dev)
+            runs[backend] = (res, time.perf_counter() - t0, list(rounds),
+                             kernels.launch_counts())
+    finally:
+        search_mod._evaluate_outcomes = evaluate_outcomes
+    (res, search_s, card_rounds, launches), (ref, oracle_s, _, host_launches) = \
+        runs["torch"], runs["numpy"]
+    if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0 \
+            or any(launches[k] for k in SERVING_KERNELS) or any(host_launches.values()):
+        raise AssertionError(f"search launches: card {launches}, oracle {host_launches}")
+    worst = compare_outcomes(ref.frontier.outcomes, res.frontier.outcomes, "search")
+    if [o.pareto for o in res.frontier.outcomes] != [o.pareto for o in ref.frontier.outcomes]:
+        raise AssertionError("search: Pareto flags differ from the oracle's")
+    if [(t["i"], t["round"], t["family"]) for t in res.frontier.trace] != \
+            [(t["i"], t["round"], t["family"]) for t in ref.frontier.trace]:
+        raise AssertionError("search: the trace differs from the oracle's")
+    if (res.n_evals, res.n_rounds, res.converged) != (ref.n_evals, ref.n_rounds, ref.converged):
+        raise AssertionError(f"search: {res.n_evals} evals / {res.n_rounds} rounds, oracle "
+                             f"{ref.n_evals} / {ref.n_rounds}")
+    if [h.knee_params for h in res.history] != [h.knee_params for h in ref.history]:
+        raise AssertionError("search: the knee moved differently from the oracle's")
+    if res.knee.params != ref.knee.params or res.best is None or ref.best is None \
+            or res.best.params != ref.best.params:
+        raise AssertionError(f"search: knee {res.knee.params} / best "
+                             f"{res.best and res.best.params}, oracle {ref.knee.params} / "
+                             f"{ref.best and ref.best.params}")
+    if any(r["cap_bucket_scan"] <= 0 or r["downscale_replay"] <= 0 for r in card_rounds):
+        raise AssertionError(f"search: a round launched no K4 or K7: {card_rounds}")
+    result = {
+        "max_evals": SEARCH_EVALS, "budget_penalty_fraction": SEARCH_BUDGET_FRACTION,
+        "n_evals": res.n_evals, "n_rounds": res.n_rounds, "converged": res.converged,
+        "search_s": search_s, "oracle_search_s": oracle_s, "rounds": card_rounds,
+        "knee": res.knee.params, "knee_saved_fraction": res.knee.saved_fraction,
+        "knee_penalty_fraction": res.knee.penalty_fraction,
+        "best": res.best.params, "best_saved_fraction": res.best.saved_fraction,
+        "best_penalty_fraction": res.best.penalty_fraction,
+        "worst_limit_share": worst["limit_share"], "launches": launches,
+    }
+    log("what-if search " + json.dumps(result))
+    log(f"what-if search_frontier on the card ({res.n_evals} configs in {res.n_rounds} "
+        f"rounds, budget {SEARCH_BUDGET_FRACTION:.0%} of active time): {search_s:.3f} s, "
+        f"rounds " + ", ".join(f"{r['configs']} configs {r['s']:.3f} s (K4 "
+                               f"{r['cap_bucket_scan']}, K7 {r['downscale_replay']} "
+                               f"launches)" for r in card_rounds)
+        + f"; == the numpy oracle's search ({oracle_s:.3f} s on the host): same configs "
+        f"in the same order, trace, knee and budget answer, counts exact, floats within "
+        f"{WHATIF_RTOL} (worst {worst['limit_share']:.3f} of the limit); card "
+        f"{nvidia_smi_line()}")
+    return result
 
 
 def profile_evaluate(grid, store, kw) -> dict:
@@ -1677,6 +1962,8 @@ def whatif(dev) -> dict:
         log(f"what-if 10^4 grid sample ({len(idx)} configs, {families}): torch on "
             f"the card == numpy oracle (time and count fields exact; worst relative "
             f"error per float field: {json.dumps(worst_10k)})")
+        pareto = pareto_times(outs)
+        searched = search(dev, store, kw)
         idle = profile_evaluate(grid, store, kw)
 
         packed = B.pack_ir(get_ir(store, ir_config_for(grid)), 5, **kw)
@@ -1702,6 +1989,7 @@ def whatif(dev) -> dict:
                       "backend.assembly")},
         "peak_memory_gib": peak_gib,
         "launches": launches, "configs_by_path": by_path,
+        "pareto_flags": pareto, "search": searched,
     }
     log("what-if " + json.dumps(result))
     log(f"what-if 10^4 grid: {result['configs_per_s_card']:.1f} configs/s on the card "
@@ -1782,7 +2070,8 @@ def main() -> int:
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
     wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs)
-    for counts in [r["launches"] for r in runs] + [wresult["launches"]]:
+    for counts in [r["launches"] for r in runs] + [wresult["launches"],
+                                                   wresult["search"]["launches"]]:
         for name, n in counts.items():
             launches[name] += n
     if any(n <= 0 for n in launches.values()):

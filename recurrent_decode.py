@@ -8,6 +8,12 @@ runs them, on one NVIDIA GPU (an H100):
   from seed 0: decode steps of 4 slots under ``torch.profiler``, the card
   time per step of K5 and K6 (as ``chip_smoke.profile_decode`` reads it),
   twice;
+* rwkv6-3b's decode step captured in a CUDA graph and replayed, as the
+  serving engine runs it: three replays under ``torch.profiler`` after a
+  warm-up, the card time per step of K6 and the card's busy time beside the
+  replay's time, twice (the capture is made here on the models' interface,
+  so an earlier commit whose engine does not capture is measured the same
+  way);
 * K6 alone at rwkv6-3b's decode shape (4, 1, 40, 64) on 32 layers' states
   (84 MB, past the 50 MB L2), each carried in place, in four settings,
   each profiled over 3 passes of the 32 layers: back to back; after a read
@@ -84,6 +90,55 @@ def decode_steps(name: str, dev, label: str) -> None:
     torch.cuda.empty_cache()
 
 
+def clone(tree):
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone(v) for v in tree]
+    return tree.clone()
+
+
+def replayed_steps(name: str, dev, label: str) -> None:
+    """``name``'s decode step of 4 slots captured in one CUDA graph (after
+    two eager steps on a clone of the cache, on the capture stream) and
+    replayed: per step, the card time of the port's recurrent kernels and
+    of all the card's work, under torch.profiler over 3 replays, and the
+    replay's time by CUDA events (``chip_smoke.step_ms``); twice."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config(name)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    cache = api.init_cache(cfg, SLOTS, cs.SERVE_MAX_SEQ[name], dev)
+    tokens = torch.full((SLOTS, 1), 7, dtype=torch.long, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        scratch = clone(cache)
+        for _ in range(2):
+            api.decode_step(params, scratch, tokens, cfg)
+        del scratch
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        api.decode_step(params, cache, tokens, cfg)
+    steps = 3
+    for _ in range(2):
+        replay_ms = cs.step_ms(graph.replay)
+        prof = cs.profile_steps(graph.replay, steps)
+        parts = [f"{kernel} {prof['repro_kernels_ms_per_step'][kernel]:.5f} ms per step over "
+                 f"{prof['repro_launches_per_step'][kernel]:.0f} launches "
+                 f"({prof['repro_kernels_ms_per_step'][kernel] / prof['repro_launches_per_step'][kernel] * 1e3:.3f} us a launch)"
+                 for kernel in ("ssm_scan_kernel", "wkv6_kernel")
+                 if kernel in prof["repro_kernels_ms_per_step"]]
+        cs.log(f"{label} {name} decode step replayed from a CUDA graph (profiled): "
+               + "; ".join(parts) + f"; card busy {prof['card_busy_ms_per_step']:.4f} ms; "
+               f"replay {replay_ms:.4f} ms (CUDA events)")
+    del graph, params, cache
+    torch.cuda.empty_cache()
+
+
 def wkv_settings(dev, label: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -150,6 +205,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     _build.library()
+    replayed_steps("rwkv6-3b", dev, args.label)
     wkv_settings(dev, args.label)
     for name in MODELS:
         decode_steps(name, dev, args.label)

@@ -10,7 +10,17 @@ The serving path runs RMSNorm, prefill attention and decode attention, and,
 for hymba and RWKV-6, the Mamba selective scan and the WKV recurrence; the
 what-if replay (:mod:`repro_torch.whatif.backend`) runs the cap-bucket scan
 and the Algorithm-1 cooldown chain.
+
+A wrapper called while a CUDA graph is captured records its kernel into the
+graph and launches nothing, and a replay launches the graph's kernels
+without calling any wrapper. :func:`captured_launches` and
+:func:`count_replay` keep the counts true across both.
 """
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
 from repro_torch.kernels import (decode_attention, downscale_replay,
                                  flash_attention, rmsnorm, run_replay, rwkv6_scan,
                                  ssm_scan)
@@ -25,6 +35,8 @@ KERNEL_MODULES = {
     "ssm_scan": ssm_scan,
     "wkv6": rwkv6_scan,
 }
+#: the key of ``flash_attention.WGMMA_LAUNCHES`` in a graph's launch record
+WGMMA = "flash_attention_wgmma"
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,3 +47,32 @@ def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
     flash_attention.WGMMA_LAUNCHES = 0
+
+
+def _counters() -> dict[str, int]:
+    return {**launch_counts(), WGMMA: flash_attention.WGMMA_LAUNCHES}
+
+
+def count_replay(launches: dict[str, int], times: int = 1) -> None:
+    """Add a graph's launches (from :func:`captured_launches`) to the
+    counters, once per replay."""
+    for name, n in launches.items():
+        if name == WGMMA:
+            flash_attention.WGMMA_LAUNCHES += n * times
+        else:
+            KERNEL_MODULES[name].LAUNCHES += n * times
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[dict[str, int]]:
+    """Wrap a CUDA-graph capture. On exit the yielded dict holds every
+    counter's calls made inside the block (the graph's launches per replay,
+    ``WGMMA`` among them), and those calls are taken back out of the
+    counters, since a capture launches nothing."""
+    before = _counters()
+    launches: dict[str, int] = {}
+    try:
+        yield launches
+    finally:
+        launches.update({k: n - before[k] for k, n in _counters().items()})
+        count_replay(launches, -1)

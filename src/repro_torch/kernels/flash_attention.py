@@ -90,6 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
+    # The bf16 kernel's TMA tensor maps are encoded on the host here, from
+    # q, k and v's addresses, and passed by value: a CUDA graph that captures
+    # this call replays them unchanged. That is right only while q, k and v
+    # keep their addresses, as they do in a captured prefill, where they are
+    # intermediates in the graph's own memory pool.
     lib = _build.library()
     fn = lib.repro_flash_attention_bf16 if kernel == "wgmma" else lib.repro_flash_attention_f32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -9,7 +9,8 @@ engine relies on: the cache's ``len`` is one position shared by all rows,
 a decode step writes every row's new key at that position (clamped to the
 last slot once ``len`` reaches the cache length, as
 ``lax.dynamic_update_slice`` clamps) and rotates every row by it. The port
-writes the cache in place instead of returning a new one.
+writes the cache, its ``len`` included, in place instead of returning a new
+one.
 
 ``plain=True`` runs the plain PyTorch versions of the kernels, to hold the
 kernel path against them on the card.
@@ -118,7 +119,8 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
     """One decode step. tokens: (B, 1) int64. Writes the new keys and values
-    into ``cache`` in place; returns (cache, logits) with ``len`` advanced."""
+    into ``cache`` and advances its ``len``, all in place (a CUDA graph of the
+    step replays into the same tensors); returns (cache, logits)."""
     b = tokens.shape[0]
     x = params["embed"][tokens]
     pos = cache["len"]
@@ -139,4 +141,5 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         x = cm.mlp_residual(x, lp, cfg, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x, params["embed"], params.get("out_head"))
-    return dict(cache, len=cache_len), logits
+    pos.copy_(cache_len)                # last: every layer read the old position
+    return cache, logits

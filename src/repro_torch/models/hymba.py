@@ -217,7 +217,8 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
     """One decode step. tokens: (B, 1) int64. Writes keys, values and states
-    into ``cache`` in place; returns (cache, logits) with ``len`` advanced."""
+    into ``cache`` and advances its ``len``, all in place (a CUDA graph of the
+    step replays into the same tensors); returns (cache, logits)."""
     b = tokens.shape[0]
     x = params["embed"][tokens]
     pos = cache["len"]
@@ -243,4 +244,5 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         x = cm.mlp_residual(x, lp, cfg, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x, params["embed"])
-    return dict(cache, len=cache_len), logits
+    pos.copy_(cache_len)                # last: every layer read the old position
+    return cache, logits

@@ -195,8 +195,9 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
-    """One decode step. tokens: (B, 1) int64. Advances the states in
-    ``cache`` in place; returns (cache, logits) with ``len`` advanced."""
+    """One decode step. tokens: (B, 1) int64. Advances the states and
+    ``len`` of ``cache`` in place (a CUDA graph of the step replays into the
+    same tensors); returns (cache, logits)."""
     x = params["embed"][tokens]
     x = cm.layernorm(x, params["ln0_w"], params["ln0_b"])
     for i in range(cfg.n_layers):
@@ -208,4 +209,5 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         cache["cm_shift"][i] = cmix
     x = cm.layernorm(x, params["final_ln_w"], params["final_ln_b"])
     logits = x @ params["head"]
-    return dict(cache, len=cache["len"] + 1), logits
+    cache["len"].add_(1)
+    return cache, logits

@@ -11,6 +11,14 @@ It follows the JAX package's engine tick for tick (the tests hold the greedy
 tokens to it), including the shared cache ``len``: a prefill does not move
 it, every tick with an active slot advances it, and it never resets.
 
+On the card the engine captures its two step functions into CUDA graphs
+when it is made, as the reference jit-compiles them: the decode step on the
+engine's own cache and the prefill at its one bucket. Each tick copies its
+tokens into the graph's input, replays it and reads the logits from its
+output; the greedy argmax and its one copy to the host stay outside. A
+capture that fails raises: there is no eager fallback on the card. On the
+CPU both steps run eagerly.
+
 On the card each prefill and decode phase ends with a synchronisation, so
 the sampler's wall-clock phases — and hence the telemetry rows and the
 controller's decisions — cover the card's time, not just the launches.
@@ -28,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ExecutionIdleController
 from repro_torch.core.power_model import SimulatedDevice, get_platform
+from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import api
@@ -45,6 +54,45 @@ class EngineConfig:
     controller: bool = False
     platform: str = "h100"
     device: str = "cuda"
+
+
+#: eager runs of each step function on the capture stream before its capture
+WARMUP_RUNS = 2
+
+
+def clone_cache(cache):
+    """A copy of a cache dict (nested dicts and lists of tensors) in new
+    tensors."""
+    if isinstance(cache, dict):
+        return {k: clone_cache(v) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [clone_cache(v) for v in cache]
+    return cache.clone()
+
+
+class StepGraph:
+    """One step function captured into a CUDA graph: a replay reads its
+    input from ``tokens`` and writes its result to ``out``, both at fixed
+    addresses. ``launches`` is what one replay launches of each kernel
+    (:func:`repro_torch.kernels.captured_launches`), added to the counters
+    at every replay."""
+
+    def __init__(self, fn, tokens: torch.Tensor, stream: torch.cuda.Stream):
+        self.tokens = tokens
+        self.graph = torch.cuda.CUDAGraph()
+        with kernels.captured_launches() as launches, \
+                torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn(tokens)
+        self.launches = launches
+
+    def __call__(self, tokens: torch.Tensor):
+        if tokens.shape != self.tokens.shape:     # copy_ would broadcast
+            raise ValueError(f"tokens {tuple(tokens.shape)}; the graph was captured "
+                             f"for {tuple(self.tokens.shape)}")
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        kernels.count_replay(self.launches)
+        return self.out
 
 
 @dataclasses.dataclass
@@ -66,9 +114,15 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.ec = ec
+        self.bucket = min(ec.prefill_bucket, ec.max_seq_len)
         self.slots = [SlotState() for _ in range(ec.n_slots)]
+        #: the engine's cache; its tensors are never replaced, only written
+        #: (the decode graph was captured on them)
         self.cache = api.init_cache(cfg, ec.n_slots, ec.max_seq_len,
                                     self.torch_device)
+        self.graphs: dict[str, StepGraph] = {}
+        if self.torch_device.type == "cuda":
+            self._capture()
         self.device = SimulatedDevice(get_platform(ec.platform))
         self.sampler = RuntimeSampler(self.device, job_id=1)
         self.controller = (ExecutionIdleController(self.device)
@@ -79,6 +133,56 @@ class ServingEngine:
         self.phase_ms: dict[str, list[float]] = {"prefill": [], "decode": []}
 
     # ------------------------------------------------------------------ #
+    def _decode_eager(self, tokens: torch.Tensor) -> torch.Tensor:
+        _, logits = api.decode_step(self.params, self.cache, tokens, self.cfg)
+        return logits
+
+    def _prefill_eager(self, tokens: torch.Tensor):
+        return api.prefill(self.params, tokens, self.cfg)
+
+    def _capture(self) -> None:
+        """Capture the decode step (on the engine's cache, ``(n_slots, 1)``
+        tokens) and the prefill (``(1, bucket)`` tokens) into one CUDA graph
+        each.
+
+        Each first runs eagerly on the capture stream, so that cuBLAS's
+        handle and workspace for that stream, decode attention's tickets, the
+        kernel library and the launch plans exist before capture; the decode
+        step runs on a clone of the cache, since an eager step writes keys,
+        values, states and ``len``, and the clone is freed before capture.
+        Capture itself launches nothing, so it leaves the real cache as it
+        was. A failure raises and leaves the engine unusable."""
+        dev = self.torch_device
+        stream = torch.cuda.Stream(dev)
+        decode_in = torch.zeros((self.ec.n_slots, 1), dtype=torch.long, device=dev)
+        prefill_in = torch.zeros((1, self.bucket), dtype=torch.long, device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            scratch = clone_cache(self.cache)
+            for _ in range(WARMUP_RUNS):
+                api.decode_step(self.params, scratch, decode_in, self.cfg)
+                self._prefill_eager(prefill_in)
+            del scratch
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graphs["decode"] = StepGraph(self._decode_eager, decode_in, stream)
+        self.graphs["prefill"] = StepGraph(self._prefill_eager, prefill_in, stream)
+
+    def decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One batched decode step on the engine's cache: (n_slots, 1)
+        tokens, logits (n_slots, 1, V). On the card a replay of the decode
+        graph, whose logits tensor the next replay overwrites."""
+        if "decode" in self.graphs:
+            return self.graphs["decode"](tokens)
+        return self._decode_eager(tokens)
+
+    def prefill(self, tokens: torch.Tensor):
+        """The prefill of (1, bucket) tokens: (a one-row cache, logits
+        (1, 1, V)). On the card a replay of the prefill graph, whose outputs
+        the next replay overwrites."""
+        if "prefill" in self.graphs:
+            return self.graphs["prefill"](tokens)
+        return self._prefill_eager(tokens)
+
     @contextlib.contextmanager
     def _phase(self, name: str, compute_util: float,
                hbm_util: float) -> Iterator[None]:
@@ -146,13 +250,13 @@ class ServingEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        bucket = min(self.ec.prefill_bucket, self.ec.max_seq_len)
+        bucket = self.bucket
         toks = np.zeros((1, bucket), np.int64)
         n = min(len(prompt_tokens), bucket)
         toks[0, -n:] = prompt_tokens[-n:]
         tokens = torch.from_numpy(toks).to(self.torch_device)
         with self._phase("prefill", compute_util=0.9, hbm_util=0.4):
-            new_cache, logits = api.prefill(self.params, tokens, self.cfg)
+            new_cache, logits = self.prefill(tokens)
         self._splice_cache(slot, new_cache)
         s = self.slots[slot]
         s.active = True
@@ -176,8 +280,7 @@ class ServingEngine:
         toks = np.array([[s.last_token] for s in self.slots], np.int64)
         tokens = torch.from_numpy(toks).to(self.torch_device)
         with self._phase("decode", compute_util=0.5, hbm_util=0.9):
-            self.cache, logits = api.decode_step(self.params, self.cache,
-                                                 tokens, self.cfg)
+            logits = self.decode(tokens)
         next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         for i in active:
             s = self.slots[i]

@@ -12,7 +12,10 @@ on the card through :mod:`repro_torch.whatif.backend` (``backend="torch"``,
 the default) with two hand-written kernels: the cap-bucket scan and the
 Algorithm-1 cooldown chain. ``backend="numpy"`` is the host oracle: the IR
 where it can carry a config, the config-axis batched row replay where it
-cannot. The closed-loop search of the JAX package is not ported yet.
+cannot. :func:`~repro_torch.whatif.search.search_frontier` is the
+closed-loop search around the frontier's knee under a penalty budget, on
+either backend; it evaluates the same configs in the same order as the JAX
+package's search.
 """
 from repro_torch.whatif.effects import (  # noqa: F401
     BatchEffect,
@@ -74,6 +77,19 @@ from repro_torch.whatif.sweep import (  # noqa: F401
     evaluate,
     pareto_flags,
     run_sweep,
+)
+from repro_torch.whatif.search import (  # noqa: F401
+    CategoricalAxis,
+    ContinuousAxis,
+    PenaltyBudget,
+    PolicyFamily,
+    RoundRecord,
+    SearchResult,
+    achievable_saving,
+    default_families,
+    find_knee,
+    search_frontier,
+    seed_points,
 )
 from repro_torch.whatif.report import (  # noqa: F401
     format_frontier,

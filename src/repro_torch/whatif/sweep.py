@@ -5,9 +5,9 @@ over one :class:`TelemetryStore`, one :class:`PolicyOutcome` per config.
 :func:`run_sweep` is its fixed-grid caller — it assembles a
 :class:`Frontier` (energy saved vs performance penalty per config, the
 Pareto-optimal subset flagged, per-job CDFs attached) from the default
-200-config grid. The closed-loop search (``whatif/search.py`` of the JAX
-package, not yet ported) is the other caller: the same kernel inside a
-budgeted refinement loop around the Pareto knee.
+200-config grid. The closed-loop search (:mod:`repro_torch.whatif.search`)
+is the other caller: the same kernel inside a budgeted refinement loop
+around the Pareto knee.
 
 Execution model: the store is compacted once into the run-level IR
 (:mod:`repro_torch.whatif.ir`, cached in memory and as a store sidecar),
@@ -115,9 +115,9 @@ class PolicyOutcome:
 class Frontier:
     """Sweep result: one outcome per policy config, Pareto subset flagged.
 
-    Produced by the fixed-grid :func:`run_sweep` (and,
-    in the JAX package, by the closed-loop search, whose frontier holds
-    every config the search evaluated). :meth:`best_within_penalty` answers
+    Produced by the fixed-grid :func:`run_sweep` and by the closed-loop
+    :func:`repro_torch.whatif.search.search_frontier`, whose frontier holds
+    every config the search evaluated. :meth:`best_within_penalty` answers
     the budget question directly.
 
     ``n_runs`` is the run-level IR's compact axis size when the sweep took
@@ -157,14 +157,36 @@ class Frontier:
 
 
 def pareto_flags(saved: Sequence[float], penalty: Sequence[float]) -> list[bool]:
-    """Non-dominated points for (maximize saved, minimize penalty)."""
-    flags = []
-    for i, (s_i, p_i) in enumerate(zip(saved, penalty)):
-        dominated = any(
-            (s_j >= s_i and p_j <= p_i) and (s_j > s_i or p_j < p_i)
-            for j, (s_j, p_j) in enumerate(zip(saved, penalty)) if j != i)
-        flags.append(not dominated)
-    return flags
+    """Non-dominated points for (maximize saved, minimize penalty).
+
+    Point i is dominated when some other point j has ``s_j >= s_i`` and
+    ``p_j <= p_i`` with one of the two strict. Computed in O(n log n): sort
+    by saved, descending; a point is dominated when a strictly larger saved
+    comes with a penalty at most its own (the running minimum of the groups
+    before its own), or an equal saved with a strictly smaller penalty (its
+    group's minimum). NaN compares false, so a point with NaN in either
+    coordinate is never dominated and dominates nothing; equal points do not
+    dominate each other; ±inf and -0.0 == 0.0 compare as floats do. Same
+    flags as the pairwise test on every input.
+    """
+    s = np.asarray(saved, dtype=np.float64).reshape(-1)
+    p = np.asarray(penalty, dtype=np.float64).reshape(-1)
+    flags = np.ones(s.size, dtype=bool)
+    idx = np.flatnonzero(~(np.isnan(s) | np.isnan(p)))
+    if idx.size < 2:
+        return flags.tolist()
+    order = idx[np.argsort(-s[idx], kind="stable")]
+    s_o, p_o = s[order], p[order]
+    first = np.r_[True, s_o[1:] != s_o[:-1]]      # each group of equal saved
+    group = np.cumsum(first) - 1
+    group_min = np.minimum.reduceat(p_o, np.flatnonzero(first))
+    # the least penalty among strictly larger saved (none for the first group)
+    before = np.minimum.accumulate(group_min)
+    larger = np.r_[np.inf, before[:-1]][group]
+    dominated = (group > 0) & (larger <= p_o)
+    dominated |= group_min[group] < p_o
+    flags[order] = ~dominated
+    return flags.tolist()
 
 
 def assemble_frontier(outcomes: Sequence[PolicyOutcome],
@@ -397,6 +419,24 @@ def _evaluate_torch(
     return outcomes, n_rows, n_runs, _ir_skips(ir_obj, hosts)
 
 
+#: arguments of the JAX package's ``evaluate``/``run_sweep``/``search_frontier``
+#: that the port does not take: it replays in one process (no ``workers``
+#: pool, no fault supervisor ``fault``, no config-axis mesh ``dist``), always
+#: batched on the run-level IR (no ``batched``/``compact`` switch), and reads
+#: shards without ``mmap`` or checksum ``verify``
+DROPPED_ARGUMENTS = ("workers", "mmap", "batched", "compact", "dist", "verify", "fault")
+
+
+def reject_dropped(kwargs: dict, caller: str) -> None:
+    """Raise if ``kwargs`` holds one of :data:`DROPPED_ARGUMENTS`, naming it,
+    so that none is silently ignored."""
+    dropped = sorted(set(kwargs) & set(DROPPED_ARGUMENTS))
+    if dropped:
+        raise TypeError(f"{caller}() got {dropped}, which the port does not take: it "
+                        f"replays in one process on the run-level IR (the JAX "
+                        f"package's {list(DROPPED_ARGUMENTS)} are not ported)")
+
+
 def resolve_backend(backend: str) -> str:
     """Resolve an ``evaluate``/``run_sweep`` ``backend`` argument.
 
@@ -428,6 +468,7 @@ def _evaluate_outcomes(
     is enabled. Outcomes are bit-identical with obs on or off."""
     configs = list(configs)
     replayer_kwargs = replayer_kwargs or {}
+    reject_dropped(replayer_kwargs, "evaluate")
     backend = resolve_backend(backend)
     t0 = time.perf_counter()
     with obs.span("whatif.evaluate", configs=len(configs), backend=backend):

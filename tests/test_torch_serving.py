@@ -9,6 +9,12 @@
 * Sampler rows and ``analyze_job``, driven by explicit busy/idle durations,
   and the Algorithm-1 controller on seeded signal sequences must agree
   exactly.
+* The pieces of the captured serve step that run here: the eager decode
+  step advances the cache's ``len`` in place (a CUDA graph of it replays
+  into the same tensors), the engine runs eagerly on the CPU, and the
+  launch counters take a capture's calls out and add them back per replay.
+  The replays themselves run on the card
+  (tests/test_torch_serving_graphs.py).
 """
 import dataclasses
 
@@ -28,12 +34,17 @@ from repro.serving.latency import Request as JRequest
 from repro.telemetry import RuntimeSampler as JSampler
 from repro.telemetry import analyze_job as janalyze_job
 from repro.traces import generate_trace as jgenerate_trace
+import torch
+
+from repro_torch import kernels
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import controller as tctl
 from repro_torch.core.power_model import SimulatedDevice, get_platform
+from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
 from repro_torch.launch import serve
-from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.models import api
+from repro_torch.serving.engine import EngineConfig, ServingEngine, clone_cache
 from repro_torch.serving.latency import Request
 from repro_torch.telemetry import RuntimeSampler, analyze_job
 from repro_torch.traces import TRACES, generate_trace
@@ -180,3 +191,77 @@ def test_serve_launcher_runs_recurrent_archs_on_cpu(arch):
     assert out["arch"] == arch + "-smoke"
     assert out["completed"] >= 1
     assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0
+
+
+# --------------------------------------------------------------------------- #
+# the captured serve step: what runs on the CPU
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"])
+def test_eager_decode_step_advances_len_in_place(arch):
+    """``decode_step`` returns the cache it was given, ``len`` advanced in
+    its own tensor, and past the cache's end the shared length goes on and
+    the keys clamp to the last slot (the dense family), as the reference's."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = api.init_cache(cfg, 2, 16, "cpu")
+    length = cache["len"]
+    length.fill_(13)
+    rows = [t.clone() for t, _ in api.cache_rows(cfg, cache)]
+    tokens = torch.tensor([[5], [9]])
+    for step in range(5):                  # len 13 -> 18, past the 16 slots
+        out, logits = api.decode_step(params, cache, tokens, cfg)
+        assert out is cache and out["len"] is length
+        assert length.dtype == torch.int32 and int(length) == 14 + step
+        assert logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert any(not torch.equal(a, t) for a, (t, _) in zip(rows, api.cache_rows(cfg, cache)))
+    if cfg.family == "dense":
+        k = cache["k"]
+        assert torch.equal(k[:, :, :13], rows[0][:, :, :13])     # untouched
+        assert not torch.equal(k[:, :, 15], rows[0][:, :, 15])   # the clamped slot
+
+
+def test_cpu_engine_steps_are_eager():
+    """On the CPU the engine captures nothing: its decode and prefill are the
+    model's functions on its own cache."""
+    cfg = dataclasses.replace(get_smoke_config("llama-13b"), dtype="float32")
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    eng = ServingEngine(cfg, params, EngineConfig(**ENGINE, device="cpu"))
+    assert eng.graphs == {} and eng.bucket == ENGINE["prefill_bucket"]
+    before = clone_cache(eng.cache)
+    tokens = torch.tensor([[3], [4]])
+    logits = eng.decode(tokens)
+    _, want = api.decode_step(params, before, tokens, cfg)
+    assert torch.equal(logits, want) and int(eng.cache["len"]) == 1
+    for (a, _), (b, _) in zip(api.cache_rows(cfg, eng.cache), api.cache_rows(cfg, before)):
+        assert torch.equal(a, b)
+    prompt = torch.arange(2, 2 + eng.bucket)[None]
+    (got_cache, got), (want_cache, want) = eng.prefill(prompt), api.prefill(params, prompt, cfg)
+    assert torch.equal(got, want) and torch.equal(got_cache["k"], want_cache["k"])
+
+
+def test_graph_launch_accounting():
+    """A capture's wrapper calls are the graph's launches: taken out of the
+    counters (a capture launches nothing), added back once per replay, the
+    tensor-core count too; a capture that raises is taken out as well."""
+    before = kernels.launch_counts()
+    wgmma = flash_attention.WGMMA_LAUNCHES
+    with kernels.captured_launches() as graph:
+        rmsnorm.LAUNCHES += 3          # as three wrapper calls would count
+        decode_attention.LAUNCHES += 2
+        flash_attention.LAUNCHES += 1
+        flash_attention.WGMMA_LAUNCHES += 1
+    assert graph == dict(dict.fromkeys(before, 0), rmsnorm=3, decode_attention=2,
+                         flash_attention=1, **{kernels.WGMMA: 1})
+    assert kernels.launch_counts() == before and flash_attention.WGMMA_LAUNCHES == wgmma
+    kernels.count_replay(graph)
+    kernels.count_replay(graph)
+    assert kernels.launch_counts() == {k: n + 2 * graph[k] for k, n in before.items()}
+    assert flash_attention.WGMMA_LAUNCHES == wgmma + 2
+    after = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with kernels.captured_launches() as failed:
+            rmsnorm.LAUNCHES += 5
+            raise RuntimeError("capture failed")
+    assert failed["rmsnorm"] == 5 and kernels.launch_counts() == after
+    kernels.count_replay(graph, -2)
+    assert kernels.launch_counts() == before and flash_attention.WGMMA_LAUNCHES == wgmma
