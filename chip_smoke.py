@@ -60,7 +60,23 @@ paths:
   active time) on the card and on the NumPy oracle over the same store:
   the same configs in the same order, trace, knee and budget answer,
   counts exact, floats within 1e-9; with its time, each round's, and K4's
-  and K7's launches in each.
+  and K7's launches in each;
+* live: drives ``LiveController`` ticking on the card: the reference
+  benchmark's live deployment (``SyntheticProducer``, 10^4 streams, 60 s
+  windows of 5 s samples; 3 windows a tick each, then a 3-window backlog in
+  one tick, then one tick under torch.profiler) and the what-if fleet
+  drip-fed by ``SimulatorProducer`` in 6 windows of 30 min (default
+  families, K4 and K7 in every tick), each tick held to a NumPy-backend
+  controller fed the same shards (the same configs in the same order,
+  counts exact, floats within 1e-9, the same knee), every refreshed tick on
+  the ``warm_torch`` rung with no fallback; staleness, spans and K4/K7
+  launches per tick; the extended IR against the one-shot IR's counts;
+  child processes of the tiny crash/resume deployment killed by a fire-once
+  fault plan at each tick-phase boundary, relaunched, and a restart after
+  every tick, each ending on the uninterrupted child's frontier byte for
+  byte; a clock-skewed shard (stale knee, watermark held), a truncated
+  shard (coverage < 1) and a corrupt checkpoint (cold start); the
+  Prometheus exposition linted.
 
 Output: one line per phase; before the last, a ``{"kernels": [...]}`` JSON
 line and the card's name and power limit from nvidia-smi; last, the
@@ -1277,6 +1293,23 @@ def compare_outcomes(ref, out, label: str) -> dict:
     return worst
 
 
+
+def compare_frontier(ref, out, label: str) -> dict:
+    """Two frontiers under the oracle contract: counts and coverage exact,
+    the same configs in the same order (trace and Pareto flags), and every
+    outcome as :func:`compare_outcomes` holds it. Returns its worst."""
+    if (out.n_rows, out.n_jobs, out.n_runs, out.coverage) != \
+            (ref.n_rows, ref.n_jobs, ref.n_runs, ref.coverage):
+        raise AssertionError(f"{label}: counts {(out.n_rows, out.n_jobs, out.n_runs, out.coverage)}"
+                             f", oracle {(ref.n_rows, ref.n_jobs, ref.n_runs, ref.coverage)}")
+    worst = compare_outcomes(ref.outcomes, out.outcomes, label)
+    if [o.pareto for o in out.outcomes] != [o.pareto for o in ref.outcomes]:
+        raise AssertionError(f"{label}: Pareto flags differ from the oracle's")
+    if [(t["i"], t["round"], t["family"]) for t in out.trace] != \
+            [(t["i"], t["round"], t["family"]) for t in ref.trace]:
+        raise AssertionError(f"{label}: the trace differs from the oracle's")
+    return worst
+
 def cap_scan_plans(n: int, c: int, rows: int) -> dict:
     """Every plan K4 may take for these shapes, by label: the plan's own
     choice, and each number of tiles a row it weighs at each number of caps
@@ -1575,12 +1608,7 @@ def search(dev, store, kw) -> dict:
     if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0 \
             or any(launches[k] for k in SERVING_KERNELS) or any(host_launches.values()):
         raise AssertionError(f"search launches: card {launches}, oracle {host_launches}")
-    worst = compare_outcomes(ref.frontier.outcomes, res.frontier.outcomes, "search")
-    if [o.pareto for o in res.frontier.outcomes] != [o.pareto for o in ref.frontier.outcomes]:
-        raise AssertionError("search: Pareto flags differ from the oracle's")
-    if [(t["i"], t["round"], t["family"]) for t in res.frontier.trace] != \
-            [(t["i"], t["round"], t["family"]) for t in ref.frontier.trace]:
-        raise AssertionError("search: the trace differs from the oracle's")
+    worst = compare_frontier(ref.frontier, res.frontier, "search")
     if (res.n_evals, res.n_rounds, res.converged) != (ref.n_evals, ref.n_rounds, ref.converged):
         raise AssertionError(f"search: {res.n_evals} evals / {res.n_rounds} rounds, oracle "
                              f"{ref.n_evals} / {ref.n_rounds}")
@@ -2001,6 +2029,523 @@ def whatif(dev) -> dict:
     return result, krows
 
 
+# --------------------------------------------------------------------------- #
+# live phase: the controller's tick loop on the card
+# --------------------------------------------------------------------------- #
+#: the reference benchmark's live deployment (benchmarks/live_bench.py:59-69),
+#: 10^4 streams, 120,000 rows a shard
+LIVE_DEPLOYMENT = dict(n_streams=10_000, window_s=60, dt_s=5.0)
+LIVE_WINDOWS = 3                   # one tick each, then a backlog of 3 in one tick
+LIVE_EVALS = 24
+#: the live searches replay at the producers' sample interval and keep every
+#: job: at the default dt_s = 1 the run-level IR refuses 5-second samples (the
+#: torch backend could not carry the store), and the default 2-hour job filter
+#: drops every job of a 60-second window (no stream would reach the card)
+LIVE_REPLAY = dict(dt_s=5.0, min_job_duration_s=0.0)
+#: the what-if deployment (WHATIF_DEPLOYMENT) drip-fed in 6 windows of 30 min
+LIVE_SIM = dict(n_devices=64, horizon_s=3 * 3600, seed=3, window_s=1800, min_job_s=1800)
+LIVE_SIM_EVALS = 64
+#: tests/test_live.py's crash/resume deployment (:46-51), 3 windows
+LIVE_TINY = dict(n_streams=16, window_s=30, dt_s=5.0, seed=3)
+LIVE_TINY_WINDOWS = 3
+LIVE_TINY_EVALS = 16
+#: the spans read per tick
+LIVE_SPANS = ("live.tick", "ir.build", "ir.extend", "whatif.search", "search.round",
+              "whatif.evaluate", "backend.pack", "backend.kernels", "backend.assembly",
+              "live.checkpoint")
+#: tests/test_live.py's crash/resume loop, run as a child process on the
+#: card: argv root, checkpoint, output, windows and a fault plan ("" for
+#: none), which the child arms once a checkpoint is committed, so that the
+#: planned crash lands in its second tick or later
+LIVE_CHILD = r"""
+import json, os, pathlib, sys
+from repro_torch.live import LiveConfig, LiveController, SyntheticProducer
+from repro_torch.telemetry import TelemetryStore
+from repro_torch.whatif import frontier_to_dict
+from repro_torch.whatif.search import default_families
+root, ckpt, out, n_windows, plan = sys.argv[1:6]
+n_windows = int(n_windows)
+store = TelemetryStore(root)
+prod = SyntheticProducer(store, **%(tiny)r)
+prod.window = len(store.manifest["shards"])
+fams = [f for f in default_families(composites=False) if f.name == "downscale"]
+ctrl = LiveController(store, ckpt, LiveConfig(max_evals=%(evals)d, search_kwargs={
+    "max_rounds": 1, "families": fams, **%(replay)r}))
+print("resumed", ctrl.tick_no, ctrl.n_shards, flush=True)
+for _ in range(20 * n_windows + 20):
+    if plan and ctrl.tick_no >= 1:
+        os.environ["REPRO_FAULT_PLAN"] = plan
+    store.refresh()
+    if store.shards_since(ctrl.n_shards):
+        r = ctrl.tick()
+        print("tick", r.tick, r.result, r.rung, flush=True)
+    elif prod.window < n_windows:
+        prod.step()
+    else:
+        break
+else:
+    sys.exit(2)
+pathlib.Path(out).write_text(json.dumps(frontier_to_dict(ctrl.frontier), sort_keys=True))
+""" % {"tiny": LIVE_TINY, "evals": LIVE_TINY_EVALS, "replay": LIVE_REPLAY}
+
+
+def live_search_kwargs(family: str) -> dict:
+    """The synthetic deployments' ``search_kwargs``: one round over one
+    family (the bench's, downscale), at the producer's 5-second samples."""
+    from repro_torch.whatif.search import default_families
+    fams = [f for f in default_families(composites=False) if f.name == family]
+    return {"max_rounds": 1, "families": fams, **LIVE_REPLAY}
+
+
+def live_compare(oracle, card, label: str) -> float:
+    """One tick of the card's controller against the NumPy-backend
+    controller's over the same shards: the same result, shards and
+    coalescing, the frontiers as :func:`compare_frontier` holds them, the
+    same knee. Returns the worst float's share of its limit."""
+    if (card.result, card.n_new_shards, card.coalesced) != \
+            (oracle.result, oracle.n_new_shards, oracle.coalesced):
+        raise AssertionError(f"{label}: tick {card.result} {card.n_new_shards}/"
+                             f"{card.coalesced}, oracle {oracle.result} "
+                             f"{oracle.n_new_shards}/{oracle.coalesced}")
+    worst = compare_frontier(oracle.frontier, card.frontier, label)
+    if card.knee.params != oracle.knee.params:
+        raise AssertionError(f"{label}: knee {card.knee.params}, oracle {oracle.knee.params}")
+    return worst["limit_share"]
+
+
+def live_tick(dev, prod, ctrl, oprod, octrl, windows: int, label: str) -> dict:
+    """Land ``windows`` windows and take them in one tick of the card's
+    controller (timed to its end on the card, with its spans and kernel
+    launches), then the same on the NumPy-backend controller's own store,
+    with obs off; hold the two ticks to each other."""
+    import torch
+    from repro_torch import kernels, obs
+    for _ in range(windows):
+        prod.step()
+    n0 = len(obs.spans())
+    before = kernels.launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    r = ctrl.tick()
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    stages = obs.stage_totals(obs.spans()[n0:])
+    obs.disable()
+    try:
+        for _ in range(windows):
+            oprod.step()
+        t0 = time.perf_counter()
+        o = octrl.tick()
+        oracle_s = time.perf_counter() - t0
+    finally:
+        obs.enable()
+    if r.result != "refreshed" or r.rung != "warm_torch":
+        raise AssertionError(f"{label}: tick {r.result} on {r.rung} ({r.error})")
+    share = live_compare(o, r, label)
+    return {"tick": r.tick, "n_new_shards": r.n_new_shards, "coalesced": r.coalesced,
+            "rung": r.rung, "staleness_s": r.staleness_s, "tick_s": wall_s,
+            "oracle_tick_s": oracle_s, "coverage": r.coverage,
+            "knee": r.knee.params.get("policy"), "knee_saved_fraction": r.knee.saved_fraction,
+            "worst_limit_share": share,
+            "launches": {k: after[k] - before[k] for k in ("cap_bucket_scan",
+                                                          "downscale_replay")},
+            "spans_s": {k: stages[k]["total_s"] for k in LIVE_SPANS if k in stages},
+            "rounds": stages.get("search.round", {}).get("count", 0)}
+
+
+def profile_tick(dev, prod, ctrl) -> tuple[dict, object]:
+    """Land one window and take it in one tick under torch.profiler, after a
+    warm-up step with one device op (a profile's first device records can
+    be lost): the card's busy time against the tick's wall time, and the
+    port's kernels in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    prod.step()
+    steps = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: steps.append(p.key_averages())) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
+        prof.step()
+        t0 = time.perf_counter()
+        r = ctrl.tick()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    on_card = [e for e in steps[0] if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    ours: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    for e in on_card:
+        m = re.search(r"repro::(\w+)", e.key)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3
+            launches[m.group(1)] = launches.get(m.group(1), 0) + e.count
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms_profiled": wall_ms, "card_busy_ms": busy_ms,
+            "card_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ops": sum(e.count for e in on_card),
+            "repro_kernels_ms": ours, "repro_kernel_launches": launches,
+            "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}, r
+
+
+def live_fleet(dev, root: Path) -> dict:
+    """The reference benchmark's live deployment on the card: 3 windows of
+    10^4 streams, one tick each, then a 3-window backlog in one tick, each
+    tick held to the NumPy-backend controller's; then one more window's tick
+    under torch.profiler."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.live import LiveConfig, LiveController, SyntheticProducer
+    from repro_torch.telemetry import TelemetryStore
+
+    cfg = LiveConfig(max_evals=LIVE_EVALS, search_kwargs=live_search_kwargs("downscale"))
+    ocfg = dataclasses.replace(cfg, backend="numpy")
+    store, ostore = TelemetryStore(root / "fleet"), TelemetryStore(root / "fleet_oracle")
+    prod = SyntheticProducer(store, **LIVE_DEPLOYMENT)
+    oprod = SyntheticProducer(ostore, **LIVE_DEPLOYMENT)
+    ctrl = LiveController(store, root / "fleet_ckpt.json", cfg,
+                          publish_path=root / "fleet_knee.json")
+    octrl = LiveController(ostore, root / "fleet_oracle_ckpt.json", ocfg)
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    ticks = [live_tick(dev, prod, ctrl, oprod, octrl, 1, f"live fleet window {w}")
+             for w in range(LIVE_WINDOWS)]
+    backlog = live_tick(dev, prod, ctrl, oprod, octrl, LIVE_WINDOWS, "live fleet backlog")
+    torch.cuda.synchronize(dev)
+    launches = kernels.launch_counts()
+    if (backlog["n_new_shards"], backlog["coalesced"]) != (LIVE_WINDOWS, LIVE_WINDOWS - 1):
+        raise AssertionError(f"live fleet backlog: {backlog['n_new_shards']} shards, "
+                             f"{backlog['coalesced']} coalesced")
+    if any(t["launches"]["downscale_replay"] <= 0 for t in ticks + [backlog]):
+        raise AssertionError("live fleet: a tick launched no K7")
+    prof, r = profile_tick(dev, prod, ctrl)
+    oprod.step()
+    live_compare(octrl.tick(), r, "live fleet profiled tick")
+    if r.rung != "warm_torch":
+        raise AssertionError(f"live fleet profiled tick on {r.rung}")
+    staleness = [t["staleness_s"] for t in ticks]
+    steady = staleness[1:]
+    mean = sum(steady) / len(steady)
+    published = json.loads((root / "fleet_knee.json").read_text())
+    if published["tick"] != ctrl.tick_no or published["stale"]:
+        raise AssertionError(f"live fleet: published {published}")
+    rows = store.manifest["shards"][0]["rows"]
+    result = {"deployment": LIVE_DEPLOYMENT, "rows_per_shard": rows,
+              "max_evals": LIVE_EVALS, "search_kwargs": {"max_rounds": 1,
+                                                         "families": ["downscale"],
+                                                         **LIVE_REPLAY},
+              "staleness_s_first": staleness[0], "staleness_s_steady_mean": mean,
+              "staleness_s_steady_max": max(steady),
+              "streams_per_s_steady": LIVE_DEPLOYMENT["n_streams"] / mean,
+              "ticks": ticks, "backlog": backlog, "profiled_tick": prof,
+              "launches": launches}
+    log("live fleet " + json.dumps(result))
+    log(f"live fleet ({LIVE_DEPLOYMENT['n_streams']} streams, {rows} rows a shard, "
+        f"{LIVE_EVALS} evaluations): staleness first {staleness[0]:.4f} s, steady mean "
+        f"{mean:.4f} s, max {max(steady):.4f} s, {result['streams_per_s_steady']:.0f} "
+        f"streams/s; backlog of {LIVE_WINDOWS} in one tick {backlog['staleness_s']:.4f} s; "
+        f"card idle {prof['card_idle_share']:.1%} of a profiled tick "
+        f"({prof['card_busy_ms']:.3f} of {prof['wall_ms_profiled']:.1f} ms); K7 launches a "
+        f"tick {[t['launches']['downscale_replay'] for t in ticks + [backlog]]}; every "
+        f"tick on warm_torch == the numpy controller's; card {nvidia_smi_line()}")
+    return result
+
+
+def live_simulated(dev, root: Path) -> dict:
+    """The what-if deployment drip-fed to the card's controller in 6
+    windows, default families, each tick held to the NumPy-backend
+    controller's; K4 and K7 in every tick; the extended IR's counts against
+    the one-shot IR's."""
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.live import LiveConfig, LiveController, SimulatorProducer
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.whatif import default_policy_grid, get_ir, ir_config_for
+
+    # the simulator samples at 1 s, the replay's default dt_s
+    cfg = LiveConfig(max_evals=LIVE_SIM_EVALS,
+                     search_kwargs={"min_job_duration_s": 0.0})
+    ocfg = dataclasses.replace(cfg, backend="numpy")
+    store = TelemetryStore(root / "sim", shard_format="npy_dir")
+    ostore = TelemetryStore(root / "sim_oracle", shard_format="npy_dir")
+    prod, oprod = SimulatorProducer(store, **LIVE_SIM), SimulatorProducer(ostore, **LIVE_SIM)
+    ctrl = LiveController(store, root / "sim_ckpt.json", cfg)
+    octrl = LiveController(ostore, root / "sim_oracle_ckpt.json", ocfg)
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    ticks = []
+    while not prod.exhausted:
+        ticks.append(live_tick(dev, prod, ctrl, oprod, octrl, 1,
+                               f"live simulated window {len(ticks)}"))
+    torch.cuda.synchronize(dev)
+    launches = kernels.launch_counts()
+    if len(ticks) != LIVE_SIM["horizon_s"] // LIVE_SIM["window_s"]:
+        raise AssertionError(f"live simulated: {len(ticks)} ticks")
+    if any(min(t["launches"].values()) <= 0 for t in ticks):
+        raise AssertionError(f"live simulated: a tick launched no K4 or K7: "
+                             f"{[t['launches'] for t in ticks]}")
+    ir = get_ir(store, ir_config_for(default_policy_grid()))
+    counts = {"rows": ir.source_rows, "runs": ir.n_runs}
+    if counts != WHATIF_REF_COUNTS or store.total_rows != ir.source_rows:
+        raise AssertionError(f"live simulated: extended IR {counts} over a store of "
+                             f"{store.total_rows} rows, one-shot {WHATIF_REF_COUNTS}")
+    fam = obs.REGISTRY.family("repro_ir_cache_hits_total")
+    levels = {dict(k).get("level"): m.value for k, m in fam.metrics.items()} if fam else {}
+    result = {"deployment": LIVE_SIM, "max_evals": LIVE_SIM_EVALS,
+              "ticks": ticks, "ir_counts": counts, "ir_stream_rows": ir.n_rows,
+              "ir_cache_hits": levels,
+              "launches": launches}
+    log("live simulated " + json.dumps(result))
+    log(f"live simulated ({LIVE_SIM['n_devices']} devices, {len(ticks)} windows of "
+        f"{LIVE_SIM['window_s']} s, default families, {LIVE_SIM_EVALS} evaluations): "
+        f"staleness {[round(t['staleness_s'], 4) for t in ticks]} s; K4 "
+        f"{[t['launches']['cap_bucket_scan'] for t in ticks]} and K7 "
+        f"{[t['launches']['downscale_replay'] for t in ticks]} launches a tick; every tick "
+        f"on warm_torch == the numpy controller's; extended IR {counts} == the one-shot "
+        f"IR's")
+    return result
+
+
+def live_crash_resume(dev, root: Path) -> dict:
+    """tests/test_live.py's crash/resume contract on the card, for real: a
+    child process driving the tiny deployment is killed by a fire-once
+    fault plan at each tick-phase boundary, in its second tick or later
+    (the child arms the plan once its first checkpoint is committed), and
+    relaunched; the relaunch must resume from the last committed checkpoint
+    (the tick and watermark the killed child had reached) and write the
+    uninterrupted child's frontier byte for byte. Then a controller made
+    anew from its checkpoint after every tick (in this process, IR caches
+    cleared each time) must end on it too. The children run side by side."""
+    import os
+    import torch
+    from repro_torch.live import LiveConfig, LiveController, SyntheticProducer
+    from repro_torch.live.checkpoint import MID_CHECKPOINT_STAGE
+    from repro_torch.live.controller import PRE_CHECKPOINT_STAGE, PRE_EXTEND_STAGE
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.testing import faults
+    from repro_torch.whatif import frontier_to_dict
+    from repro_torch.whatif import ir as ir_mod
+
+    stages = (PRE_EXTEND_STAGE, PRE_CHECKPOINT_STAGE, MID_CHECKPOINT_STAGE)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def launch(name: str, plan=None):
+        d = root / name
+        return subprocess.Popen(
+            [sys.executable, "-c", LIVE_CHILD, str(d / "store"), str(d / "ckpt.json"),
+             str(d / "frontier.json"), str(LIVE_TINY_WINDOWS), str(plan or "")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def lines(text: str, word: str) -> list[list[str]]:
+        return [line.split()[1:] for line in text.splitlines() if line.startswith(word + " ")]
+
+    def wait(procs: dict) -> dict:
+        out = {}
+        for name, p in procs.items():
+            text, _ = p.communicate(timeout=300)
+            out[name] = (p.returncode, text)
+        return out
+
+    t0 = time.perf_counter()
+    plans = {}
+    for stage in stages:
+        plans[stage] = faults.install_plan(root / f"plan_{stage}", crash=[stage])
+        faults.clear_plan()
+    first = wait({"baseline": launch("baseline"),
+                  **{s: launch(s, plans[s]) for s in stages}})
+    rc, text = first["baseline"]
+    if rc != 0:
+        raise AssertionError(f"live crash/resume: the uninterrupted child exited {rc}:\n{text}")
+    baseline = (root / "baseline" / "frontier.json").read_text()
+    before_crash = {}
+    for stage in stages:
+        rc, text = first[stage]
+        ticks = lines(text, "tick")
+        before_crash[stage] = len(ticks)
+        if rc != faults.CRASH_EXIT_CODE or (root / stage / "frontier.json").exists() \
+                or lines(text, "resumed") != [["0", "0"]] or len(ticks) < 1:
+            raise AssertionError(f"live crash/resume: the child planned to die at {stage} in "
+                                 f"its second tick or later exited {rc}:\n{text}")
+    second = wait({s: launch(s, plans[s]) for s in stages})
+    resumed = {}
+    for stage in stages:
+        rc, text = second[stage]
+        resumed[stage] = [int(v) for v in lines(text, "resumed")[0]]
+        if rc != 0 or (root / stage / "frontier.json").read_text() != baseline:
+            raise AssertionError(f"live crash/resume: the relaunch after {stage} exited {rc} "
+                                 f"or differs from the uninterrupted frontier:\n{text}")
+        if resumed[stage][0] != before_crash[stage] or resumed[stage][1] < 1:
+            raise AssertionError(f"live crash/resume: the relaunch after {stage} resumed at "
+                                 f"tick/shards {resumed[stage]}, the killed child had "
+                                 f"committed {before_crash[stage]} ticks:\n{text}")
+    rungs = sorted({t[2] for _, text in [first["baseline"]] + list(second.values())
+                    for t in lines(text, "tick")})
+    if rungs != ["warm_torch"]:
+        raise AssertionError(f"live crash/resume: children's ticks ran on {rungs}")
+    children_s = time.perf_counter() - t0
+
+    store = TelemetryStore(root / "restart" / "store")
+    prod = SyntheticProducer(store, **LIVE_TINY)
+    cfg = LiveConfig(max_evals=LIVE_TINY_EVALS, search_kwargs=live_search_kwargs("downscale"))
+    for _ in range(LIVE_TINY_WINDOWS):
+        prod.step()
+        ir_mod._IR_CACHE.clear()
+        ir_mod._IR_UNSUPPORTED.clear()
+        ctrl = LiveController(store, root / "restart" / "ckpt.json", cfg)
+        r = ctrl.tick()
+        if r.result != "refreshed" or r.rung != "warm_torch":
+            raise AssertionError(f"live restart per tick: {r.result} on {r.rung} ({r.error})")
+    torch.cuda.synchronize(dev)
+    if json.dumps(frontier_to_dict(ctrl.frontier), sort_keys=True) != baseline:
+        raise AssertionError("live restart per tick: the frontier differs from the "
+                             "uninterrupted child's")
+    result = {"deployment": LIVE_TINY, "windows": LIVE_TINY_WINDOWS,
+              "stages": list(stages), "ticks_before_crash": before_crash,
+              "resumed_tick_shards": resumed, "children_s": children_s,
+              "frontier_bytes": len(baseline)}
+    log("live crash/resume " + json.dumps(result))
+    log(f"live crash/resume on the card: children killed (exit {faults.CRASH_EXIT_CODE}) at "
+        f"{', '.join(stages)} after {before_crash} committed ticks and relaunched from "
+        f"those checkpoints (tick, shards {resumed}), each frontier byte-identical to the "
+        f"uninterrupted child's ({len(baseline)} bytes); a restart from the checkpoint "
+        f"after every tick byte-identical too; {children_s:.1f} s for the 7 children")
+    return result
+
+
+def live_degradation(dev, root: Path) -> dict:
+    """Degradation on the card: a clock-skewed shard exhausts the ladder
+    and serves the stale knee with the watermark held; a truncated shard is
+    skipped with coverage < 1; a corrupt checkpoint cold-starts."""
+    from repro_torch import obs
+    from repro_torch.live import LiveConfig, LiveController, SyntheticProducer
+    from repro_torch.telemetry import FaultTolerance, TelemetryStore
+    from repro_torch.testing import faults
+    from repro_torch.whatif import ir as ir_mod
+
+    cfg = LiveConfig(max_evals=LIVE_TINY_EVALS, search_kwargs=live_search_kwargs("downscale"))
+
+    def fresh(name: str, c=cfg):
+        store = TelemetryStore(root / name / "store")
+        prod = SyntheticProducer(store, **LIVE_TINY)
+        prod.step()
+        ctrl = LiveController(store, root / name / "ckpt.json", c)
+        r = ctrl.tick()
+        if r.result != "refreshed" or r.rung != "warm_torch":
+            raise AssertionError(f"live degradation {name}: first tick {r.result} on {r.rung}")
+        return store, prod, ctrl
+
+    def fallbacks() -> dict:
+        fam = obs.REGISTRY.family("repro_fallbacks_total")
+        return {tuple(sorted(dict(k).items())): m.value
+                for k, m in fam.metrics.items()} if fam else {}
+
+    store, prod, ctrl = fresh("skew", dataclasses.replace(cfg, fault=FaultTolerance(
+        max_retries=1, timeout_s=None, backoff_s=0.0)))
+    good = ctrl.frontier
+    prod.step()
+    faults.skew_shard(store, store.manifest["shards"][-1]["file"])
+    ir_mod._IR_CACHE.clear()
+    ir_mod._IR_UNSUPPORTED.clear()
+    before = fallbacks()
+    r = ctrl.tick()
+    walked = {k: v - before.get(k, 0.0) for k, v in fallbacks().items()
+              if v != before.get(k, 0.0)}
+    if r.result != "stale" or ctrl.frontier is not good or ctrl.n_shards != 1 \
+            or r.knee is None:
+        raise AssertionError(f"live degradation skew: {r.result}, watermark {ctrl.n_shards}")
+    steps = {(dict(k)["from"], dict(k)["to"]) for k in walked}
+    if not {("warm_torch", "warm_numpy"), ("warm_numpy", "cold_numpy"),
+            ("live_tick", "stale_knee")} <= steps or \
+            {dict(k)["reason"] for k in walked if dict(k)["from"] == "warm_torch"} \
+            != {"IRUnsupportedError"}:
+        raise AssertionError(f"live degradation skew: ladder walked {walked}")
+    skew = {"result": r.result, "error": r.error, "watermark": ctrl.n_shards,
+            "fallbacks": {"/".join(f"{a}={b}" for a, b in k): v for k, v in walked.items()}}
+
+    store, prod, ctrl = fresh("truncate")
+    prod.step()
+    faults.truncate_file(store.root / store.manifest["shards"][-1]["file"])
+    ir_mod._IR_CACHE.clear()
+    r = ctrl.tick()
+    if r.result != "refreshed" or not r.coverage < 1.0 or ctrl.n_shards != 2:
+        raise AssertionError(f"live degradation truncate: {r.result}, coverage {r.coverage}")
+    truncate = {"result": r.result, "rung": r.rung, "coverage": r.coverage,
+                "watermark": ctrl.n_shards}
+
+    store, prod, ctrl = fresh("checkpoint")
+    faults.corrupt_checkpoint(root / "checkpoint" / "ckpt.json", mode="truncate")
+    before = fallbacks()
+    ctrl = LiveController(store, root / "checkpoint" / "ckpt.json", cfg)
+    key = (("from", "checkpoint"), ("reason", "checkpoint_corrupt"), ("to", "cold_start"))
+    if ctrl.tick_no != 0 or ctrl.frontier is not None \
+            or fallbacks().get(key, 0.0) - before.get(key, 0.0) != 1.0:
+        raise AssertionError("live degradation checkpoint: no cold start counted")
+    r = ctrl.tick()
+    if r.result != "refreshed" or r.rung != "warm_torch":
+        raise AssertionError(f"live degradation checkpoint: {r.result} on {r.rung}")
+    result = {"skew": skew, "truncate": truncate,
+              "corrupt_checkpoint": {"cold_start": True, "next_tick": r.result}}
+    log("live degradation " + json.dumps(result))
+    return result
+
+
+def live(dev) -> dict:
+    """The live path: ``LiveController`` ticking on the card, K4 and K7 in
+    every tick's search. Every refreshed tick of the two deployments must
+    run on ``warm_torch`` with ``repro_fallbacks_total`` at 0; the
+    degradation checks then walk the ladder on purpose."""
+    import torch
+    from repro_torch import obs
+
+    t_phase = time.perf_counter()
+    obs.reset()
+    obs.enable()
+    obs.init_live_metrics()
+    obs.init_degradation_metrics()
+    launches: dict[str, int] = {}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            root = Path(d)
+            fleet = live_fleet(dev, root)
+            simulated = live_simulated(dev, root)
+            fam = obs.REGISTRY.family("repro_fallbacks_total")
+            if fam is None or any(m.value for m in fam.metrics.values()):
+                raise AssertionError("live: a tick fell back: " + json.dumps(
+                    {str(k): m.value for k, m in (fam.metrics.items() if fam else ())}))
+            for counts in (fleet["launches"], simulated["launches"]):
+                for name, n in counts.items():
+                    launches[name] = launches.get(name, 0) + n
+            if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0 \
+                    or any(launches[k] for k in SERVING_KERNELS):
+                raise AssertionError(f"live: launches {launches}")
+            crash = live_crash_resume(dev, root)
+            degradation = live_degradation(dev, root)
+        text = obs.render_prometheus()
+    finally:
+        obs.disable()
+    errors = obs.lint_exposition(text)
+    missing = [name for name, _, _ in obs.LIVE_FAMILIES if f"\n{name}" not in text]
+    if errors or missing:
+        raise AssertionError(f"live exposition: lint {errors}, missing {missing}")
+    emitted = sorted({line.split("{")[0].split(" ")[0] for line in text.splitlines()
+                      if line.startswith("repro_live_") and not line.endswith(" 0")})
+    torch.cuda.synchronize(dev)
+    phase_s = time.perf_counter() - t_phase
+    log(f"live exposition: {len(text.splitlines())} lines lint clean, every repro_live_* "
+        f"family present, non-zero: {emitted}")
+    log(f"live phase: {phase_s:.1f} s")
+    return {"fleet": fleet, "simulated": simulated, "crash_resume": crash,
+            "degradation": degradation, "launches": launches, "phase_s": phase_s}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2052,6 +2597,7 @@ def main() -> int:
     runs = [serve_model(name, dev) for name in SERVE_MAX_SEQ]
 
     wresult, wtimes = whatif(dev)
+    lresult = live(dev)
     log_times(wtimes)
     k7 = wtimes["downscale_replay"]
     log(f"downscale_replay plain version at the main shape used "
@@ -2071,7 +2617,8 @@ def main() -> int:
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
     wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs)
     for counts in [r["launches"] for r in runs] + [wresult["launches"],
-                                                   wresult["search"]["launches"]]:
+                                                   wresult["search"]["launches"],
+                                                   lresult["launches"]]:
         for name, n in counts.items():
             launches[name] += n
     if any(n <= 0 for n in launches.values()):
@@ -2107,6 +2654,8 @@ def main() -> int:
                 row[key] = t[key]
         if name == "flash_attention":
             row["launches_tensor_cores"] = wgmma_launches
+        if lresult["launches"].get(name):
+            row["launches_live"] = lresult["launches"][name]
         rows.append(row)
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}
     print(json.dumps({"kernels": rows}))

@@ -1,1 +1,2 @@
-"""State taxonomy, energy accounting, power models and the Algorithm-1 controller."""
+"""State taxonomy, energy accounting, power models, the Algorithm-1 controller,
+density clustering and pre-idle cause attribution."""

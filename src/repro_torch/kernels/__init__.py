@@ -15,6 +15,9 @@ A wrapper called while a CUDA graph is captured records its kernel into the
 graph and launches nothing, and a replay launches the graph's kernels
 without calling any wrapper. :func:`captured_launches` and
 :func:`count_replay` keep the counts true across both.
+
+A kernel that cannot be built, loaded or launched raises
+:class:`KernelError` (a ``RuntimeError``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Iterator
 from repro_torch.kernels import (decode_attention, downscale_replay,
                                  flash_attention, rmsnorm, run_replay, rwkv6_scan,
                                  ssm_scan)
+from repro_torch.kernels._build import KernelError  # noqa: F401
 
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {

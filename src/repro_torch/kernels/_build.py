@@ -62,6 +62,14 @@ SIGNATURES = {
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched: no ``nvcc``, a
+    compile or link failure, no CUDA device, or a CUDA error from a launch.
+    Its own class so that callers that survive bad *data* (the live
+    controller's tick ladder) can tell a broken device path apart and let
+    it propagate."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -69,7 +77,7 @@ def nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+    raise KernelError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
                        "kernels cannot be built")
 
 
@@ -108,13 +116,13 @@ def build(out_dir: Path) -> Path:
         (out_dir / "build.log").write_text("\n".join(log))
         failed = [src.name for src, (rc, _, _) in zip(srcs, results) if rc]
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+            raise KernelError(f"nvcc failed on {failed}:\n" + "\n".join(log))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
             [cc, "-shared", "-o", str(tmp_lib), *(str(o) for o in objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
-            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+            raise KernelError(f"linking the kernels failed:\n{link.stdout}")
         os.replace(tmp_lib, out_dir / LIB_NAME)
     return out_dir / LIB_NAME
 
@@ -123,7 +131,7 @@ def build(out_dir: Path) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this checkout has none."""
     if not torch.cuda.is_available():
-        raise RuntimeError("the CUDA kernels need a CUDA device")
+        raise KernelError("the CUDA kernels need a CUDA device")
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
@@ -147,7 +155,7 @@ def check(err: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err:
         msg = library().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -1,4 +1,4 @@
-"""Self-observability for the repro pipeline: metrics + spans.
+"""Self-observability for the repro pipeline: metrics + spans + exporters.
 
 The paper's argument is that fleets burn energy in states nobody measures;
 this package makes sure *our own* engine is not a black box.  Default-off,
@@ -12,17 +12,24 @@ Quick start::
     obs.enable()
     with obs.span("sweep"):
         frontier = run_sweep(store)
-    print(obs.format_span_tree())               # human stage tree
-    print(obs.stage_totals(obs.spans()))        # span name -> count, seconds
+    print(obs.stage_report())                  # human stage tree
+    obs.write_textfile("reports/metrics.prom")  # Prometheus exposition
 
 Layout: :mod:`~repro_torch.obs.metrics` (registry: counters / gauges /
-log-bucket histograms) and :mod:`~repro_torch.obs.spans` (hierarchical
-traces).
+log-bucket histograms), :mod:`~repro_torch.obs.spans` (hierarchical
+traces), :mod:`~repro_torch.obs.prom` (text exposition, linter, stdlib HTTP
+endpoint), :mod:`~repro_torch.obs.report` (stage-tree reports).
 """
-from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
-                                     MetricsRegistry, counter, default_buckets,
-                                     disable, enable, enabled, fallback, gauge,
+from repro_torch.obs.metrics import (DEGRADATION_FAMILIES, IR_APPEND_FAMILIES,
+                                     LIVE_FAMILIES, REGISTRY, Counter, Gauge,
+                                     Histogram, MetricsRegistry, counter,
+                                     default_buckets, disable, enable, enabled,
+                                     fallback, gauge, init_degradation_metrics,
+                                     init_ir_append_metrics, init_live_metrics,
                                      observe)
+from repro_torch.obs.prom import (lint_exposition, render_prometheus,
+                                  start_http_server, write_textfile)
+from repro_torch.obs.report import stage_breakdown, stage_report
 from repro_torch.obs.spans import (SpanNode, SpanRecord, clear_spans,
                                    dump_spans_jsonl, format_span_tree,
                                    load_spans_jsonl, span, span_tree, spans,
@@ -36,9 +43,13 @@ def reset() -> None:
 
 
 __all__ = [
+    "DEGRADATION_FAMILIES", "IR_APPEND_FAMILIES", "LIVE_FAMILIES",
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "SpanNode", "SpanRecord", "clear_spans", "counter", "default_buckets",
     "disable", "dump_spans_jsonl", "enable", "enabled", "fallback",
-    "format_span_tree", "gauge", "load_spans_jsonl", "observe", "reset",
-    "span", "span_tree", "spans", "stage_totals",
+    "format_span_tree", "gauge", "init_degradation_metrics",
+    "init_ir_append_metrics", "init_live_metrics", "lint_exposition",
+    "load_spans_jsonl", "observe", "render_prometheus", "reset", "span",
+    "span_tree", "spans", "stage_breakdown", "stage_report", "stage_totals",
+    "start_http_server", "write_textfile",
 ]

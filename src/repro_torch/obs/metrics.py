@@ -207,14 +207,99 @@ def observe(name: str, value: float, help: str = "", **labels) -> None:
 
 
 # ------------------------------------------------- degradation-ladder metrics
+#: the robustness layer's metric families (name, kind, help) — preregistered
+#: zero-valued by :func:`init_degradation_metrics` so expositions always
+#: carry them even on fault-free runs. The JAX package's fifth family,
+#: ``repro_partition_retries_total``, counts its process pool's retries; the
+#: port runs in one process and never emits it.
+DEGRADATION_FAMILIES: tuple[tuple[str, str, str], ...] = (
+    ("repro_fallbacks_total", "counter",
+     "degradation-ladder transitions, labelled {from, to, reason}"),
+    ("repro_shards_quarantined_total", "counter",
+     "telemetry shards skipped or quarantined, by reason"),
+    ("repro_shards_repaired_total", "counter",
+     "telemetry shards repaired by the hygiene layer, by reason"),
+    ("repro_coverage_fraction", "gauge",
+     "rows analyzed / rows on disk for the last run, by stage"),
+)
+
+
 def fallback(frm: str, to: str, reason: str, amount: float = 1.0) -> None:
     """Record one degradation-ladder transition (``repro_fallbacks_total``):
-    compact -> row, sidecar -> rebuild, manifest -> rescan. ``from`` is a
-    Python keyword, hence the dict unpacking. Gated like every module
-    helper — free when obs is off."""
+    compact -> row, sidecar -> rebuild, manifest -> rescan, and the live
+    tick ladder's rungs. ``from`` is a Python keyword, hence the dict
+    unpacking. Gated like every module helper — free when obs is off."""
     if not STATE.enabled:
         return
     REGISTRY.counter(
-        "repro_fallbacks_total",
-        "degradation-ladder transitions, labelled {from, to, reason}",
+        "repro_fallbacks_total", DEGRADATION_FAMILIES[0][2],
         **{"from": frm, "to": to, "reason": reason}).inc(amount)
+
+
+def init_degradation_metrics() -> None:
+    """Pre-register the robustness families (zero-valued, unlabelled) so a
+    fault-free exposition still exposes them — dashboards and linters can
+    then assert on presence instead of guessing whether a zero means 'no
+    faults' or 'not instrumented'."""
+    _init_families(DEGRADATION_FAMILIES)
+
+
+# ------------------------------------------------- incremental-IR metrics
+#: the incremental IR-append families (name, kind, help) — emitted by
+#: :meth:`repro_torch.whatif.ir.IRBuilder.extend`, preregistered zero-valued
+#: by :func:`init_ir_append_metrics`.
+IR_APPEND_FAMILIES: tuple[tuple[str, str, str], ...] = (
+    ("repro_ir_appends_total", "counter",
+     "incremental IR extends (appends folded into an existing RunIR)"),
+    ("repro_ir_append_rows_total", "counter",
+     "telemetry rows folded into existing RunIRs by incremental extends"),
+    ("repro_ir_suffix_rebuild_fraction", "gauge",
+     "rows whose replay aggregates were re-derived / total rows, last extend"),
+)
+
+
+def init_ir_append_metrics() -> None:
+    """Pre-register the incremental-IR families (zero-valued) so an
+    exposition from a run that never appended still exposes them."""
+    _init_families(IR_APPEND_FAMILIES)
+
+
+# ------------------------------------------------- live-controller metrics
+#: the live fleet controller's families (name, kind, help) — emitted by
+#: :mod:`repro_torch.live`, preregistered zero-valued by
+#: :func:`init_live_metrics` (the histogram zero-registers too, exposing
+#: empty ``_bucket``/``_sum``/``_count`` samples).
+LIVE_FAMILIES: tuple[tuple[str, str, str], ...] = (
+    ("repro_live_ticks_total", "counter",
+     "live controller ticks, labelled {result} (refreshed/idle/stale)"),
+    ("repro_live_staleness_seconds", "histogram",
+     "seconds from shard landing to the refreshed knee being published"),
+    ("repro_live_checkpoint_writes_total", "counter",
+     "live controller checkpoints committed (atomic rename)"),
+    ("repro_live_checkpoint_restores_total", "counter",
+     "live controller restarts resumed from a valid checkpoint"),
+    ("repro_live_coalesced_shards_total", "counter",
+     "pending shards beyond the first folded into one extend (backpressure)"),
+    ("repro_live_tick_retries_total", "counter",
+     "tick attempts that failed and were retried on the same ladder rung"),
+    ("repro_live_deadline_misses_total", "counter",
+     "tick attempts abandoned at the per-tick deadline"),
+)
+
+
+def init_live_metrics() -> None:
+    """Pre-register the live-controller families (zero-valued) so an
+    exposition from a run that never ticked still exposes them."""
+    _init_families(LIVE_FAMILIES)
+
+
+def _init_families(families: tuple[tuple[str, str, str], ...]) -> None:
+    if not STATE.enabled:
+        return
+    for name, kind, help_text in families:
+        if kind == "counter":
+            REGISTRY.counter(name, help_text)
+        elif kind == "histogram":
+            REGISTRY.histogram(name, help_text)
+        else:
+            REGISTRY.gauge(name, help_text)

@@ -444,6 +444,27 @@ def analyze_store(
     return result
 
 
+@dataclasses.dataclass(frozen=True)
+class FaultTolerance:
+    """Fault-supervisor policy: how often a failed attempt is retried,
+    the backoff between tries, and the wall-clock budget.
+
+    The JAX package's process-pool stages use it per partition; the port
+    runs in one process and uses it one level up, for the live controller's
+    tick (:class:`repro_torch.live.supervisor.TickSupervisor`):
+    ``max_retries`` bounds the same-rung retries of a failed tick attempt
+    (exponential backoff from ``backoff_s``), ``timeout_s`` is the budget of
+    the whole ladder walk (``None`` = never time out).
+    """
+
+    max_retries: int = 2
+    timeout_s: float | None = None
+    backoff_s: float = 0.05
+
+
+DEFAULT_FAULT_TOLERANCE = FaultTolerance()
+
+
 def per_job_fraction_cdf(jobs: Iterable[JobAnalysis]) -> dict[str, np.ndarray]:
     """Per-job execution-idle time/energy fractions (Fig 7)."""
     t = np.array([j.exec_idle_time_fraction for j in jobs])

@@ -35,15 +35,18 @@ data — deleting the files and the manifest key is always safe.
 
 Robustness
 ----------
-Every write that could tear (manifest, ``npz`` shard, sidecar) goes through
-temp-file + :func:`atomic_replace`; every read raises a single typed
+Real telemetry shards get truncated, bit-flipped and orphaned. Every write
+that could tear (manifest, ``npz`` shard, sidecar) goes through temp-file +
+:func:`atomic_replace`; every read raises a single typed
 :class:`ShardReadError` carrying a machine-readable ``reason``
-(``missing_file`` / ``corrupt``) instead of leaking ``FileNotFoundError`` /
-``zipfile.BadZipFile``. ``write_shard`` records a sha256 per shard (the
-manifest format of the JAX package's store), ``iter_shards`` /
+(``missing_file`` / ``corrupt`` / ``checksum_mismatch``) instead of leaking
+``FileNotFoundError`` / ``zipfile.BadZipFile``. ``write_shard`` records a
+sha256 per shard (``verify=True`` reads recompute it), ``iter_shards`` /
 ``read_shard_or_skip`` take ``strict=False`` to skip bad shards with
-coverage accounting, and a corrupt manifest JSON is recovered by rescanning
-the shard files on disk (unreadable shards move into ``quarantine/``).
+coverage accounting, :meth:`TelemetryStore.quarantine_shard` moves a bad
+shard into ``quarantine/`` with a manifest record, and a corrupt manifest
+JSON is recovered by rescanning the shard files on disk. The repair /
+quarantine *policies* live in :mod:`repro_torch.telemetry.hygiene`.
 """
 from __future__ import annotations
 
@@ -70,8 +73,9 @@ _SHARD_STEM_RE = re.compile(r"^telemetry_(?P<host>.+)_d(?P<day>\d{3})_\d{5}$")
 
 class ShardReadError(RuntimeError):
     """One shard could not be read. ``reason`` is machine-readable —
-    ``missing_file`` (manifest/disk drift) or ``corrupt`` (truncated or
-    bit-flipped archive, ragged columns)."""
+    ``missing_file`` (manifest/disk drift), ``corrupt`` (truncated or
+    bit-flipped archive, ragged columns), ``checksum_mismatch`` (recorded
+    sha256 disagrees with the bytes on disk)."""
 
     def __init__(self, shard: str, reason: str, detail: str = ""):
         self.shard = shard
@@ -83,7 +87,10 @@ class ShardReadError(RuntimeError):
 def atomic_replace(tmp: pathlib.Path, dst: pathlib.Path) -> None:
     """The single commit point of every storage write (manifest, ``npz``
     shard, run-IR sidecar): rename a fully-written temp file over the
-    destination."""
+    destination. Kept module-level — and always called as
+    ``storage.atomic_replace`` / a module global, never ``from``-imported —
+    so the fault-injection harness can simulate a kill at the rename
+    boundary by patching one name (:func:`repro_torch.testing.faults.dying_renames`)."""
     os.replace(str(tmp), str(dst))
 
 
@@ -227,11 +234,48 @@ class TelemetryStore:
     def generation(self) -> int:
         """Monotonic shard-list mutation counter, persisted in the
         manifest: bumped on every append/rewrite/quarantine, *not* on
-        derived-data merges (:meth:`merge_manifest_key`)."""
+        derived-data merges (:meth:`merge_manifest_key`). Pollers (the live
+        controller) compare generations instead of diffing shard lists —
+        paired with :meth:`refresh`, new-shard detection is one ``stat``
+        per tick on an unchanged store."""
         return int(self.manifest.get("generation", 0))
 
     def _bump_generation(self) -> None:
         self.manifest["generation"] = self.generation + 1
+
+    def refresh(self) -> bool:
+        """Cheap cross-process poll: re-read the manifest only when its
+        file stat changed since this handle last loaded or saved it —
+        O(1) (one ``stat``) on the no-change path. Returns True when the
+        shard set actually changed (generation or shard count moved). A
+        torn or unparsable on-disk manifest keeps the current snapshot and
+        reports no change — the writer commits through
+        :func:`atomic_replace`, so the next poll sees a whole file."""
+        stat_now = self._stat_manifest()
+        if stat_now is None or stat_now == self._manifest_stat:
+            return False
+        try:
+            manifest = json.loads(self._manifest_path.read_text())
+        except (OSError, ValueError):
+            return False
+        if not isinstance(manifest, dict) \
+                or not isinstance(manifest.get("shards"), list):
+            return False
+        changed = (int(manifest.get("generation", 0)) != self.generation
+                   or len(manifest["shards"]) != len(self.manifest["shards"]))
+        self.manifest = manifest
+        self.manifest.setdefault("shard_format", self.shard_format)
+        self._manifest_stat = stat_now
+        return changed
+
+    def shards_since(self, watermark: int) -> list[dict]:
+        """Manifest entries past a covered prefix of ``watermark`` shards —
+        the live controller's pending set. ``manifest["shards"]`` is
+        append-only (quarantine removes, but that breaks watermarks by
+        design), so this is a slice, not a diff."""
+        if watermark < 0:
+            raise ValueError(f"watermark must be >= 0, got {watermark}")
+        return self.manifest["shards"][watermark:]
 
     def save_manifest(self) -> None:
         """Persist the manifest atomically (temp file + rename): a process
@@ -288,7 +332,8 @@ class TelemetryStore:
             # dir (e.g. from a crashed bulk write that never flushed its
             # manifest) is replaced, stale columns included. Directory
             # shards cannot be renamed into place atomically; a crash here
-            # leaves a dir the manifest never references.
+            # leaves a dir the manifest never references, which the orphan
+            # scan (verify_manifest) surfaces.
             path.mkdir(exist_ok=True)
             for stale in path.glob("*.npy"):
                 stale.unlink()
@@ -297,6 +342,20 @@ class TelemetryStore:
             return path
         path = self.root / f"{stem}.npz"
         _write_atomic_npz(path, frame.columns)
+        return path
+
+    def rewrite_shard(self, name: str, frame: TelemetryFrame) -> pathlib.Path:
+        """Replace an existing shard's contents in place (the hygiene
+        layer's repair writer): same file name, manifest entry updated with
+        the new row count and checksum."""
+        entry = self._shard_entry(name)
+        if entry is None:
+            raise KeyError(f"shard {name!r} is not in the manifest")
+        stem = name[:-4] if name.endswith(".npz") else name
+        path = self._write_shard_file(stem, frame)
+        entry["rows"] = len(frame)
+        entry["sha256"] = checksum_shard(path)
+        self._bump_generation()
         return path
 
     def _shard_entry(self, name: str) -> dict | None:
@@ -319,22 +378,30 @@ class TelemetryStore:
         return self.write_shard(frame, host=host, day=day,
                                 flush_manifest=flush_manifest)
 
-    def read_shard(self, name: str) -> TelemetryFrame:
+    def read_shard(self, name: str, verify: bool = False) -> TelemetryFrame:
         """Read one shard by manifest name.
 
         A missing or unreadable shard raises :class:`ShardReadError` with a
         machine-readable ``reason`` (never a raw ``FileNotFoundError`` /
-        ``BadZipFile``).
+        ``BadZipFile``). ``verify=True`` additionally recomputes the shard's
+        sha256 against the one recorded at write time (shards written before
+        checksums existed just skip the check) — the only way a bit-flip in
+        an *uncompressed* ``npy_dir`` column is detectable, since raw
+        ``np.load`` has no payload CRC.
         """
         path = self.root / name
         try:
             if path.is_dir():
+                if verify:
+                    self._verify_checksum(name, path)
                 return TelemetryFrame({
                     f: np.load(path / f"{f}.npy")
                     for f in FIELDS if (path / f"{f}.npy").exists()})
             if not path.exists():
                 raise ShardReadError(name, "missing_file",
                                      "manifest entry with no file on disk")
+            if verify:
+                self._verify_checksum(name, path)
             with np.load(path) as z:
                 return TelemetryFrame({f: z[f] for f in FIELDS if f in z})
         except ShardReadError:
@@ -343,14 +410,22 @@ class TelemetryStore:
             raise ShardReadError(
                 name, "corrupt", f"{type(e).__name__}: {e}") from e
 
+    def _verify_checksum(self, name: str, path: pathlib.Path) -> None:
+        entry = self._shard_entry(name)
+        recorded = entry.get("sha256") if entry else None
+        if recorded and checksum_shard(path) != recorded:
+            raise ShardReadError(name, "checksum_mismatch",
+                                 "bytes on disk differ from write-time sha256")
+
     def read_shard_or_skip(self, name: str, skips: list,
-                           strict: bool = True) -> TelemetryFrame | None:
+                           strict: bool = True,
+                           verify: bool = False) -> TelemetryFrame | None:
         """:meth:`read_shard`, but with ``strict=False`` a bad shard returns
         ``None`` and appends a skip record ``{"file", "host", "rows",
         "reason"}`` to ``skips`` (rows from the manifest — the coverage
         denominator the pipelines account against)."""
         try:
-            return self.read_shard(name)
+            return self.read_shard(name, verify=verify)
         except ShardReadError as e:
             if strict:
                 raise
@@ -364,7 +439,7 @@ class TelemetryStore:
             return None
 
     def iter_shards(self, hosts: Iterable[str] | None = None,
-                    strict: bool = True,
+                    strict: bool = True, verify: bool = False,
                     skips: list | None = None) -> Iterator[TelemetryFrame]:
         """Yield shard frames one at a time, in manifest (append) order.
 
@@ -376,16 +451,57 @@ class TelemetryStore:
 
         ``strict=False`` skips missing/corrupt shards instead of raising,
         appending one record per skip to ``skips`` (when given) so callers
-        can account coverage.
+        can account coverage; ``verify=True`` checks recorded sha256s.
         """
         hosts = set(hosts) if hosts is not None else None
         sink = skips if skips is not None else []
         for s in self.manifest["shards"]:
             if hosts is None or s["host"] in hosts:
                 frame = self.read_shard_or_skip(
-                    s["file"], sink, strict=strict)
+                    s["file"], sink, strict=strict, verify=verify)
                 if frame is not None:
                     yield frame
+
+    def quarantine_shard(self, name: str, reason: str,
+                         flush_manifest: bool = True) -> None:
+        """Move a shard out of the readable set: file relocated to
+        ``quarantine/``, manifest entry moved from ``shards`` to the
+        ``quarantine`` list (with the reason), so analysis never sees it
+        again but a human can inspect or restore it."""
+        entry = self._shard_entry(name)
+        if entry is not None:
+            self.manifest["shards"].remove(entry)
+        record = dict(entry or {"file": name})
+        record["reason"] = reason
+        self.manifest.setdefault("quarantine", []).append(record)
+        self._bump_generation()
+        self._move_to_quarantine(self.root / name)
+        obs.counter("repro_shards_quarantined_total", reason=reason,
+                    help="telemetry shards skipped or quarantined, by reason")
+        if flush_manifest:
+            self.save_manifest()
+
+    def verify_manifest(self) -> list[dict]:
+        """Detect manifest<->disk drift without reading shard payloads:
+        returns one record per problem — ``{"file", "reason":
+        "missing_file"}`` for a manifest entry whose file vanished,
+        ``{"file", "reason": "orphan_file"}`` for a ``telemetry_*`` file
+        with no manifest entry (e.g. a crashed bulk write). Clean store ==
+        empty list."""
+        drift: list[dict] = []
+        known = {s["file"] for s in self.manifest["shards"]}
+        for s in self.manifest["shards"]:
+            path = self.root / s["file"]
+            if not (path.exists() or path.is_dir()):
+                drift.append({"file": s["file"], "host": s.get("host", ""),
+                              "rows": int(s.get("rows", 0)),
+                              "reason": "missing_file"})
+        for path in sorted(self.root.iterdir()):
+            stem = path.name[:-4] if path.name.endswith(".npz") else path.name
+            if (_SHARD_STEM_RE.match(stem) and not path.name.endswith(".tmp")
+                    and path.name not in known):
+                drift.append({"file": path.name, "reason": "orphan_file"})
+        return drift
 
     def _read_shard_file(self, path: pathlib.Path) -> TelemetryFrame:
         """Read a shard by path only (no manifest entry required) — the
@@ -405,3 +521,9 @@ class TelemetryStore:
         host_filter = set(hosts) if hosts is not None else None
         return sum(s["rows"] for s in self.manifest["shards"]
                    if host_filter is None or s["host"] in host_filter)
+
+    def shard_files(self, hosts: Iterable[str] | None = None) -> list[str]:
+        """Manifest-ordered shard file names, optionally host-filtered."""
+        host_filter = set(hosts) if hosts is not None else None
+        return [s["file"] for s in self.manifest["shards"]
+                if host_filter is None or s["host"] in host_filter]

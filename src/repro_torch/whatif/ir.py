@@ -779,14 +779,15 @@ def _extend_stream_memos(old: StreamIR, new: StreamIR) -> int:
 
 
 def build_ir(store: "TelemetryStore", config: IRConfig | None = None,
-             strict: bool = True) -> RunIR:
+             strict: bool = True, verify: bool = False) -> RunIR:
     """One O(rows) pass over the store: group, classify, low-flag, RLE.
 
     ``strict=False`` skips unreadable shards (recorded in
     :attr:`RunIR.skipped`) instead of raising — note a skipped mid-stream
     shard usually makes its streams irregular, so the build then raises
     :class:`IRUnsupportedError` and callers replay through the row path,
-    exactly as they would on the clean shard subset.
+    exactly as they would on the clean shard subset. ``verify=True``
+    checksums every shard read against the manifest.
     """
     config = config or IRConfig()
     t0 = time.perf_counter()
@@ -795,7 +796,7 @@ def build_ir(store: "TelemetryStore", config: IRConfig | None = None,
         skips: list[dict] = []
         for entry in store.manifest["shards"]:
             frame = store.read_shard_or_skip(entry["file"], skips,
-                                             strict=strict)
+                                             strict=strict, verify=verify)
             if frame is not None:
                 builder.update(frame, host_label=entry.get("host", ""))
         ir = builder.finalize(source_rows=store.total_rows,
@@ -1025,7 +1026,7 @@ def load_sidecar(store: "TelemetryStore", config: IRConfig,
 
 
 def _try_extend(store: "TelemetryStore", ir: RunIR,
-                strict: bool) -> RunIR | None:
+                strict: bool, verify: bool) -> RunIR | None:
     """Catch a stale IR up to the store by appending only the new shards.
 
     Valid only while the covered manifest prefix is untouched: the first
@@ -1045,16 +1046,18 @@ def _try_extend(store: "TelemetryStore", ir: RunIR,
         return None
     skips: list[dict] = []
     chunks = []
-    for s in shards[k:]:
-        frame = store.read_shard_or_skip(s["file"], skips, strict=strict)
-        if frame is not None:
-            chunks.append((frame, s.get("host", "")))
-    try:
-        out = IRBuilder(ir.config).extend(
-            ir, chunks, source_rows=store.total_rows,
-            source_shards=len(shards))
-    except IRUnsupportedError:
-        return None
+    with obs.span("ir.extend", shards=len(shards) - k):
+        for s in shards[k:]:
+            frame = store.read_shard_or_skip(s["file"], skips, strict=strict,
+                                             verify=verify)
+            if frame is not None:
+                chunks.append((frame, s.get("host", "")))
+        try:
+            out = IRBuilder(ir.config).extend(
+                ir, chunks, source_rows=store.total_rows,
+                source_shards=len(shards))
+        except IRUnsupportedError:
+            return None
     out.skipped = tuple(ir.skipped) + tuple(skips)
     return out
 
@@ -1071,7 +1074,8 @@ _IR_UNSUPPORTED: dict[tuple[str, str], tuple[int, str]] = {}
 
 
 def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
-           persist: bool = True, strict: bool = True) -> RunIR:
+           persist: bool = True, strict: bool = True,
+           verify: bool = False) -> RunIR:
     """The IR acquisition ladder: in-memory cache, then incremental
     *extension* of a stale cached IR (:func:`_try_extend`: only the
     appended shards are read, only the appended-to streams' tails rebuilt
@@ -1115,7 +1119,7 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
             obs.counter("repro_ir_cache_hits_total", level="memory",
                         help="IR acquisitions served from a cache level")
             return _finish(ir, save=False)
-        ext = _try_extend(store, ir, strict)
+        ext = _try_extend(store, ir, strict, verify)
         if ext is not None and not (ext.skipped and strict):
             obs.counter("repro_ir_cache_hits_total", level="memory_extend",
                         help="IR acquisitions served from a cache level")
@@ -1135,7 +1139,7 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
     stale = load_sidecar(store, config, allow_stale=True)
     if stale is not None and stale.source_rows != store.total_rows \
             and not (stale.skipped and strict):
-        ext = _try_extend(store, stale, strict)
+        ext = _try_extend(store, stale, strict, verify)
         if ext is not None and not (ext.skipped and strict):
             obs.counter("repro_ir_cache_hits_total", level="sidecar_extend",
                         help="IR acquisitions served from a cache level")
@@ -1143,7 +1147,7 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
     obs.counter("repro_ir_cache_misses_total",
                 help="IR acquisitions that required a fresh build")
     try:
-        ir = build_ir(store, config, strict=strict)
+        ir = build_ir(store, config, strict=strict, verify=verify)
     except IRUnsupportedError as e:
         _IR_UNSUPPORTED[cache_key] = (store.total_rows, str(e))
         raise

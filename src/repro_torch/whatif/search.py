@@ -492,6 +492,7 @@ def search_frontier(
     device: str = "cuda",
     init_frontier=None,
     strict: bool = True,
+    verify: bool = False,
     **replayer_kwargs,
 ) -> SearchResult:
     """Budgeted closed-loop knob search over a telemetry store.
@@ -533,11 +534,12 @@ def search_frontier(
     config with the Pareto subset flagged, ``best`` answers the operator's
     budget question directly.
 
+    ``verify=True`` checksums every shard read against the manifest.
     ``strict=False`` skips unreadable shards (the returned frontier's
     ``coverage`` reports the replayed fraction). The JAX package's
-    ``workers``, ``mmap``, ``batched``, ``compact``, ``dist``, ``verify``
-    and ``fault`` raise a ``TypeError`` naming them, and ``backend="jax"``
-    a ``ValueError``.
+    ``workers``, ``mmap``, ``batched``, ``compact``, ``dist`` and ``fault``
+    raise a ``TypeError`` naming them, and ``backend="jax"`` a
+    ``ValueError``.
     """
     if max_evals < 1:
         raise ValueError(f"max_evals must be >= 1, got {max_evals}")
@@ -552,7 +554,8 @@ def search_frontier(
         return _search_loop(
             store, budget, families, max_evals, max_rounds, knee_tol,
             knee_patience, anchors_per_family, include_noop, hosts, ir,
-            backend, device, init_frontier, replayer_kwargs, strict=strict)
+            backend, device, init_frontier, replayer_kwargs, strict=strict,
+            verify=verify)
 
 
 def _search_loop(
@@ -572,6 +575,7 @@ def _search_loop(
     init_frontier,
     replayer_kwargs: dict,
     strict: bool = True,
+    verify: bool = False,
 ) -> SearchResult:
     """The :func:`search_frontier` loop body (arguments already resolved).
 
@@ -609,7 +613,8 @@ def _search_loop(
         with obs.span("search.round", round=round_no, new=len(cands)):
             outs, rows, runs, skips = _evaluate_outcomes(
                 pols, store, hosts=hosts, replayer_kwargs=replayer_kwargs,
-                ir=ir, backend=backend, device=device, strict=strict)
+                ir=ir, backend=backend, device=device, strict=strict,
+                verify=verify)
         n_rows = rows
         n_runs = max(n_runs, runs)
         if skips:
@@ -679,7 +684,7 @@ def _search_loop(
             replayer_kwargs.get("dt_s", 1.0))
         if any(ir_mod.ir_supported(p, cfg) for p in pols0):
             try:
-                ir = ir_mod.get_ir(store, cfg, strict=strict)
+                ir = ir_mod.get_ir(store, cfg, strict=strict, verify=verify)
             except ir_mod.IRUnsupportedError as e:
                 if backend == "torch":
                     raise ir_mod.IRUnsupportedError(

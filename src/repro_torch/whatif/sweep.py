@@ -276,6 +276,7 @@ def _replay_rows(
     hosts: Iterable[str] | None,
     replayer_kwargs: dict,
     strict: bool,
+    verify: bool,
 ) -> tuple[list[ReplayResult], int, list[dict]]:
     """The NumPy row path: stream the store shard by shard through one
     config-axis :class:`BatchedPolicyReplayer`, one shard in memory."""
@@ -284,7 +285,8 @@ def _replay_rows(
     replayer = BatchedPolicyReplayer(configs, **replayer_kwargs)
     skips: list[dict] = []
     with obs.span("sweep.rows", configs=len(configs)):
-        for frame in store.iter_shards(hosts, strict=strict, skips=skips):
+        for frame in store.iter_shards(hosts, strict=strict, verify=verify,
+                                       skips=skips):
             replayer.update(frame)
     n_rows = replayer.n_rows              # finalize() resets the counter
     return replayer.finalize(), n_rows, skips
@@ -301,7 +303,7 @@ def _ir_config(configs: Sequence[Policy], replayer_kwargs: dict):
 
 
 def _acquire_ir(configs: Sequence[Policy], store: "TelemetryStore",
-                replayer_kwargs: dict, ir, strict: bool):
+                replayer_kwargs: dict, ir, strict: bool, verify: bool):
     """The run-level IR the configs replay against: ``ir`` when given,
     else :func:`repro_torch.whatif.ir.get_ir` under the IR config the
     configs imply. Raises :class:`~repro_torch.whatif.ir.IRUnsupportedError`
@@ -311,7 +313,7 @@ def _acquire_ir(configs: Sequence[Policy], store: "TelemetryStore",
     if ir is not None:
         return ir
     return ir_mod.get_ir(store, _ir_config(configs, replayer_kwargs),
-                         strict=strict)
+                         strict=strict, verify=verify)
 
 
 def _ir_kwargs(replayer_kwargs: dict) -> dict:
@@ -327,6 +329,7 @@ def _evaluate_numpy(
     replayer_kwargs: dict,
     ir,
     strict: bool,
+    verify: bool,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
     """The host oracle. Configs the IR supports replay against the run axis
     (:func:`repro_torch.whatif.replay.replay_ir`); the rest — custom
@@ -344,7 +347,8 @@ def _evaluate_numpy(
     cfg = ir.config if ir is not None else _ir_config(configs, replayer_kwargs)
     if ir is not None or any(ir_mod.ir_supported(p, cfg) for p in configs):
         try:
-            ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict)
+            ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict,
+                                 verify)
         except ir_mod.IRUnsupportedError:
             obs.fallback("compact", "row", "ir_unsupported")
     sup = ([i for i, p in enumerate(configs)
@@ -365,7 +369,8 @@ def _evaluate_numpy(
     rest = [i for i in range(len(configs)) if results[i] is None]
     if rest or not sup:
         rest_results, rest_rows, rest_skips = _replay_rows(
-            [configs[i] for i in rest], store, hosts, replayer_kwargs, strict)
+            [configs[i] for i in rest], store, hosts, replayer_kwargs, strict,
+            verify)
         for i, res in zip(rest, rest_results):
             results[i] = res
         skips = _merge_skips(skips, rest_skips)
@@ -381,6 +386,7 @@ def _evaluate_torch(
     replayer_kwargs: dict,
     ir,
     strict: bool,
+    verify: bool,
     device: str,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
     """The card: every config replays on the run-level IR through
@@ -406,7 +412,8 @@ def _evaluate_torch(
             f"({sorted(set(unsupported))}); the torch backend replays only "
             f"IR-capable configs, pass backend='numpy' for the row path")
     try:
-        ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict)
+        ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict,
+                             verify)
     except ir_mod.IRUnsupportedError as e:
         raise ir_mod.IRUnsupportedError(
             f"{e}; the torch backend replays only the run-level IR, pass "
@@ -421,10 +428,10 @@ def _evaluate_torch(
 
 #: arguments of the JAX package's ``evaluate``/``run_sweep``/``search_frontier``
 #: that the port does not take: it replays in one process (no ``workers``
-#: pool, no fault supervisor ``fault``, no config-axis mesh ``dist``), always
+#: pool, no pool supervisor ``fault``, no config-axis mesh ``dist``), always
 #: batched on the run-level IR (no ``batched``/``compact`` switch), and reads
-#: shards without ``mmap`` or checksum ``verify``
-DROPPED_ARGUMENTS = ("workers", "mmap", "batched", "compact", "dist", "verify", "fault")
+#: shards without ``mmap``
+DROPPED_ARGUMENTS = ("workers", "mmap", "batched", "compact", "dist", "fault")
 
 
 def reject_dropped(kwargs: dict, caller: str) -> None:
@@ -462,6 +469,7 @@ def _evaluate_outcomes(
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
+    verify: bool = False,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
     """Backend dispatch under a ``whatif.evaluate`` span, with per-family
     config counts and a throughput gauge recorded when :mod:`repro_torch.obs`
@@ -474,10 +482,10 @@ def _evaluate_outcomes(
     with obs.span("whatif.evaluate", configs=len(configs), backend=backend):
         if backend == "torch":
             out = _evaluate_torch(configs, store, hosts, replayer_kwargs, ir,
-                                  strict, device)
+                                  strict, verify, device)
         else:
             out = _evaluate_numpy(configs, store, hosts, replayer_kwargs, ir,
-                                  strict)
+                                  strict, verify)
     if obs.enabled():
         dt = max(time.perf_counter() - t0, 1e-12)
         obs.observe("repro_replay_seconds", dt,
@@ -499,6 +507,7 @@ def evaluate(
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
+    verify: bool = False,
     **replayer_kwargs,
 ) -> list[PolicyOutcome]:
     """Evaluate an arbitrary set of policy configs over a store.
@@ -529,12 +538,13 @@ def evaluate(
             versions). Ignored by the NumPy backend.
         strict: ``False`` skips unreadable shards instead of raising —
             results are bit-identical to replaying the clean shard subset.
+        verify: checksum every shard read against the manifest.
         **replayer_kwargs: forwarded to the replay
             (``min_job_duration_s``, ``platform_of``, ``classifier``, ...).
     """
     outcomes, _, _, _ = _evaluate_outcomes(
         configs, store, hosts=hosts, replayer_kwargs=replayer_kwargs, ir=ir,
-        backend=backend, device=device, strict=strict)
+        backend=backend, device=device, strict=strict, verify=verify)
     return outcomes
 
 
@@ -546,6 +556,7 @@ def run_sweep(
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
+    verify: bool = False,
     **replayer_kwargs,
 ) -> Frontier:
     """Replay a fixed policy grid over a store and report the trade-off
@@ -560,7 +571,7 @@ def run_sweep(
     policies = list(default_policy_grid() if policies is None else policies)
     outcomes, n_rows, n_runs, skips = _evaluate_outcomes(
         policies, store, hosts=hosts, replayer_kwargs=replayer_kwargs, ir=ir,
-        backend=backend, device=device, strict=strict)
+        backend=backend, device=device, strict=strict, verify=verify)
     coverage = _coverage_of(store, hosts, skips)
     obs.gauge("repro_coverage_fraction", coverage, stage="sweep",
               help="rows analyzed / rows on disk for the last run")

@@ -324,9 +324,10 @@ def test_custom_single_family_search(stores):
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("name", DROPPED_ARGUMENTS)
 def test_search_rejects_dropped_arguments(stores, name):
-    """The JAX package's process pool, mesh, mmap/verify reads, fault
+    """The JAX package's process pool, mesh, mmap reads, pool fault
     supervisor and compact switch are not ported: each raises, naming
-    itself, in the search and in the evaluate it calls; none is ignored."""
+    itself, in the search and in the evaluate it calls; none is ignored.
+    (``verify`` is taken: tests/test_torch_robustness.py.)"""
     _, store = stores
     with pytest.raises(TypeError, match=name):
         search_frontier(store, **{name: 1}, **TORCH)
