@@ -1,12 +1,12 @@
 """Model configuration dataclass: the fields of the JAX package's
-``ModelConfig`` that the ported families (dense, hybrid, rwkv) read. Other
-families' fields come with the slice that ports the family."""
+``ModelConfig`` that the ported families (dense, moe, hybrid, rwkv) read.
+Other families' fields come with the slice that ports the family."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "rwkv", "hybrid"]
+Family = Literal["dense", "moe", "rwkv", "hybrid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +30,14 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
 
+    # --- MoE ---------------------------------------------------------- #
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_expert: int = 0                    # per-expert FFN width
+    first_k_dense: int = 0               # deepseek: first k layers dense
+    router_aux_coef: float = 0.001
+
     # --- RWKV ----------------------------------------------------------- #
     rwkv_head_size: int = 64
     rwkv_decay_lora: int = 64
@@ -51,9 +59,15 @@ class ModelConfig:
         return self.n_heads // self.n_kv_heads
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def n_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_size
 
     def validate(self) -> None:
         if self.n_heads % max(self.n_kv_heads, 1):
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.is_moe and not (0 < self.top_k <= self.n_experts):
+            raise ValueError("bad top_k")

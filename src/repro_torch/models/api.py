@@ -1,7 +1,7 @@
 """Uniform LM interface, dispatching on ``cfg.family``.
 
-The dense, hybrid (hymba) and rwkv families are ported; any other family
-raises.
+The dense, moe (granite-moe), hybrid (hymba) and rwkv families are ported;
+any other family raises.
 """
 from __future__ import annotations
 
@@ -10,9 +10,10 @@ from types import ModuleType
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hymba, rwkv
+from repro_torch.models import dense, hymba, moe, rwkv
 
-_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "hybrid": hymba, "rwkv": rwkv}
+_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "moe": moe, "hybrid": hymba,
+                                          "rwkv": rwkv}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
@@ -49,7 +50,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
 
 def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
     """Grow a prefill-sized cache so ``decode_step`` has room for new tokens,
-    as the JAX package's ``api.pad_cache``: dense caches and hymba's
+    as the JAX package's ``api.pad_cache``: dense and moe caches and hymba's
     global-attention layers are zero-padded along the sequence axis to
     ``max_len`` (never cut); hymba's window layers are ring buffers and
     RWKV's state is O(1), so both stay as they are. Returns a new dict that
@@ -65,7 +66,7 @@ def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
         return out
 
     family_module(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return dict(cache, k=pad(cache["k"], 2), v=pad(cache["v"], 2))
     if cfg.family == "hybrid":
         layers = [dict(lc, k=pad(lc["k"], 1), v=pad(lc["v"], 1))

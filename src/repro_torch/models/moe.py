@@ -1,0 +1,208 @@
+"""Mixture-of-Experts FFN + the granite-moe architecture.
+
+The dense dispatch of the JAX package's ``moe.py``: every expert computed for
+every token, masked by the top-k gates. Exact; O(E) FLOPs, and at serving's
+few tokens a step it reads every expert's weights once a step, as a
+dispatch that gathers the routed experts' weights would for most of them.
+The expert-parallel dispatch (the reference's ``moe_ffn_ep``) is not ported:
+``moe_ffn`` raises if asked for it.
+
+Dtype flow, as ``moe_ffn_dense``: the router product is f32 on an f32
+router (TF32 left off: it would move near-ties between experts), the gate,
+up and down products run in the model dtype, the combine in f32, cast back.
+
+Experts are zero-padded to a multiple of the expert-parallel width
+(``padded_experts``); padded experts get ``-inf`` router logits.
+
+The load-balance auxiliary loss of the reference's ``router_topk`` is a
+training term; serving never reads it, so it is not computed here (the JAX
+package's compiled serve step drops it as dead code).
+
+The decode step is capturable into a CUDA graph: no host read of a device
+value and no shape that depends on the data (the combine weights are
+scattered into a fixed ``(B, S, E)`` tensor).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import common as cm
+from repro_torch.models import dense as _dense
+
+
+# --------------------------------------------------------------------------- #
+# parameters
+# --------------------------------------------------------------------------- #
+def padded_experts(cfg: ModelConfig, ep_size: int) -> int:
+    return int(math.ceil(cfg.n_experts / ep_size) * ep_size)
+
+
+def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1) -> dict:
+    """Stacked-over-layers MoE FFN params, drawn one layer at a time on
+    ``gen.device``; the router stays f32. d_expert is the per-expert width."""
+    dt = cm.param_dtype(cfg)
+    dev = gen.device
+    l, d, fe, e = cfg.n_layers, cfg.d_model, cfg.d_expert, padded_experts(cfg, ep_size)
+
+    def stack(*shape, fan_in: int, dtype: torch.dtype = dt) -> torch.Tensor:
+        out = torch.empty((l, *shape), dtype=dtype, device=dev)
+        for i in range(l):
+            w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+            out[i] = (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+        return out
+
+    params = {
+        "router": stack(d, e, fan_in=d, dtype=torch.float32),
+        "we_gate": stack(e, d, fe, fan_in=d),
+        "we_up": stack(e, d, fe, fan_in=d),
+        "we_down": stack(e, fe, d, fan_in=fe),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.d_expert * cfg.n_shared_experts
+        params["ws_gate"] = stack(d, fs, fan_in=d)
+        params["ws_up"] = stack(d, fs, fan_in=d)
+        params["ws_down"] = stack(fs, d, fan_in=fs)
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# routing and the dense dispatch
+# --------------------------------------------------------------------------- #
+def router_topk(x: torch.Tensor, w_router: torch.Tensor,
+                cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (gates (..., k) f32, ids (..., k) int64).
+
+    ``jax.lax.top_k`` puts the lower index first among equal logits;
+    ``torch.topk`` does not, so the top k are taken from a stable
+    descending sort, which keeps the reference's order on exact ties (the
+    ``-inf`` of padded experts among them)."""
+    logits = x.float() @ w_router.float()
+    e_pad = w_router.shape[-1]
+    if e_pad > cfg.n_experts:  # mask padded experts
+        pad_mask = torch.arange(e_pad, device=x.device) >= cfg.n_experts
+        logits = logits.masked_fill(pad_mask, float("-inf"))
+    top_logits, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_logits, ids = top_logits[..., :cfg.top_k], ids[..., :cfg.top_k]
+    return torch.softmax(top_logits, dim=-1), ids
+
+
+def moe_ffn_dense(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """All-experts compute, gate-masked. x: (B, S, D). Exact oracle.
+
+    The expert products are batched over experts, (E, B*S, D) @ (E, D, F),
+    so each expert's weights are read in place."""
+    b, s, d = x.shape
+    gates, ids = router_topk(x, p["router"], cfg)
+    e_pad = p["router"].shape[-1]
+    combine = torch.zeros((b, s, e_pad), dtype=torch.float32, device=x.device)
+    combine.scatter_(-1, ids, gates)                             # (B,S,E)
+    xe = x.reshape(1, b * s, d).expand(e_pad, b * s, d)
+    h = torch.bmm(xe, p["we_gate"])                              # (E,N,F)
+    u = torch.bmm(xe, p["we_up"])
+    y = torch.bmm(cm.act_fn(cfg.act)(h) * u, p["we_down"])       # (E,N,D)
+    out = torch.einsum("end,ne->nd", y.float(), combine.reshape(b * s, e_pad))
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, ep_size: int = 1) -> torch.Tensor:
+    """Routed experts + optional shared experts."""
+    if ep_size > 1:
+        raise NotImplementedError("the expert-parallel dispatch is not ported")
+    out = moe_ffn_dense(x, p, cfg)
+    if cfg.n_shared_experts:
+        out = out + cm.glu_mlp(x, p["ws_gate"], p["ws_up"], p["ws_down"], cfg.act)
+    return out
+
+
+def _moe_residual(x, lp, cfg: ModelConfig, plain: bool):
+    """x + MoE FFN of the RMS-normed x (the norm is K1)."""
+    h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
+    return x + moe_ffn(h, lp, cfg)
+
+
+# =========================================================================== #
+# granite-moe architecture: GQA attention blocks with MoE FFNs
+# =========================================================================== #
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    params = _dense.init_params(gen, cfg)
+    layers = params["layers"]
+    # replace the dense FFN with MoE FFN params
+    for name in ("w_gate", "w_up", "w_down"):
+        del layers[name]
+    layers.update(init_moe_ffn(gen, cfg))
+    return params
+
+
+init_cache = _dense.init_cache
+cache_rows = _dense.cache_rows
+
+
+def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
+    """One layer of the prefill: (x after the layer, its keys, its values)."""
+    b, s, _ = x.shape
+    h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
+    q, k, v = cm.qkv(h, lp, cfg)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
+    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    return _moe_residual(x, lp, cfg, plain), k, v
+
+
+def _decode_layer(x, lp, cfg: ModelConfig, positions, k_cache, v_cache, write_at,
+                  cache_len, plain: bool):
+    """One layer of the decode step: writes its key and value at ``write_at``
+    of ``k_cache``/``v_cache`` in place and returns x after the layer."""
+    b = x.shape[0]
+    h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
+    q, k, v = cm.qkv(h, lp, cfg)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    k_cache.index_copy_(1, write_at, k)
+    v_cache.index_copy_(1, write_at, v)
+    attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
+    x = x + attn.reshape(b, 1, -1) @ lp["wo"]
+    return _moe_residual(x, lp, cfg, plain)
+
+
+def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
+    """Full-sequence forward that also populates the KV cache, as
+    ``dense.prefill`` with the MoE FFN. Returns (cache, logits_last)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens]
+    positions = torch.arange(s, device=dev)
+    cache_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ks = torch.empty(cache_shape, dtype=x.dtype, device=dev)
+    vs = torch.empty(cache_shape, dtype=x.dtype, device=dev)
+    for i in range(cfg.n_layers):
+        x, ks[i], vs[i] = _prefill_layer(x, cm.layer(params["layers"], i), cfg,
+                                         positions, plain)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    logits = cm.lm_logits(x[:, -1:], params["embed"], params.get("out_head"))
+    cache = {"k": ks, "v": vs,
+             "len": torch.full((), s, dtype=torch.int32, device=dev)}
+    return cache, logits
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
+    """One decode step, as ``dense.decode_step`` with the MoE FFN: writes the
+    new keys and values into ``cache`` and advances its ``len``, all in
+    place; returns (cache, logits)."""
+    b = tokens.shape[0]
+    x = params["embed"][tokens]
+    pos = cache["len"]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    write_at = pos.clamp(max=cache["k"].shape[2] - 1).reshape(1).long()
+    cache_len = pos + 1
+    for i in range(cfg.n_layers):
+        x = _decode_layer(x, cm.layer(params["layers"], i), cfg, positions,
+                          cache["k"][i], cache["v"][i], write_at, cache_len, plain)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    logits = cm.lm_logits(x, params["embed"], params.get("out_head"))
+    pos.copy_(cache_len)                # last: every layer read the old position
+    return cache, logits

@@ -305,11 +305,21 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ #
     def run(self, requests: list[Request], prompts: dict[int, np.ndarray],
-            max_ticks: int = 10_000) -> LatencyStats:
-        """Replay: submit on arrival (engine time), decode until drained."""
+            max_ticks: int = 10_000, store=None, host: str = "host0",
+            drain_every_s: float = 60.0) -> LatencyStats:
+        """Replay: submit on arrival (engine time), decode until drained.
+
+        With ``store`` (a :class:`~repro_torch.telemetry.storage.TelemetryStore`)
+        the sampler drains its buffered 1 Hz rows into a shard every
+        ``drain_every_s`` of engine time (plus once at the end), so long
+        replays keep peak telemetry memory bounded by one drain window
+        instead of materializing the full run — read it back with the
+        streaming ``analyze_store`` / ``run_sweep`` paths.
+        """
         self.sampler.load_program()
         pending = sorted(requests, key=lambda r: r.arrival_s)
         idx = 0
+        next_drain = self.sampler.now + drain_every_s
         for _ in range(max_ticks):
             while idx < len(pending) and pending[idx].arrival_s <= self.sampler.now:
                 if self.submit(pending[idx], prompts[pending[idx].req_id]):
@@ -317,7 +327,13 @@ class ServingEngine:
                 else:
                     break
             n_active = self.decode_tick()
+            if store is not None and self.sampler.now >= next_drain:
+                self.sampler.drain_to(store, host=host, flush_manifest=False)
+                next_drain = self.sampler.now + drain_every_s
             if idx >= len(pending) and n_active == 0:
                 break
         self.sampler.unload_program()
+        if store is not None:
+            self.sampler.drain_to(store, host=host, flush_manifest=False)
+            store.save_manifest()
         return LatencyStats.of(self.completed)

@@ -42,3 +42,15 @@ class LatencyStats:
             p95_s=float(np.percentile(lat, 95)),
             p99_s=float(np.percentile(lat, 99)),
         )
+
+
+def inter_arrival_cdf(requests: list[Request]) -> np.ndarray:
+    """Sorted per-device inter-arrival gaps (Fig 6)."""
+    gaps: list[float] = []
+    by_device: dict[int, list[float]] = {}
+    for r in requests:
+        by_device.setdefault(r.device, []).append(r.arrival_s)
+    for arr in by_device.values():
+        arr.sort()
+        gaps.extend(np.diff(arr))
+    return np.sort(np.asarray(gaps))

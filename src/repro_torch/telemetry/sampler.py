@@ -166,9 +166,29 @@ class RuntimeSampler:
         """Most recent emitted Table-1 row, or None before the first flush.
 
         O(1) — controllers polling every tick must not rebuild the whole
-        frame just to read the newest sample.
+        frame just to read the newest sample. Survives :meth:`drain`, so a
+        periodically drained engine's controller keeps seeing its last
+        sample.
         """
         return dict(self._last) if self._last is not None else None
 
     def frame(self) -> TelemetryFrame:
         return TelemetryFrame.from_rows(self._rows)
+
+    def drain(self) -> TelemetryFrame:
+        frame = self.frame()
+        self._rows = []
+        return frame
+
+    def drain_to(self, store, host: str = "host0",
+                 flush_manifest: bool = True) -> int:
+        """Drain buffered rows into a :class:`TelemetryStore` shard.
+
+        Long replays call this periodically so telemetry goes straight to
+        storage shards (in time order, ready for the streaming analysis and
+        what-if paths) instead of accumulating the whole run in memory.
+        Returns the number of rows drained; an empty buffer appends nothing.
+        """
+        n = len(self._rows)
+        store.append(self.drain(), host=host, flush_manifest=flush_manifest)
+        return n

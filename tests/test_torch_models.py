@@ -1,4 +1,4 @@
-"""The port's models (dense, hymba, RWKV-6) against the JAX package's, on the
+"""The port's models (dense, granite-moe, hymba, RWKV-6) against the JAX package's, on the
 same weights.
 
 JAX initialises the parameters; ``repro_torch.convert.params_from_jax``
@@ -26,7 +26,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import api
 
-ARCHS = ["llama-13b", "qwen1.5-0.5b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"]
+ARCHS = ["llama-13b", "qwen1.5-0.5b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
+         "granite-moe-3b-a800m"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -1,0 +1,145 @@
+"""The port's MoE family (granite-moe's dense dispatch) and the two new dense
+configs against the JAX package's.
+
+* ``router_topk``: the same expert ids and gates as the reference (1e-5 in
+  f32), with padded experts masked, and the reference's order on exact
+  ties (``lax.top_k`` puts the lower index first);
+* ``moe_ffn_dense`` and ``moe_ffn`` with a shared expert within 1e-5 in
+  f32; ``moe_ffn`` refuses expert parallelism;
+* granite-3-8b and qwen1.5-4b: configs and smoke prefill/decode parity
+  (tests/test_torch_models.py's 1e-4);
+* ``launch.serve --arch granite-moe-3b-a800m --smoke --device cpu``.
+
+Granite-moe's prefill/decode parity, init shapes and engine tokens run in
+the parametrised cases of tests/test_torch_models.py and
+tests/test_torch_serving.py.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import api as japi
+from repro.models import moe as jmoe
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.launch import serve
+from repro_torch.models import moe
+import test_torch_models as tm
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+ARCH = "granite-moe-3b-a800m"
+
+
+def _moe_pair(seed=0, ep_size=1, shared=0):
+    """(jax cfg, port cfg, numpy FFN params of layer 0) in float32."""
+    jcfg = dataclasses.replace(jax_smoke_config(ARCH), dtype="float32",
+                               n_shared_experts=shared)
+    tcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32",
+                               n_shared_experts=shared)
+    p = jmoe.init_moe_ffn(jax.random.PRNGKey(seed), jcfg, ep_size)
+    return jcfg, tcfg, {k: np.array(v[0]) for k, v in p.items()}
+
+
+def _x(cfg, seed=1, shape=(3, 5)):
+    return np.random.default_rng(seed).standard_normal((*shape, cfg.d_model)).astype(np.float32)
+
+
+def test_moe_configs_match_jax():
+    for arch in (ARCH, "granite-3-8b", "qwen1.5-4b"):
+        tm._assert_same_config(jax_config(arch), get_config(arch))
+        tm._assert_same_config(jax_smoke_config(arch), get_smoke_config(arch))
+    cfg = get_smoke_config(ARCH)
+    assert (cfg.n_experts, cfg.top_k, cfg.d_expert, cfg.n_shared_experts) == (4, 2, 32, 0)
+    assert get_config(ARCH).is_moe and not get_config("granite-3-8b").is_moe
+    with pytest.raises(ValueError, match="bad top_k"):
+        dataclasses.replace(cfg, top_k=5).validate()
+
+
+@pytest.mark.parametrize("ep_size", [1, 3])
+def test_router_topk_matches_jax(ep_size):
+    """ids equal and gates within 1e-5; with ep_size 3 the 4 experts pad to
+    6 and the padded two are never picked."""
+    jcfg, tcfg, p = _moe_pair(ep_size=ep_size)
+    assert p["router"].shape[-1] == moe.padded_experts(tcfg, ep_size) == 4 + 2 * (ep_size > 1)
+    assert p["router"].dtype == np.float32
+    own = moe.init_moe_ffn(torch.Generator().manual_seed(0), tcfg, ep_size)
+    assert {k: (tuple(v.shape[1:]), v.dtype) for k, v in own.items()} == \
+        {k: (v.shape, torch.float32) for k, v in p.items()}
+    x = _x(tcfg)
+    jg, jids, _ = jmoe.router_topk(jnp.asarray(x), jnp.asarray(p["router"]), jcfg)
+    tg, tids = moe.router_topk(torch.from_numpy(x), torch.from_numpy(p["router"]), tcfg)
+    assert np.array_equal(tids.numpy(), np.asarray(jids))
+    assert tids.max() < tcfg.n_experts
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
+    assert tg.dtype == torch.float32
+
+
+@pytest.mark.parametrize("top_k", [2, 4])
+def test_router_topk_ties_keep_the_lower_index(top_k):
+    """Exact ties (every real expert's router column the same, beside two
+    padded experts) pick the lower index first, as lax.top_k does."""
+    jcfg = dataclasses.replace(jax_smoke_config(ARCH), dtype="float32", top_k=top_k)
+    tcfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32", top_k=top_k)
+    col = np.random.default_rng(2).standard_normal((tcfg.d_model, 1)).astype(np.float32)
+    router = np.repeat(col, 6, axis=1)                        # 4 real + 2 padded
+    x = _x(tcfg, seed=3)
+    jg, jids, _ = jmoe.router_topk(jnp.asarray(x), jnp.asarray(router), jcfg)
+    tg, tids = moe.router_topk(torch.from_numpy(x), torch.from_numpy(router), tcfg)
+    assert np.array_equal(np.asarray(jids), np.broadcast_to(np.arange(top_k), jids.shape))
+    assert np.array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+@pytest.mark.parametrize("ep_size", [1, 3])
+def test_moe_ffn_matches_jax(shared, ep_size):
+    jcfg, tcfg, p = _moe_pair(seed=4, ep_size=ep_size, shared=shared)
+    x = _x(tcfg, seed=5, shape=(2, 7))
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    jdense, _ = jmoe.moe_ffn_dense(jnp.asarray(x), jp, jcfg)
+    tdense = moe.moe_ffn_dense(torch.from_numpy(x), tp, tcfg)
+    np.testing.assert_allclose(tdense.numpy(), np.asarray(jdense), **TOL)
+    jout, _ = jmoe.moe_ffn(jnp.asarray(x), jp, jcfg)
+    tout = moe.moe_ffn(torch.from_numpy(x), tp, tcfg)
+    assert tout.shape == x.shape and tout.dtype == torch.float32
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    if shared:
+        assert not np.allclose(tout.numpy(), tdense.numpy())
+    with pytest.raises(NotImplementedError, match="expert-parallel"):
+        moe.moe_ffn(torch.from_numpy(x), tp, tcfg, ep_size=2)
+
+
+def test_moe_ffn_keeps_the_reference_dtypes_in_bf16():
+    """Under a bf16 model the router stays f32 through params_from_jax, and
+    the FFN's output is in the model dtype."""
+    jcfg, tcfg = jax_smoke_config(ARCH), get_smoke_config(ARCH)
+    np_params = jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(0), jcfg))
+    params = params_from_jax(np_params, tcfg, "cpu")
+    layers = params["layers"]
+    assert layers["router"].dtype == torch.float32
+    assert layers["we_gate"].dtype == layers["wq"].dtype == torch.bfloat16
+    x = torch.randn((1, 3, tcfg.d_model), generator=torch.Generator().manual_seed(0))
+    out = moe.moe_ffn(x.bfloat16(), {k: v[0] for k, v in layers.items()}, tcfg)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen1.5-4b"])
+def test_new_dense_configs_match_jax(arch):
+    """The two new dense configs' smoke prefill and decode logits and caches
+    equal the JAX package's within 1e-4 in f32."""
+    tm.test_prefill_and_decode_match_jax(arch)
+
+
+def test_serve_launcher_runs_granite_moe_on_cpu():
+    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--duration", "30", "--max-seq", "32", "--controller"])
+    assert out["arch"] == ARCH + "-smoke"
+    assert out["completed"] >= 1
+    assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0

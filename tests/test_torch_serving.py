@@ -64,7 +64,8 @@ def _engines(arch):
     return jeng, teng
 
 
-@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
+                                  "granite-moe-3b-a800m"])
 def test_engine_tokens_match_jax_tick_by_tick(arch):
     jeng, teng = _engines(arch)
     rng = np.random.default_rng(0)

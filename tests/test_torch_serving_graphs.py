@@ -1,7 +1,7 @@
 """The serving engine's CUDA graphs on the card, at smoke size.
 
 On the card ``ServingEngine`` captures its decode step and its prefill into
-one CUDA graph each. Here each of the four served families' smoke configs
+one CUDA graph each. Here each of the five served models' smoke configs
 is held to the eager step functions bit for bit, over 8 decode steps that
 cross the shared length's clamp (and hymba's ring) and one prefill
 (``chip_smoke.lockstep``, which the chip smoke test runs at full width),
@@ -42,7 +42,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
+                                  "granite-moe-3b-a800m"])
 def test_replayed_steps_match_eager_on_card(cuda, arch, monkeypatch):
     monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
     cfg = get_smoke_config(arch)
