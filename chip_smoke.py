@@ -46,6 +46,20 @@ paths:
   as above, with the MoE FFNs' and the expert products' card time in the
   replayed decode step; granite-3-8b and qwen1.5-4b: the end-to-end bf16
   logit check only;
+* the last three families at full width (random weights from a seed,
+  bf16), each served as above: whisper-tiny (K2 over its 1,500 encoder
+  frames and across to them, K3 over the self and the cross caches; its
+  logit checks on random frames), llama-3.2-vision-90b cut to 8 whole
+  groups (40 layers; K1, K2 causal and across 1,601 vision tokens, K3; its
+  logit checks on cross gates redrawn from a seed and random vision, since
+  the reference's zero gates and the engine's zero vision keep the cross
+  path from the logits) and deepseek-v3-671b cut to its 3 dense and 2 MoE
+  layers (MLA's two attention forms plain PyTorch as in the reference, K1
+  for every norm; checked as granite-moe, with its routing); K2 and K3 also
+  held against their plain versions at the five new shapes (the encoder,
+  whisper's and the VLM's cross-attention, the two cross caches) and timed
+  there beside SDPA and their bounds; each model's f32 check is made
+  before its bf16 model, so the two never share the card;
 * every serve run spills its telemetry into a ``TelemetryStore`` every 30 s
   of engine time: at least 3 shards, one job at 1 s, ``analyze_store``
   against ``analyze_job`` on the concatenation, and the store priced by
@@ -106,6 +120,7 @@ last line. Exits 2 without a CUDA device or without the repository's
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -148,14 +163,30 @@ CROSS_CASES = ((65, 1500, 20, 20, 64, False, 0), (1500, 1500, 20, 20, 64, False,
                (65, 200, 8, 2, 128, True, 0), (65, 200, 8, 2, 128, True, 16),
                (65, 200, 8, 2, 128, False, 16), (130, 70, 8, 2, 64, True, 0),
                (130, 70, 8, 2, 64, False, 64), (130, 70, 8, 2, 64, True, 64),
-               (70, 130, 8, 1, 256, False, 0))
+               (70, 130, 8, 1, 256, False, 0),
+               # whisper-tiny's encoder and cross-attention, the VLM's
+               # cross-attention over 1,601 vision tokens (an odd length)
+               (1500, 1500, 6, 6, 64, False, 0), (32, 1500, 6, 6, 64, False, 0),
+               (32, 1601, 64, 8, 128, False, 0))
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan", "wkv6")
 #: per model: the serve run's cache length and the logit check's prompt
 #: (hymba: 2,048 tokens cross its 1,024-token window, a multiple of it)
 SERVE_MAX_SEQ = {"llama-13b": 256, "hymba-1.5b": 2048, "rwkv6-3b": 256,
-                 "granite-moe-3b-a800m": 256}
+                 "granite-moe-3b-a800m": 256, "whisper-tiny": 256,
+                 "llama-3.2-vision-90b": 256, "deepseek-v3-671b": 256}
 LOGITS_PROMPT = {"llama-13b": 32, "hymba-1.5b": 2048, "rwkv6-3b": 32,
-                 "granite-moe-3b-a800m": 32}
+                 "granite-moe-3b-a800m": 32, "whisper-tiny": 32,
+                 "llama-3.2-vision-90b": 32, "deepseek-v3-671b": 32}
+#: depth cuts of the served models that do not fit one 80-GB card (widths
+#: as published): the VLM to 8 whole groups of 4 self + 1 cross layers
+#: (72.6 GB of bf16), deepseek-v3 to its 3 dense layers and 2 MoE layers
+#: (52.8 GB, with the MTP module's parameters)
+SERVE_DEPTH = {"llama-3.2-vision-90b": dict(n_layers=40),
+               "deepseek-v3-671b": dict(n_layers=5)}
+#: the f32 check's depth: two layers, or whole groups and stacks
+F32_DEPTH = {"llama-3.2-vision-90b": dict(n_layers=5),
+             "deepseek-v3-671b": dict(n_layers=2, first_k_dense=1),
+             "whisper-tiny": dict(n_layers=2, n_enc_layers=2)}
 #: dense configs held kernel path against plain path at full width, not served
 DENSE_LOGIT_MODELS = ("granite-3-8b", "qwen1.5-4b")
 #: seconds of engine time between the serve run's telemetry spills
@@ -281,21 +312,26 @@ def check_kernels(dev) -> dict[str, float]:
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     errs = {}
-    # K1 RMSNorm: decode (4 slots) and prefill (32 tokens) rows at D = 5120
+    # K1 RMSNorm: decode (4 slots) and prefill (32 tokens) rows at D = 5120;
+    # granite-moe's and MLA's q_norm at 1536, the VLM's 8192, MLA's d_model
+    # 7168 and kv_norm 512
     for rows, d, main in ((4, 5120, True), (32, 5120, False), (37, 5120, False),
-                          (4, 1536, False), (32, 1536, False)):   # granite-moe
+                          *[(r, d, False) for d in (1536, 8192, 7168, 512) for r in (4, 32)]):
         x, w = rnd(rows, 1, d), rnd(d)
         e = check_close(f"rmsnorm rows={rows} d={d}", ops.rmsnorm(x, w, 1e-6),
                         ops.rmsnorm(x, w, 1e-6, plain=True), BF16_TOL)
         if main:
             errs["rmsnorm"] = e
-    xf, wf = rnd(5, 5120, dtype=torch.float32), rnd(5120, dtype=torch.float32)
-    check_close("rmsnorm f32", ops.rmsnorm(xf, wf), ops.rmsnorm(xf, wf, plain=True),
-                F32_TOL)
+    for d in (5120, 1536, 8192, 7168, 512):
+        xf, wf = rnd(5, d, dtype=torch.float32), rnd(d, dtype=torch.float32)
+        check_close(f"rmsnorm f32 d={d}", ops.rmsnorm(xf, wf),
+                    ops.rmsnorm(xf, wf, plain=True), F32_TOL)
     # K2 prefill attention, model layout (B, S, H, d); bf16 takes the
     # tensor-core kernel, f32 the CUDA-core one. Around the 64-row tiles
     # (63, 64, 65), hymba-1.5b's 2,048-token prefill with and without its
-    # 1,024-token window (GQA 25/5), every head dim, granite-moe (GQA 24/8).
+    # 1,024-token window (GQA 25/5), every head dim, granite-moe (GQA 24/8),
+    # the VLM's self layers (GQA 64/8, the kernel's limit of 8 q heads a kv
+    # head) and whisper-tiny's decoder.
     cases = [  # (b, s, h, kv, d, window, dtype, main)
         (1, 32, 40, 40, 128, 0, torch.bfloat16, True),     # llama-13b prefill bucket
         (1, 64, 8, 1, 256, 0, torch.bfloat16, False),      # MQA at d = 256 (gemma-2b)
@@ -308,6 +344,10 @@ def check_kernels(dev) -> dict[str, float]:
         (1, 2048, 25, 5, 64, 1024, torch.float32, False),
         (1, 32, 24, 8, 64, 0, torch.bfloat16, False),      # granite-moe prefill bucket
         (1, 32, 24, 8, 64, 0, torch.float32, False),
+        (1, 32, 64, 8, 128, 0, torch.bfloat16, False),     # VLM self layers (GQA 64/8)
+        (1, 32, 64, 8, 128, 0, torch.float32, False),
+        (1, 32, 6, 6, 64, 0, torch.bfloat16, False),       # whisper-tiny decoder
+        (1, 32, 6, 6, 64, 0, torch.float32, False),
     ]
     for b, s, h, kv, d, window, dtype, main in cases:
         q, k, v = rnd(b, s, h, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype), rnd(b, s, kv, d, dtype=dtype)
@@ -339,13 +379,23 @@ def check_kernels(dev) -> dict[str, float]:
     # K3 decode attention, read in place from an (L, B, S, KV, d) cache, at
     # cache lengths around the split plan's chunks: llama-13b, hymba-1.5b's
     # global cache, MQA at d = 256 with S not a multiple of the chunk,
-    # granite-moe (3 q heads a kv head)
+    # granite-moe (3 q heads a kv head), the self caches of the VLM (8 q
+    # heads a kv head) and whisper-tiny
     for b, s, h, kv, d, dtype in ((4, 256, 40, 40, 128, torch.bfloat16),
                                   (4, 2048, 25, 5, 64, torch.bfloat16),
                                   (2, 100, 8, 1, 256, torch.bfloat16),
                                   (4, 2048, 25, 5, 64, torch.float32),
                                   (4, 256, 24, 8, 64, torch.bfloat16),   # granite-moe
-                                  (4, 256, 24, 8, 64, torch.float32)):
+                                  (4, 256, 24, 8, 64, torch.float32),
+                                  (4, 256, 64, 8, 128, torch.bfloat16),  # the VLM
+                                  (4, 256, 64, 8, 128, torch.float32),
+                                  (4, 256, 6, 6, 64, torch.bfloat16),    # whisper-tiny
+                                  (4, 256, 6, 6, 64, torch.float32),
+                                  # the cross caches: whisper-tiny, the VLM
+                                  (4, 1500, 6, 6, 64, torch.bfloat16),
+                                  (4, 1500, 6, 6, 64, torch.float32),
+                                  (4, 1601, 64, 8, 128, torch.bfloat16),
+                                  (4, 1601, 64, 8, 128, torch.float32)):
         kc, vc = rnd(3, b, s, kv, d, dtype=dtype), rnd(3, b, s, kv, d, dtype=dtype)
         q = rnd(b, 1, h, d, dtype=dtype)
         c, _ = decode_attention.split_plan(b, kv, s, d, kc.element_size())
@@ -376,10 +426,13 @@ def time_kernels(dev) -> dict[str, dict]:
     shapes: the 2,048-token prefill (25 q / 5 kv heads of 64) global and in
     a 1,024-token window, and the decode step over a (4, 2048, 5, 64) cache
     rotated over 8 layers (84 MB), each with its bound and SDPA
-    (``enable_gqa=True``; a boolean mask for the window); and at
+    (``enable_gqa=True``; a boolean mask for the window); at
     granite-moe-3b-a800m's: K1 over its decode rows and prefill bucket at
     D = 1536, K2 over its 32-token bucket (24 q / 8 kv heads of 64), K3 over
-    a (4, 256, 8, 64) cache rotated over its 32 layers (64 MB)."""
+    a (4, 256, 8, 64) cache rotated over its 32 layers (64 MB); and at the
+    last three families': K2 over whisper-tiny's 1,500 encoder frames and
+    across to them from 32 tokens, and across the VLM's 1,601 vision tokens
+    (64 q / 8 kv heads of 128), none masked; K3 over both cross caches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -492,6 +545,37 @@ def time_kernels(dev) -> dict[str, dict]:
         library_ms=graph_ms(rotate(lambda i: F.scaled_dot_product_attention(
             *heads(q, kc[i], vc[i]), enable_gqa=True), layers)),
         bound=bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2, 4 * d * b * h * s))
+    del kc, vc
+    # the last three families: whisper-tiny's encoder over its 1,500 frames
+    # and its cross-attention from the 32-token bucket, the VLM's
+    # cross-attention over 1,601 vision tokens, none masked
+    for label, (sq, sk, h, kv, d) in (("whisper_encoder", (1500, 1500, 6, 6, 64)),
+                                      ("whisper_cross", (32, 1500, 6, 6, 64)),
+                                      ("vlm_cross", (32, 1601, 64, 8, 128))):
+        q, k, v = rnd(1, sq, h, d), rnd(1, sk, kv, d), rnd(1, sk, kv, d)
+        out["flash_attention"]["extra"][label] = dict(
+            shape=f"q (1, {sq}, {h}, {d}), k, v (1, {sk}, {kv}, {d}) bf16, no mask",
+            ms=graph_ms(lambda q=q, k=k, v=v: ops.flash_attention(q, k, v, causal=False)),
+            library_ms=graph_ms(lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                *heads(q, k, v), enable_gqa=True)),
+            bound=bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2, 4 * d * h * sq * sk))
+    # K3 over the two cross caches at their full length, rotated over 8
+    # copies (74 MB and 210 MB, past the L2)
+    layers, b = 8, 4
+    for label, (s, h, kv, d) in (("whisper_cross", (1500, 6, 6, 64)),
+                                 ("vlm_cross", (1601, 64, 8, 128))):
+        kc, vc = rnd(layers, b, s, kv, d), rnd(layers, b, s, kv, d)
+        q = rnd(b, 1, h, d)
+        n = torch.full((), s, dtype=torch.int32, device=dev)
+        out["decode_attention"]["extra"][label] = dict(
+            shape=f"q (4, 1, {h}, {d}), caches (4, {s}, {kv}, {d}) bf16, len {s}, "
+                  f"rotated over {layers} copies",
+            ms=graph_ms(rotate(lambda i, q=q, kc=kc, vc=vc, n=n: ops.decode_attention(
+                q, kc[i], vc[i], n), layers)),
+            library_ms=graph_ms(rotate(lambda i, q=q, kc=kc, vc=vc: F.scaled_dot_product_attention(
+                *heads(q, kc[i], vc[i]), enable_gqa=True), layers)),
+            bound=bound_ms(2 * q.numel() * 2 + 2 * b * s * kv * d * 2, 4 * d * b * h * s))
+        del kc, vc
     return out
 
 
@@ -849,10 +933,10 @@ def decode_step_times(engine, serve_ms: float) -> dict:
                          "card_idle_share_active": 1.0 - prof["card_active_ms_per_step"] / ms,
                          **prof}
     result["serve_run_mean_decode_ms"] = serve_ms
-    weight_bytes = count_bytes(engine.params)
+    weight_bytes = decode_weight_bytes(engine)
     result["weight_read_bound_ms"] = bound_ms(weight_bytes, 0)[0]
     name = engine.cfg.name
-    if engine.cfg.family == "moe":
+    if engine.cfg.family in ("moe", "mla_moe"):
         result["moe"] = moe_step_times(engine, result["replayed"]["step_ms"])
     log(f"profile {name} decode step " + json.dumps(result))
     rep, eag = result["replayed"], result["eager"]
@@ -867,8 +951,22 @@ def decode_step_times(engine, serve_ms: float) -> dict:
     return result
 
 
+def decode_weight_bytes(engine) -> int:
+    """Bytes of weights one decode step of the engine reads: each weight it
+    reads whole once (``api.decode_params``: no encoder, no cross key and
+    value projections, no MTP module), and the rows of the embedding it
+    gathers, one a slot, where the embedding is not among them."""
+    from repro_torch.models import api
+
+    read = api.decode_params(engine.params, engine.cfg)
+    embed = engine.params["embed"]
+    gathered = 0 if any(t is embed for t in read) else (
+        engine.ec.n_slots * embed.shape[1] * embed.element_size())
+    return count_bytes(read) + gathered
+
+
 def moe_step_times(engine, step_ms: float) -> dict:
-    """Card time per decode step of the MoE FFNs of every layer at the
+    """Card time per decode step of the MoE FFNs of every MoE layer at the
     decode step's (n_slots, 1) tokens, whole (``moe.moe_ffn``: router, the
     expert products, combine) and the expert products alone (each layer's
     three batched GEMMs over all experts and the activation), each in a CUDA
@@ -883,7 +981,8 @@ def moe_step_times(engine, step_ms: float) -> dict:
     g = torch.Generator(device=engine.torch_device).manual_seed(6)
     x = torch.randn((n, 1, cfg.d_model), generator=g,
                     device=engine.torch_device).to(cm.param_dtype(cfg))
-    layers = [cm.layer(params["layers"], i) for i in range(cfg.n_layers)]
+    stacks = params["layers"] if cfg.family == "moe" else params["moe_layers"]
+    layers = [cm.layer(stacks, i) for i in range(stacks["we_gate"].shape[0])]
     act = cm.act_fn(cfg.act)
     n_experts = layers[0]["we_gate"].shape[0]
 
@@ -897,7 +996,7 @@ def moe_step_times(engine, step_ms: float) -> dict:
             h = torch.bmm(xe, lp["we_gate"])
             torch.bmm(act(h) * torch.bmm(xe, lp["we_up"]), lp["we_down"])
 
-    expert_bytes = count_bytes([params["layers"][k] for k in ("we_gate", "we_up", "we_down")])
+    expert_bytes = count_bytes([stacks[k] for k in ("we_gate", "we_up", "we_down")])
     out = {"moe_ffn_ms": graph_ms(ffn, 5), "expert_products_ms": graph_ms(products, 5),
            "expert_bytes": expert_bytes,
            "expert_read_bound_ms": bound_ms(expert_bytes, 0)[0]}
@@ -974,16 +1073,45 @@ def lockstep(engine, start_len: int, steps: int = 8, seed: int = 5) -> dict:
     return result
 
 
+def stub_inputs(cfg, dev, seed: int = 7) -> dict:
+    """Seeded random ``frames=`` (whisper) or ``vision=`` (the VLM) for one
+    sequence, in the model's dtype; {} for the other families. Without them
+    the frames and the vision K/V are zeros, as in the engine's serve run."""
+    import torch
+    from repro_torch.models import common as cm
+
+    n = {"encdec": cfg.n_frames, "vlm": cfg.n_vision_tokens}.get(cfg.family)
+    if n is None:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, n, cfg.d_model), generator=g, device=dev).to(cm.param_dtype(cfg))
+    return {"frames" if cfg.family == "encdec" else "vision": x}
+
+
+def open_gates(cfg, params, dev, seed: int = 8) -> None:
+    """Redraw the VLM's cross-attention gates in place at 0.5 +- 0.1 from a
+    seed: at the reference's 0, tanh(0) = 0 and the cross blocks never reach
+    the logits. A no-op for the other families."""
+    import torch
+    if cfg.family != "vlm":
+        return
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name in ("gate_attn", "gate_mlp"):
+        gate = params["cross_layers"][name]
+        gate.copy_(0.5 + 0.1 * torch.randn(gate.shape, generator=g, device=dev))
+
+
 def logit_runs(cfg, params, dev, prompt: int, plain: bool) -> list:
     """Logits of one ``prompt``-token prefill and two decode steps on seeded
-    tokens (the same tokens for every call)."""
+    tokens (the same tokens for every call), whisper's on random frames and
+    the VLM's on random vision (:func:`stub_inputs`)."""
     import torch
     from repro_torch.models import api
 
     g = torch.Generator(device=dev).manual_seed(3)
     tokens = torch.randint(2, cfg.vocab_size, (1, prompt), generator=g, device=dev)
     steps = torch.randint(2, cfg.vocab_size, (2, 1, 1), generator=g, device=dev)
-    cache, logits = api.prefill(params, tokens, cfg, plain=plain)
+    cache, logits = api.prefill(params, tokens, cfg, plain=plain, **stub_inputs(cfg, dev))
     cache = api.pad_cache(cfg, cache, prompt + 8)
     seq = [logits.float()]
     for t in steps:
@@ -1057,19 +1185,33 @@ def decode_f64(q, k_cache, v_cache, cache_len):
     return torch.einsum("bhk,bhkd->bhd", torch.softmax(sc, -1), v).to(q.dtype)
 
 
+def mla_attention_f64(q, k, v):
+    """MLA's plain prefill attention in float64, cast to v's type."""
+    import torch
+    s = q.shape[1]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / q.shape[-1] ** 0.5
+    pos = torch.arange(s, device=q.device)
+    sc = torch.where(pos[None, :] <= pos[:, None], sc, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v.double()).to(v.dtype)
+
+
 def attention_f64_floor(cfg, params, dev, prompt: int, plain: list) -> float:
-    """The plain path's logits with both attention functions in float64,
-    against the plain path's (``plain``): how far two correct computations
-    of the model fall apart in bf16. A kernel-vs-plain error near it cannot
-    be told from rounding."""
+    """The plain path's logits with both attention functions in float64
+    (MLA's: its prefill attention), against the plain path's (``plain``):
+    how far two correct computations of the model fall apart in bf16. A
+    kernel-vs-plain error near it cannot be told from rounding."""
     from repro_torch.kernels import decode_attention, flash_attention
-    saved = flash_attention.flash_attention_plain, decode_attention.decode_attention_plain
+    from repro_torch.models import mla
+    saved = (flash_attention.flash_attention_plain, decode_attention.decode_attention_plain,
+             mla._causal_attention)
     flash_attention.flash_attention_plain = mha_f64
     decode_attention.decode_attention_plain = decode_f64
+    mla._causal_attention = mla_attention_f64
     try:
         f64 = logit_runs(cfg, params, dev, prompt, True)
     finally:
-        flash_attention.flash_attention_plain, decode_attention.decode_attention_plain = saved
+        (flash_attention.flash_attention_plain, decode_attention.decode_attention_plain,
+         mla._causal_attention) = saved
     return normwise_error(f64, plain, cfg, f"{cfg.name} f64 attention")
 
 
@@ -1191,7 +1333,8 @@ def route_agreement(a: list, b: list) -> tuple[int, int]:
 
 
 def moe_logits(cfg, params, dev, tol: float, prompt: int) -> dict:
-    """granite-moe's end-to-end bf16 logits, kernel path against plain path,
+    """An MoE model's (granite-moe's, deepseek-v3's) end-to-end bf16 logits,
+    kernel path against plain path,
     with how often the two paths route each token of each layer to the same
     experts, and the chaos floor (the plain path against itself with
     attention in float64) with its own routing agreement. A rounding-level
@@ -1220,22 +1363,23 @@ def moe_logits(cfg, params, dev, tol: float, prompt: int) -> dict:
 
 
 def moe_layers_check(cfg, params, dev, tol: float, prompt: int = 32) -> dict:
-    """Each granite-moe layer at full width, kernel path against plain path
-    on the same input and KV cache (the plain path's), over a
-    ``prompt``-token prefill and two decode steps in bf16: the worst
-    normwise relative error of the layer outputs, keys and values, and the
-    routing agreement of the same inputs. Unlike the end-to-end logits these
-    errors do not compound through the layers."""
+    """Each layer of an MoE model (granite-moe, deepseek-v3) at full width,
+    kernel path against plain path on the same input and cache (the plain
+    path's), over a ``prompt``-token prefill and two decode steps in bf16:
+    the worst normwise relative error of the layer outputs and of what they
+    write to the cache (keys and values, MLA's latents), and the routing
+    agreement of the same inputs. Unlike the end-to-end logits these errors
+    do not compound through the layers."""
     import torch
-    from repro_torch.models import common as cm
-    from repro_torch.models import moe
+    from repro_torch.models import api
 
     g = torch.Generator(device=dev).manual_seed(3)
     tokens = torch.randint(2, cfg.vocab_size, (1, prompt), generator=g, device=dev)
     steps = torch.randint(2, cfg.vocab_size, (2, 1, 1), generator=g, device=dev)
-    shape = (cfg.n_layers, 1, prompt + 8, cfg.n_kv_heads, cfg.resolved_head_dim)
-    ks = torch.zeros(shape, dtype=cm.param_dtype(cfg), device=dev)
-    vs = torch.zeros_like(ks)
+    family = api.family_module(cfg)
+    layers = family.layers(params, cfg)
+    # each layer's cache tensors (keys and values, MLA's latents), zero
+    caches = [t for t, _ in api.cache_rows(cfg, api.init_cache(cfg, 1, prompt + 8, dev))]
     worst, agree, total = 0.0, 0, 0
 
     def compare(i, outs, r):
@@ -1250,53 +1394,94 @@ def moe_layers_check(cfg, params, dev, tol: float, prompt: int = 32) -> dict:
     x = params["embed"][tokens]
     positions = torch.arange(prompt, device=dev)
     for i in range(cfg.n_layers):
-        lp = cm.layer(params["layers"], i)
-        outs, r = routed(lambda: {plain: moe._prefill_layer(x, lp, cfg, positions, plain)
-                                  for plain in (False, True)})
+        outs, r = routed(lambda: {
+            plain: family._prefill_layer(x, layers[i], cfg, positions, plain)
+            for plain in (False, True)})
         compare(i, outs, r)
-        x, ks[i, :, :prompt], vs[i, :, :prompt] = outs[True]
+        x, *parts = outs[True]
+        for c, part in zip(caches, parts):
+            c[i, :, :prompt] = part
     for step, toks in enumerate(steps):
-        pos = prompt + step
+        at = family.decode_at(torch.tensor(prompt + step, dtype=torch.int32, device=dev),
+                              prompt + 8)
         x = params["embed"][toks]
-        positions = torch.full((1, 1), pos, device=dev)
-        write_at = torch.tensor([pos], device=dev)
-        cache_len = torch.tensor(pos + 1, dtype=torch.int32, device=dev)
         for i in range(cfg.n_layers):
-            lp = cm.layer(params["layers"], i)
 
             def layer(plain):
-                kc, vc = ks[i].clone(), vs[i].clone()
-                out = moe._decode_layer(x, lp, cfg, positions, kc, vc, write_at,
-                                        cache_len, plain)
-                return out, kc, vc
+                cs = [c[i].clone() for c in caches]
+                return family._decode_layer(x, layers[i], cfg, cs, at, plain), *cs
 
             outs, r = routed(lambda: {plain: layer(plain) for plain in (False, True)})
             compare(i, outs, r)
-            x, kc, vc = outs[True]
-            ks[i].copy_(kc)
-            vs[i].copy_(vc)
+            x, *cs = outs[True]
+            for c, new in zip(caches, cs):
+                c[i].copy_(new)
     if worst > tol:
         raise AssertionError(f"{cfg.name} layer check: normwise error {worst} > {tol}")
     log(f"layers {cfg.name} bf16: each of {cfg.n_layers} layers, kernel vs plain on the "
-        f"plain path's input and KV cache over a {prompt}-token prefill + 2 decode steps, "
-        f"worst normwise rel err of outputs, keys and values {worst:.3e} (tol {tol}); "
+        f"plain path's input and cache over a {prompt}-token prefill + 2 decode steps, "
+        f"worst normwise rel err of outputs, "
+        f"{'keys and values' if cfg.family == 'moe' else 'latents'} {worst:.3e} (tol {tol}); "
         f"router top-{cfg.top_k} sets agree in {agree} of {total} token-layers")
     return {"worst": worst, "routes_agree": agree, "token_layers": total}
 
 
+def absorbed_vs_expanded(cfg, params, dev, tol: float, prompt: int) -> dict:
+    """MLA's two attention forms on the same weights: the absorbed decode
+    step of token ``prompt + 1`` after a ``prompt``-token prefill against
+    the last logits of the expanded prefill of all ``prompt + 1`` tokens,
+    equal in exact arithmetic. The normwise relative error is gated at
+    ``tol`` where both route the last token alike in every MoE layer (a
+    rounding-level change can flip a near-tie, as in :func:`moe_logits`)."""
+    import torch
+    from repro_torch.models import api
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(2, cfg.vocab_size, (1, prompt + 1), generator=g, device=dev)
+
+    def absorbed():
+        cache, _ = api.prefill(params, tokens[:, :-1], cfg)
+        cache = api.pad_cache(cfg, cache, prompt + 8)
+        return api.decode_step(params, cache, tokens[:, -1:], cfg)[1]
+
+    step, r_step = routed(absorbed)
+    whole, r_whole = routed(lambda: api.prefill(params, tokens, cfg)[1])
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    agree, total = route_agreement(r_step[-n_moe:], [r[:, -1:] for r in r_whole])
+    label = f"{cfg.name} {cfg.dtype} ({cfg.n_layers} layers) absorbed vs expanded"
+    err = normwise_error([step], [whole], cfg, label)
+    gated = agree == total
+    if gated and err > tol:
+        raise AssertionError(f"{label}: normwise logit error {err} > {tol}")
+    log(f"logits {label}: the decode step of token {prompt + 1} after a {prompt}-token "
+        f"prefill vs the last logits of a {prompt + 1}-token prefill, normwise rel err "
+        f"{err:.3e} ({'tol ' + str(tol) if gated else 'not gated'}); the last token "
+        f"routes alike in {agree} of {total} MoE layers")
+    return {"absorbed_vs_expanded": err, "gated": gated, "routes_agree": agree,
+            "moe_layers": total}
+
+
 def expected_launches(cfg, n_prefill: int, n_decode: int) -> dict[str, int]:
     """Each kernel's launches in a serve run of ``cfg``'s family: one RMSNorm
-    per norm of each forward (dense and moe 2 per layer + final, hymba 4 per
-    layer + final), attention per layer (K2 at a prefill, K3 at a decode step), K5
-    per hymba layer and K6 per RWKV layer of every forward; 0 elsewhere."""
+    per norm of each forward (dense, moe and vlm 2 per layer + final, hymba
+    and MLA 4 per layer + final, whisper none: its norms are LayerNorms),
+    attention per layer (K2 at a prefill, K3 at a decode step; whisper's
+    also per encoder layer at a prefill and twice per decoder layer, self
+    and cross; none for MLA, whose attention is plain), K5 per hymba layer
+    and K6 per RWKV layer of every forward; 0 elsewhere."""
     from repro_torch import kernels
     n_layers, fwd = cfg.n_layers, n_prefill + n_decode
     expect = dict.fromkeys(kernels.KERNEL_MODULES, 0)
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid", "vlm"):
         norms = 4 if cfg.family == "hybrid" else 2
         expect.update(rmsnorm=(norms * n_layers + 1) * fwd,
                       flash_attention=n_layers * n_prefill,
                       decode_attention=n_layers * n_decode)
+    if cfg.family == "encdec":
+        expect.update(flash_attention=(cfg.n_enc_layers + 2 * n_layers) * n_prefill,
+                      decode_attention=2 * n_layers * n_decode)
+    if cfg.family == "mla_moe":
+        expect["rmsnorm"] = (4 * n_layers + 1) * fwd
     if cfg.family == "hybrid":
         expect["ssm_scan"] = n_layers * fwd
     if cfg.family == "rwkv":
@@ -1472,44 +1657,66 @@ def count_bytes(tree) -> int:
 
 
 def serve_model(name: str, dev) -> dict:
-    """One model at full width: parameters made on the card from a seed, the
-    logit checks (full depth in bf16, two layers in f32), the serve run, the
-    replayed and eager decode steps timed and profiled, and the lockstep
-    check of the engine's graphs. Frees the model before it returns."""
+    """One model at full width (depth cut as :data:`SERVE_DEPTH` says):
+    first the f32 check (two layers, or :data:`F32_DEPTH`'s whole groups
+    and stacks), its parameters freed before the bf16 model is made; then
+    parameters made on the card from a seed, the bf16 logit checks at full
+    depth, the serve run, the replayed and eager decode steps timed and
+    profiled, and the lockstep check of the engine's graphs. MLA's f32
+    check also holds its absorbed decode to its expanded prefill
+    (:func:`absorbed_vs_expanded`). The VLM's
+    logit checks run on gates redrawn from a seed (:func:`open_gates`); its
+    serve run on the reference's zero gates. Frees the model before it
+    returns."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import api
 
-    cfg = get_config(name)
+    cfg = dataclasses.replace(get_config(name), **SERVE_DEPTH.get(name, {}))
+    prompt = LOGITS_PROMPT[name]
+    checks = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **F32_DEPTH.get(name, dict(n_layers=2)))
+    params32 = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg32)
+    open_gates(cfg32, params32, dev)
+    checks["logits_f32_2_layers"] = compare_logits(
+        cfg32, params32, dev, LOGITS_F32_TOL,
+        f"{name} widths f32 ({cfg32.n_layers} layers)", prompt)
+    if cfg.is_mla:
+        checks["absorbed_vs_expanded_f32"] = absorbed_vs_expanded(
+            cfg32, params32, dev, LOGITS_F32_TOL, prompt)
+    del params32
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     params = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    log(f"{name}: {count_params(params) / 1e9:.3f} B parameters in bf16, made on the "
-        f"card in {time.perf_counter() - t0:.1f} s")
-    prompt = LOGITS_PROMPT[name]
-    checks = {}
+    log(f"{name}: {count_params(params) / 1e9:.3f} B parameters in bf16 "
+        f"({count_bytes(params) / 1e9:.2f} GB), {cfg.n_layers} layers"
+        + (f" (cut from {get_config(name).n_layers})" if name in SERVE_DEPTH else "")
+        + f", made on the card in {time.perf_counter() - t0:.1f} s")
+    if cfg.family == "vlm":
+        closed = {k: params["cross_layers"][k].clone() for k in ("gate_attn", "gate_mlp")}
+        open_gates(cfg, params, dev)
     if cfg.family == "rwkv":
         checks["logits_bf16"] = rwkv_logits(cfg, params, dev, prompt)
         checks["layers_bf16"] = rwkv_layers_check(cfg, params, dev, LOGITS_BF16_TOL, prompt)
-    elif cfg.family == "moe":
+    elif cfg.is_moe:
         checks["logits_bf16"] = moe_logits(cfg, params, dev, LOGITS_BF16_TOL, prompt)
         checks["layers_bf16"] = moe_layers_check(cfg, params, dev, LOGITS_BF16_TOL, prompt)
     else:
         checks["logits_bf16"] = compare_logits(cfg, params, dev, LOGITS_BF16_TOL,
                                                f"{name} bf16 ({cfg.n_layers} layers)", prompt,
                                                floor=cfg.family == "hybrid")
-    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    params32 = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg32)
-    checks["logits_f32_2_layers"] = compare_logits(
-        cfg32, params32, dev, LOGITS_F32_TOL, f"{name} widths f32 (2 layers)", prompt)
-    del params32
-    torch.cuda.empty_cache()
+    if cfg.family == "vlm":
+        for k, gate in closed.items():
+            params["cross_layers"][k].copy_(gate)
 
     result, engine = serve(cfg, params, dev)
     result["decode_step"] = decode_step_times(engine, result["mean_decode_step_ms"])
     result["lockstep"] = lockstep(engine, SERVE_MAX_SEQ[name] - 4)
     result["checks"] = checks
     del params, engine
+    gc.collect()                        # the next model may need the whole card
     torch.cuda.empty_cache()
     return result
 

@@ -4,8 +4,10 @@ with execution-idle telemetry and the Algorithm-1 controller.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-13b \
         --trace azure_code --duration 60 --controller
 
-``--arch`` is llama-13b, hymba-1.5b, rwkv6-3b, granite-moe-3b-a800m or
-another ported architecture (``repro_torch.configs.ARCHS``).
+``--arch`` is llama-13b, hymba-1.5b, rwkv6-3b, granite-moe-3b-a800m,
+whisper-tiny, llama-3.2-vision-90b, deepseek-v3-671b or another ported
+architecture (``repro_torch.configs.ARCHS``). The whole model is made on the
+device: the last two do not fit one 80-GB card at full depth.
 
 Runs on the card by default; ``--device cpu --smoke`` runs a smoke-size model
 on the CPU. Weights are random, drawn on the device from ``--seed``.

@@ -1,19 +1,24 @@
-"""Uniform LM interface, dispatching on ``cfg.family``.
+"""Uniform LM interface, dispatching on ``cfg.family``: every family of the
+JAX package, dense, moe (granite-moe), mla_moe (deepseek-v3), rwkv, hybrid
+(hymba), encdec (whisper) and vlm (llama-3.2-vision).
 
-The dense, moe (granite-moe), hybrid (hymba) and rwkv families are ported;
-any other family raises.
+The multimodal stubs' inputs (``frames=`` for encdec, ``vision=`` for vlm)
+go only to the family that takes them, as the reference's ``api.prefill``
+passes them.
 """
 from __future__ import annotations
 
+import inspect
 from types import ModuleType
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hymba, moe, rwkv
+from repro_torch.models import dense, hymba, mla, moe, rwkv, vlm, whisper
 
-_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "moe": moe, "hybrid": hymba,
-                                          "rwkv": rwkv}
+_FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "moe": moe, "mla_moe": mla,
+                                          "rwkv": rwkv, "hybrid": hymba,
+                                          "encdec": whisper, "vlm": vlm}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
@@ -40,8 +45,18 @@ def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
     return family_module(cfg).cache_rows(cfg, cache)
 
 
-def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
-    return family_module(cfg).prefill(params, tokens, cfg, plain=plain)
+def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
+    """The weights one decode step reads whole, each once. An embedding not
+    among them is only gathered, a row a token."""
+    return family_module(cfg).decode_params(params, cfg)
+
+
+def prefill(params, tokens, cfg: ModelConfig, plain: bool = False, frames=None,
+            vision=None):
+    fn = family_module(cfg).prefill
+    stubs = {name: x for name, x in (("frames", frames), ("vision", vision))
+             if name in inspect.signature(fn).parameters}
+    return fn(params, tokens, cfg, plain=plain, **stubs)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
@@ -50,10 +65,12 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
 
 def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
     """Grow a prefill-sized cache so ``decode_step`` has room for new tokens,
-    as the JAX package's ``api.pad_cache``: dense and moe caches and hymba's
+    as the JAX package's ``api.pad_cache``: the dense, moe and encdec self
+    caches, the vlm self caches, the mla_moe latents and hymba's
     global-attention layers are zero-padded along the sequence axis to
-    ``max_len`` (never cut); hymba's window layers are ring buffers and
-    RWKV's state is O(1), so both stay as they are. Returns a new dict that
+    ``max_len`` (never cut); the cross caches of encdec and vlm are as long
+    as their encoder's output, hymba's window layers are ring buffers and
+    RWKV's state is O(1), so these stay as they are. Returns a new dict that
     shares every tensor it did not pad."""
     def pad(t: torch.Tensor, axis: int) -> torch.Tensor:
         cur = t.shape[axis]
@@ -66,8 +83,12 @@ def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:
         return out
 
     family_module(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "encdec"):
         return dict(cache, k=pad(cache["k"], 2), v=pad(cache["v"], 2))
+    if cfg.family == "vlm":
+        return dict(cache, k=pad(cache["k"], 3), v=pad(cache["v"], 3))
+    if cfg.family == "mla_moe":
+        return dict(cache, ckv=pad(cache["ckv"], 2), krope=pad(cache["krope"], 2))
     if cfg.family == "hybrid":
         layers = [dict(lc, k=pad(lc["k"], 1), v=pad(lc["v"], 1))
                   if i in cfg.global_layers else lc

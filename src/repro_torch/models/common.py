@@ -1,6 +1,6 @@
 """Building blocks of the model families: init helpers, LayerNorm and the
-per-head GroupNorm (RWKV), RoPE, the QKV projection, the GLU MLP block and
-the LM head.
+per-head GroupNorm (RWKV), RoPE, the QKV projection, the GLU MLP block,
+the plain two-layer MLP (whisper) and the LM head.
 
 Parameters are plain dicts of tensors. RMSNorm, attention and decode
 attention are the Hopper kernels, called from ``repro_torch.kernels.ops``;
@@ -30,22 +30,57 @@ def param_dtype(cfg) -> torch.dtype:
 # --------------------------------------------------------------------------- #
 # init helpers (same scales as the JAX package; torch draws other numbers)
 # --------------------------------------------------------------------------- #
+#: the most elements :func:`fill_normal_` draws in f32 at once
+DRAW_CHUNK = 1 << 28
+
+
+def fill_normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
+    """Fill ``out`` in place with normal draws from ``gen`` times ``scale``,
+    cast to its dtype. The draws are made in f32 over slices of whole rows
+    of axis 0, each at most :data:`DRAW_CHUNK` elements, so a tensor of any
+    size is made with f32 temporaries of at most 1 GiB; a tensor of at most
+    that many elements is one draw of its whole shape."""
+    step = max(1, DRAW_CHUNK // max(1, math.prod(out.shape[1:])))
+    for r in range(0, out.shape[0], step):
+        part = out[r:r + step]
+        w = torch.randn(part.shape, generator=gen, device=gen.device, dtype=torch.float32)
+        part.copy_((w * scale).to(out.dtype))
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+    return fill_normal_(torch.empty((d_in, d_out), dtype=dtype, device=gen.device), gen,
+                        1.0 / math.sqrt(d_in))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return fill_normal_(torch.empty((vocab, d), dtype=dtype, device=gen.device), gen, 0.02)
+
+
+def normal_stack(gen: torch.Generator, shape: tuple[int, ...], scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """A new ``(*lead, d_in, d_out)`` tensor on ``gen.device`` whose every
+    matrix is filled by :func:`fill_normal_` in turn."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for mat in out.reshape(-1, *shape[-2:]):
+        fill_normal_(mat, gen, scale)
+    return out
 
 
 def layer(layers: dict, i: int) -> dict:
     """Layer ``i`` of weights stacked on axis 0."""
     return {name: w[i] for name, w in layers.items()}
+
+
+def leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a parameter tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for node in tree for t in leaves(node)]
+    return [tree]
 
 
 # --------------------------------------------------------------------------- #
@@ -132,6 +167,11 @@ def glu_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
     """SwiGLU / GeGLU: down(act(gate(x)) * up(x))."""
     g = act_fn(act)(x @ w_gate)
     return (g * (x @ w_up)) @ w_down
+
+
+def dense_mlp(x, w_up, b_up, w_down, b_down, act: str = "gelu"):
+    """Plain 2-layer MLP with biases (whisper)."""
+    return act_fn(act)(x @ w_up + b_up) @ w_down + b_down
 
 
 def lm_logits(x, embed, out_head=None):

@@ -86,6 +86,13 @@ def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
     return [(cache["k"], 1), (cache["v"], 1)]
 
 
+def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
+    """The weights a decode step reads whole: all of them but an embedding
+    that an untied head replaces (the step gathers only its rows)."""
+    return cm.leaves({k: w for k, w in params.items()
+                      if k != "embed" or "out_head" not in params})
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward that also populates the KV cache.
 

@@ -186,6 +186,12 @@ def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
     return [(lc[name], 0) for lc in cache["layers"] for name in ("k", "v", "conv", "ssm")]
 
 
+def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
+    """The weights a decode step reads whole: all of them (the embedding is
+    also the head)."""
+    return cm.leaves(params)
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward that also builds the cache. tokens: (B, S) int64.
     Returns (cache, logits_last) — logits for the final position, (B, 1, V)."""

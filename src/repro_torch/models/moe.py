@@ -41,18 +41,24 @@ def padded_experts(cfg: ModelConfig, ep_size: int) -> int:
     return int(math.ceil(cfg.n_experts / ep_size) * ep_size)
 
 
-def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1) -> dict:
-    """Stacked-over-layers MoE FFN params, drawn one layer at a time on
-    ``gen.device``; the router stays f32. d_expert is the per-expert width."""
+def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1,
+                 n_layers: int | None = None) -> dict:
+    """Stacked-over-layers MoE FFN params for ``n_layers`` layers (default
+    ``cfg.n_layers``), drawn one layer at a time on ``gen.device``; the
+    router stays f32. d_expert is the per-expert width. Each layer's stack
+    is drawn in chunks of whole experts of at most ``common.DRAW_CHUNK``
+    elements (:func:`common.fill_normal_`), so deepseek-v3's (256, 7168,
+    2048) stacks need 1-GiB f32 temporaries, not 15-GB ones; a stack of at
+    most that many elements a layer (granite-moe's) is one draw."""
     dt = cm.param_dtype(cfg)
     dev = gen.device
-    l, d, fe, e = cfg.n_layers, cfg.d_model, cfg.d_expert, padded_experts(cfg, ep_size)
+    l = cfg.n_layers if n_layers is None else n_layers
+    d, fe, e = cfg.d_model, cfg.d_expert, padded_experts(cfg, ep_size)
 
     def stack(*shape, fan_in: int, dtype: torch.dtype = dt) -> torch.Tensor:
         out = torch.empty((l, *shape), dtype=dtype, device=dev)
         for i in range(l):
-            w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-            out[i] = (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+            cm.fill_normal_(out[i], gen, 1.0 / math.sqrt(fan_in))
         return out
 
     params = {
@@ -139,6 +145,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 init_cache = _dense.init_cache
 cache_rows = _dense.cache_rows
+decode_params = _dense.decode_params
 
 
 def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
@@ -153,11 +160,14 @@ def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
     return _moe_residual(x, lp, cfg, plain), k, v
 
 
-def _decode_layer(x, lp, cfg: ModelConfig, positions, k_cache, v_cache, write_at,
-                  cache_len, plain: bool):
-    """One layer of the decode step: writes its key and value at ``write_at``
-    of ``k_cache``/``v_cache`` in place and returns x after the layer."""
+def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
+    """One layer of the decode step. ``caches``: the layer's (keys, values),
+    written at ``write_at`` in place; ``at``: (pos, write_at, cache_len) of
+    the step (:func:`decode_at`). Returns x after the layer."""
     b = x.shape[0]
+    k_cache, v_cache = caches
+    pos, write_at, cache_len = at
+    positions = pos.reshape(1, 1).expand(b, 1)
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     q, k, v = cm.qkv(h, lp, cfg)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
@@ -167,6 +177,19 @@ def _decode_layer(x, lp, cfg: ModelConfig, positions, k_cache, v_cache, write_at
     attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
     x = x + attn.reshape(b, 1, -1) @ lp["wo"]
     return _moe_residual(x, lp, cfg, plain)
+
+
+def decode_at(pos: torch.Tensor, cache_size: int) -> tuple:
+    """(pos, write_at, cache_len) of a decode step at position ``pos`` (a
+    0-d int32 tensor) over a cache of ``cache_size`` slots: the new entry
+    goes to ``pos`` clamped to the last slot (the reference's
+    ``dynamic_update_slice``), and the slots before ``pos + 1`` are valid."""
+    return pos, pos.clamp(max=cache_size - 1).reshape(1).long(), pos + 1
+
+
+def layers(params, cfg: ModelConfig) -> list[dict]:
+    """Every layer's parameters, in order."""
+    return [cm.layer(params["layers"], i) for i in range(cfg.n_layers)]
 
 
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
@@ -179,9 +202,8 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     cache_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
     ks = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     vs = torch.empty(cache_shape, dtype=x.dtype, device=dev)
-    for i in range(cfg.n_layers):
-        x, ks[i], vs[i] = _prefill_layer(x, cm.layer(params["layers"], i), cfg,
-                                         positions, plain)
+    for i, lp in enumerate(layers(params, cfg)):
+        x, ks[i], vs[i] = _prefill_layer(x, lp, cfg, positions, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x[:, -1:], params["embed"], params.get("out_head"))
     cache = {"k": ks, "v": vs,
@@ -193,16 +215,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
     """One decode step, as ``dense.decode_step`` with the MoE FFN: writes the
     new keys and values into ``cache`` and advances its ``len``, all in
     place; returns (cache, logits)."""
-    b = tokens.shape[0]
     x = params["embed"][tokens]
-    pos = cache["len"]
-    positions = pos.reshape(1, 1).expand(b, 1)
-    write_at = pos.clamp(max=cache["k"].shape[2] - 1).reshape(1).long()
-    cache_len = pos + 1
-    for i in range(cfg.n_layers):
-        x = _decode_layer(x, cm.layer(params["layers"], i), cfg, positions,
-                          cache["k"][i], cache["v"][i], write_at, cache_len, plain)
+    at = decode_at(cache["len"], cache["k"].shape[2])
+    for i, lp in enumerate(layers(params, cfg)):
+        x = _decode_layer(x, lp, cfg, (cache["k"][i], cache["v"][i]), at, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x, params["embed"], params.get("out_head"))
-    pos.copy_(cache_len)                # last: every layer read the old position
+    cache["len"].copy_(at[2])           # last: every layer read the old position
     return cache, logits

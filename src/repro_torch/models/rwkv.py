@@ -175,6 +175,12 @@ def cache_rows(cfg: ModelConfig, cache: dict) -> list[tuple[torch.Tensor, int]]:
     return [(cache[name], 1) for name in ("wkv", "tm_shift", "cm_shift")]
 
 
+def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
+    """The weights a decode step reads whole: all of them but the embedding,
+    whose rows it gathers (the head is its own matrix)."""
+    return cm.leaves({k: w for k, w in params.items() if k != "embed"})
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward from zero state. tokens: (B, S) int64. Returns
     (cache, logits_last) — logits for the final position, (B, 1, V)."""

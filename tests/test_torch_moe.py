@@ -8,6 +8,8 @@ configs against the JAX package's.
   f32; ``moe_ffn`` refuses expert parallelism;
 * granite-3-8b and qwen1.5-4b: configs and smoke prefill/decode parity
   (tests/test_torch_models.py's 1e-4);
+* ``init_moe_ffn``: granite-moe's stacks drawn bit for bit as before they
+  were chunked, and larger stacks in chunks of whole experts;
 * ``launch.serve --arch granite-moe-3b-a800m --smoke --device cpu``.
 
 Granite-moe's prefill/decode parity, init shapes and engine tokens run in
@@ -143,3 +145,66 @@ def test_serve_launcher_runs_granite_moe_on_cpu():
     assert out["arch"] == ARCH + "-smoke"
     assert out["completed"] >= 1
     assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0
+
+
+def _init_moe_ffn_one_draw(gen, cfg):
+    """``init_moe_ffn`` as it drew before its stacks were chunked: each
+    layer's whole stack in one f32 draw."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    l, d, fe, e = cfg.n_layers, cfg.d_model, cfg.d_expert, cfg.n_experts
+
+    def stack(*shape, fan_in, dtype=dt):
+        out = torch.empty((l, *shape), dtype=dtype)
+        for i in range(l):
+            w = torch.randn(shape, generator=gen, dtype=torch.float32)
+            out[i] = (w * (1.0 / np.sqrt(fan_in))).to(dtype)
+        return out
+
+    return {"router": stack(d, e, fan_in=d, dtype=torch.float32),
+            "we_gate": stack(e, d, fe, fan_in=d), "we_up": stack(e, d, fe, fan_in=d),
+            "we_down": stack(e, fe, d, fan_in=fe)}
+
+
+def test_init_moe_ffn_granite_stacks_are_one_draw():
+    """granite-moe's stacks (31.5 M elements a layer, below the 2^28 chunk)
+    are drawn as before the chunking, bit for bit: its weights, and the
+    routing figures recorded on them, do not move."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=1)
+    got = moe.init_moe_ffn(torch.Generator().manual_seed(0), cfg)
+    want = _init_moe_ffn_one_draw(torch.Generator().manual_seed(0), cfg)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
+
+
+def test_init_moe_ffn_draws_whole_experts_in_chunks(monkeypatch):
+    """Past ``DRAW_CHUNK`` elements a layer, each expert stack is drawn in
+    chunks of whole experts, none over the limit (deepseek-v3: 18 experts of
+    7168 x 2048 a chunk), at the stack's scale; ``n_layers=`` sets the
+    depth, as the reference's argument does."""
+    from repro_torch.models import common as cm
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v3-671b"), dtype="float32")
+    per_expert = cfg.d_model * cfg.d_expert
+    monkeypatch.setattr(cm, "DRAW_CHUNK", 3 * per_expert)
+    drawn = []
+    randn = torch.randn
+
+    def spy(shape, *args, **kwargs):
+        drawn.append(tuple(shape))
+        return randn(shape, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "randn", spy)
+    p = moe.init_moe_ffn(torch.Generator().manual_seed(0), cfg, n_layers=3)
+    want = jax.tree.map(lambda a: a.shape, jmoe.init_moe_ffn(
+        jax.random.PRNGKey(0), jax_smoke_config("deepseek-v3-671b"), n_layers=3))
+    assert {k: tuple(v.shape) for k, v in p.items()} == want
+    assert all(np.prod(s) <= 3 * per_expert for s in drawn)
+    e, d, fe = cfg.n_experts, cfg.d_model, cfg.d_expert
+    assert drawn.count((3, d, fe)) == 2 * 3 and drawn.count((e - 3, d, fe)) == 2 * 3
+    assert drawn.count((3, fe, d)) == 3 and drawn.count((e - 3, fe, d)) == 3
+    for name, fan_in in (("we_gate", d), ("we_down", fe)):
+        assert abs(float(p[name].std()) * np.sqrt(fan_in) - 1.0) < 0.1, name
+    chunks = p["we_gate"][0].reshape(e, -1)
+    assert not torch.equal(chunks[0], chunks[3])          # later chunks are new draws
+    full = get_config("deepseek-v3-671b")
+    assert 18 * full.d_model * full.d_expert <= 1 << 28 < 19 * full.d_model * full.d_expert

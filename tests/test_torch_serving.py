@@ -5,7 +5,9 @@
   agree after every tick, past the end of the cache as well (for hymba: its
   window layers' rings wrap and its global layers clamp; for RWKV-6: the
   state absorbs left-padded prompts and inactive rows, as the reference's
-  does).
+  does; for whisper and the VLM: the cross caches of zero frames and zero
+  vision are spliced with the self caches, at the VLM's batch axis 2 for
+  its self cache).
 * Sampler rows and ``analyze_job``, driven by explicit busy/idle durations,
   and the Algorithm-1 controller on seeded signal sequences must agree
   exactly.
@@ -65,7 +67,8 @@ def _engines(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "whisper-tiny",
+                                  "llama-3.2-vision-90b", "deepseek-v3-671b"])
 def test_engine_tokens_match_jax_tick_by_tick(arch):
     jeng, teng = _engines(arch)
     rng = np.random.default_rng(0)
@@ -194,10 +197,25 @@ def test_serve_launcher_runs_recurrent_archs_on_cpu(arch):
     assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0
 
 
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-90b",
+                                  "deepseek-v3-671b"])
+def test_serve_launcher_runs_new_families_on_cpu(arch):
+    """``launch.serve --arch whisper-tiny|llama-3.2-vision-90b|deepseek-v3-671b
+    --smoke --device cpu``: the encoder-decoder, the VLM and MLA serve end to
+    end with the controller on, past the cache's end."""
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--duration", "30", "--max-seq", "32", "--controller"])
+    assert out["arch"] == arch + "-smoke"
+    assert out["completed"] >= 1
+    assert 0.0 <= out["telemetry"]["exec_idle_time_fraction"] <= 1.0
+
+
 # --------------------------------------------------------------------------- #
 # the captured serve step: what runs on the CPU
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
+                                  "whisper-tiny", "llama-3.2-vision-90b",
+                                  "deepseek-v3-671b"])
 def test_eager_decode_step_advances_len_in_place(arch):
     """``decode_step`` returns the cache it was given, ``len`` advanced in
     its own tensor, and past the cache's end the shared length goes on and

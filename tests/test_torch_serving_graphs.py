@@ -1,7 +1,7 @@
 """The serving engine's CUDA graphs on the card, at smoke size.
 
 On the card ``ServingEngine`` captures its decode step and its prefill into
-one CUDA graph each. Here each of the five served models' smoke configs
+one CUDA graph each. Here each of the eight served models' smoke configs
 is held to the eager step functions bit for bit, over 8 decode steps that
 cross the shared length's clamp (and hymba's ring) and one prefill
 (``chip_smoke.lockstep``, which the chip smoke test runs at full width),
@@ -43,11 +43,12 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama-13b", "gemma-2b", "hymba-1.5b", "rwkv6-3b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "whisper-tiny",
+                                  "llama-3.2-vision-90b", "deepseek-v3-671b"])
 def test_replayed_steps_match_eager_on_card(cuda, arch, monkeypatch):
     monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
     cfg = get_smoke_config(arch)
-    if cfg.resolved_head_dim not in HEAD_DIMS:       # hymba's smoke heads are 16 wide
+    if cfg.resolved_head_dim not in HEAD_DIMS:       # hymba's, the VLM's: 16 wide
         cfg = dataclasses.replace(cfg, head_dim=32)
     params = api.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     before = kernels.launch_counts()
