@@ -94,6 +94,19 @@ paths:
   the same configs in the same order, trace, knee and budget answer,
   counts exact, floats within 1e-9; with its time, each round's, and K4's
   and K7's launches in each;
+* the row path, the routing and the process pool, on the same store: the
+  48-config sparse grid on rows five ways (per-policy serial, batched,
+  4 and 2 pool workers, mmap reads) equal bit for bit, and the dense grid
+  on rows against the card's replay (times and counts exact, floats within
+  1e-9), configs/s of each by host clock; the dense grid plus two configs
+  the run-level IR cannot carry under ``backend="torch"`` (the IR-capable
+  ones on the card, K4 and K7, the two on rows, as counted) against the
+  numpy backend; a store with one sample dropped (one ``compact -> row``
+  fallback, no kernel launch, the numpy backend's frontier); the pool's
+  start-up (its workers never initialise CUDA), ``build_ir`` and
+  ``analyze_store`` at 4 workers against 1, the torch sweep on the
+  pool-built IR against the main phase's, and a sweep whose worker a fault
+  plan crashes, retried to the same frontier;
 * live: drives ``LiveController`` ticking on the card: the reference
   benchmark's live deployment (``SyntheticProducer``, 10^4 streams, 60 s
   windows of 5 s samples; 3 windows a tick each, then a 3-window backlog in
@@ -109,7 +122,10 @@ paths:
   every tick, each ending on the uninterrupted child's frontier byte for
   byte; a clock-skewed shard (stale knee, watermark held), a truncated
   shard (coverage < 1) and a corrupt checkpoint (cold start); the
-  Prometheus exposition linted.
+  Prometheus exposition linted; and the reference live bench at its own
+  settings (10^4 streams, the replay's defaults, so the IR refuses the
+  5-second samples and every config replays on rows, as counted): the
+  first window and one steady one, with their staleness.
 
 Output: one line per phase; before the last, a ``{"kernels": [...]}`` JSON
 line and the card's name and power limit from nvidia-smi; last, the
@@ -428,7 +444,9 @@ def time_kernels(dev) -> dict[str, dict]:
     rotated over 8 layers (84 MB), each with its bound and SDPA
     (``enable_gqa=True``; a boolean mask for the window); at
     granite-moe-3b-a800m's: K1 over its decode rows and prefill bucket at
-    D = 1536, K2 over its 32-token bucket (24 q / 8 kv heads of 64), K3 over
+    D = 1536; K1 over llama-3.2-vision-90b's decode rows (D = 8192) and
+    deepseek-v3-671b's (the hidden size 7168, the q and kv LoRA ranks 1536
+    and 512); K2 over its 32-token bucket (24 q / 8 kv heads of 64), K3 over
     a (4, 256, 8, 64) cache rotated over its 32 layers (64 MB); and at the
     last three families': K2 over whisper-tiny's 1,500 encoder frames and
     across to them from 32 tokens, and across the VLM's 1,601 vision tokens
@@ -461,7 +479,11 @@ def time_kernels(dev) -> dict[str, dict]:
                                  ("llama_prefill", (1, 32, 5120), 1),
                                  ("hymba_prefill", (1, 2048, 1600), 8),
                                  ("granite_moe_decode", (4, 1, 1536), 1),
-                                 ("granite_moe_prefill", (1, 32, 1536), 1)):
+                                 ("granite_moe_prefill", (1, 32, 1536), 1),
+                                 ("vlm_decode", (4, 1, 8192), 1),
+                                 ("mla_decode_hidden", (4, 1, 7168), 1),
+                                 ("mla_decode_q_lora", (4, 1, 1536), 1),
+                                 ("mla_decode_kv_lora", (4, 1, 512), 1)):
         xs, w = rnd(copies, *shape), rnd(shape[-1])
         x = xs[0]
         out["rmsnorm"]["extra"][label] = dict(
@@ -2650,6 +2672,7 @@ def whatif(dev) -> dict:
 
         packed = B.pack_ir(get_ir(store, ir_config_for(grid)), 5, **kw)
         krows = replay_kernels(dev, grid, packed)
+        hosted = host_paths(Path(d), store, dense, front, kw)
 
     result = {
         "deployment": WHATIF_DEPLOYMENT, **counts, "streams": len(ir.streams),
@@ -2671,7 +2694,7 @@ def whatif(dev) -> dict:
                       "backend.assembly")},
         "peak_memory_gib": peak_gib,
         "launches": launches, "configs_by_path": by_path,
-        "pareto_flags": pareto, "search": searched,
+        "pareto_flags": pareto, "search": searched, "host_paths": hosted,
     }
     log("what-if " + json.dumps(result))
     log(f"what-if 10^4 grid: {result['configs_per_s_card']:.1f} configs/s on the card "
@@ -2681,6 +2704,355 @@ def whatif(dev) -> dict:
         f"{result['configs_per_s_host_numpy_sample']:.1f} configs/s on the host "
         f"(numpy backend, this machine's CPU, the {len(idx)}-config sample)")
     return result, krows
+
+
+# --------------------------------------------------------------------------- #
+# the row path and the process pool on the what-if fleet (host NumPy)
+# --------------------------------------------------------------------------- #
+#: the sparse grid's five row routes (``default_policy_grid(dense=False)``)
+#: on the numpy backend, as the reference bench calls them; its contract
+#: holds them equal bit for bit (benchmarks/whatif_bench.py:22-23)
+ROW_ROUTES = (("serial", dict(batched=False)),
+              ("batched", dict(compact=False)),
+              ("workers2", dict(compact=False, workers=2)),
+              ("workers4", dict(compact=False, workers=4)),
+              ("mmap", dict(compact=False, mmap=True)))
+POOL_WORKERS = 4
+
+
+def pool_probe() -> dict:
+    """A pool worker's view (module-level, so it pickles): its pid, the
+    time to import the worker bodies' modules, whether torch is imported
+    there, and whether CUDA is initialised, which it must never be: the
+    workers are host NumPy and never touch the card."""
+    import os
+    t0 = time.perf_counter()
+    import repro_torch.telemetry.pipeline  # noqa: F401
+    import repro_torch.whatif.ir  # noqa: F401
+    import repro_torch.whatif.sweep  # noqa: F401
+    torch = sys.modules.get("torch")
+    return {"pid": os.getpid(), "import_s": time.perf_counter() - t0,
+            "torch_imported": torch is not None,
+            "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized())}
+
+
+def host_cpus() -> dict:
+    import os
+    return {"cpu_count": os.cpu_count(), "usable": len(os.sched_getaffinity(0))}
+
+
+def counter_values(name: str, label: str | None = None) -> dict:
+    """A counter family of the port's registry, by one label's value (or
+    under ``None`` for an unlabelled counter)."""
+    from repro_torch import obs
+    fam = obs.REGISTRY.family(name)
+    if fam is None:
+        return {}
+    out: dict = {}
+    for key, m in fam.metrics.items():
+        labels = dict(key)
+        if name == "repro_fallbacks_total":
+            if "from" not in labels:        # the zero-valued preregistration
+                continue
+            k = f"{labels['from']}->{labels['to']}"
+        else:
+            k = labels.get(label) if label else None
+        out[k] = out.get(k, 0.0) + m.value
+    return out
+
+
+def routes_of(fn):
+    """Run ``fn`` with obs on and the kernel counts at 0; return its value,
+    its host-clock seconds, the kernel launches, configs by replay path,
+    row-fallback configs and degradation-ladder transitions."""
+    import torch
+    from repro_torch import kernels, obs
+    obs.reset()
+    obs.enable()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        paths = counter_values("repro_replay_configs_total", "path")
+        fallback_configs = counter_values("repro_replay_row_fallback_configs_total").get(None, 0.0)
+        ladder = counter_values("repro_fallbacks_total")
+        retries = counter_values("repro_partition_retries_total", "stage")
+    finally:
+        obs.disable()
+        obs.reset()
+    return value, {"s": wall_s, "launches": launches, "paths": paths,
+                   "row_fallback_configs": fallback_configs, "fallbacks": ladder,
+                   "partition_retries": retries}
+
+
+#: the float fields the row path is held to the run-level replay by: the
+#: reference bench's (``_frontiers_equivalent``, benchmarks/whatif_bench.py:
+#: 116-137) and the two execution-idle fractions. ``energy_saved_j``, a
+#: difference of two ~9e7-J fleet totals, is held through them (the bench
+#: leaves it out); its gap beside the baseline energy is reported
+ROWS_VS_IR_CLOSE = ("baseline_energy_j", "counterfactual_energy_j", "penalty_s",
+                    "saved_fraction", "penalty_fraction",
+                    "exec_idle_energy_fraction_baseline", "exec_idle_energy_fraction_cf")
+
+
+def compare_rows_to_ir(rows, ir, label: str) -> dict:
+    """The reference bench's contract between the row path and the run-level
+    replay: time, count and Pareto fields exact, the float fields of
+    :data:`ROWS_VS_IR_CLOSE` and the per-job CDFs within rtol = atol = 1e-9. Returns the worst element's
+    share of its limit and the largest ``energy_saved_j`` gap beside the
+    fleet's baseline energy."""
+    import numpy as np
+    if len(rows.outcomes) != len(ir.outcomes) or rows.n_rows != ir.n_rows:
+        raise AssertionError(f"{label}: {len(rows.outcomes)} outcomes over "
+                             f"{rows.n_rows} rows, want {len(ir.outcomes)} over {ir.n_rows}")
+    share, saved_gap = 0.0, 0.0
+    for a, b in zip(rows.outcomes, ir.outcomes):
+        for f in WHATIF_EXACT + ("pareto",):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{label}: {a.name} {a.params} {f}: "
+                                     f"{getattr(b, f)} != {getattr(a, f)}")
+        for f in ROWS_VS_IR_CLOSE + ("per_job_saved_fraction", "per_job_penalty_s"):
+            x = np.atleast_1d(np.asarray(getattr(a, f), dtype=np.float64))
+            y = np.atleast_1d(np.asarray(getattr(b, f), dtype=np.float64))
+            s = np.abs(y - x) / (WHATIF_RTOL + WHATIF_RTOL * np.abs(x))
+            if x.shape != y.shape or not (s <= 1.0).all():
+                raise AssertionError(f"{label}: {a.name} {a.params} {f} beyond 1e-9")
+            share = max(share, float(s.max(initial=0.0)))
+        saved_gap = max(saved_gap, abs(a.energy_saved_j - b.energy_saved_j)
+                        / a.baseline_energy_j)
+    return {"limit_share": share, "energy_saved_gap_of_baseline": saved_gap}
+
+
+def row_routes(store, dense, front, kw) -> dict:
+    """The sparse grid five ways on rows, equal bit for bit; the dense grid
+    on rows against the torch replay of the main phase."""
+    from repro_torch.whatif import default_policy_grid, frontier_to_dict, run_sweep
+
+    sparse = default_policy_grid(dense=False)
+    out, want = {}, None
+    for name, args in ROW_ROUTES:
+        frontier, info = routes_of(lambda a=args: run_sweep(store, sparse, backend="numpy",
+                                                            **a, **kw))
+        path = "row_batched" if args.get("batched", True) else "row_serial"
+        if info["paths"] != {path: float(len(sparse))} or any(info["launches"].values()):
+            raise AssertionError(f"rows {name}: paths {info['paths']}, launches "
+                                 f"{info['launches']}")
+        got = frontier_to_dict(frontier)
+        if want is None:
+            want, witness = got, frontier
+        elif got != want:
+            raise AssertionError(f"rows {name}: frontier differs from the serial route's")
+        out[name] = {"s": info["s"], "configs_per_s": len(sparse) / info["s"]}
+    dense_rows, info = routes_of(lambda: run_sweep(store, dense, compact=False, **kw))
+    if dense_rows.n_rows != front.n_rows or any(info["launches"].values()):
+        raise AssertionError(f"rows dense: {dense_rows.n_rows} rows, launches "
+                             f"{info['launches']}")
+    worst = compare_rows_to_ir(dense_rows, front, "dense grid rows vs card")
+    out["dense_rows"] = {"s": info["s"], "configs_per_s": len(dense) / info["s"],
+                         "worst_vs_card": worst}
+    cpus = host_cpus()
+    log("rows sparse grid (48 configs, numpy backend): serial, batched, workers 2 and 4, "
+        "mmap equal bit for bit; configs/s by host clock " + ", ".join(
+            f"{k} {v['configs_per_s']:.2f} ({v['s']:.2f} s)" for k, v in out.items()
+            if k != "dense_rows") + f"; dense grid on rows {out['dense_rows']['configs_per_s']:.2f}"
+        f" configs/s ({out['dense_rows']['s']:.2f} s) == the card's replay under the "
+        f"reference bench's contract (times, counts and Pareto flags exact, its floats "
+        f"within 1e-9, worst {worst['limit_share']:.3g} of the limit; energy_saved_j within "
+        f"{worst['energy_saved_gap_of_baseline']:.3g} of the baseline energy); host {cpus}")
+    return {"routes": out, "host": cpus, "witness": witness}
+
+
+def non_ir_configs():
+    """Configs the run-level IR cannot carry: a downscale-then-parking
+    composite (tests/test_torch_whatif.py:231) and a downscale at a
+    low-activity threshold other than the grid's."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.imbalance import PoolConfig, PoolPolicy
+    from repro_torch.whatif import CompositePolicy, DownscalePolicy, ParkingPolicy
+    park = ParkingPolicy(pool=PoolConfig(n_devices=2, policy=PoolPolicy.CONSOLIDATED,
+                                         n_active=1))
+    return [CompositePolicy((DownscalePolicy(), park)),
+            DownscalePolicy(config=ControllerConfig(activity_threshold=0.03,
+                                                    threshold_x_s=3.0))]
+
+
+def mixed_grid(store, dense, kw) -> dict:
+    """The dense grid plus two configs the IR cannot carry under
+    ``backend="torch"``: the IR-capable configs on the card (K4, K7), the
+    two on rows, counted; every outcome the numpy backend's."""
+    import dataclasses as dc
+    from repro_torch.whatif import evaluate, ir_config_for, ir_supported
+
+    grid = dense + non_ir_configs()
+    n_ir = sum(ir_supported(p, ir_config_for(grid)) for p in grid)
+    out, info = routes_of(lambda: evaluate(grid, store, **kw))
+    if info["paths"] != {"torch": float(n_ir), "row_batched": float(len(grid) - n_ir)} \
+            or info["row_fallback_configs"] != len(grid) - n_ir or n_ir != len(dense):
+        raise AssertionError(f"mixed grid: paths {info['paths']}, row fallback "
+                             f"{info['row_fallback_configs']}, IR-capable {n_ir}")
+    if info["launches"]["cap_bucket_scan"] <= 0 or info["launches"]["downscale_replay"] <= 0:
+        raise AssertionError(f"mixed grid: launches {info['launches']}")
+    t0 = time.perf_counter()
+    ref = evaluate(grid, store, backend="numpy", **kw)
+    host_s = time.perf_counter() - t0
+    worst = compare_outcomes(ref, out, "mixed grid")
+    if [dc.asdict(o) for o in out[n_ir:]] != [dc.asdict(o) for o in ref[n_ir:]]:
+        raise AssertionError("mixed grid: the row configs differ from the numpy backend's")
+    log(f"mixed grid ({len(grid)} configs, {n_ir} on the card, {len(grid) - n_ir} on rows, "
+        f"as counted): {info['s']:.2f} s by host clock, K4 "
+        f"{info['launches']['cap_bucket_scan']} and K7 {info['launches']['downscale_replay']} "
+        f"launches; == the numpy backend ({host_s:.2f} s; the row configs bit for bit, "
+        f"worst {worst['limit_share']:.3g} of the limit)")
+    return {"configs": len(grid), "ir_capable": n_ir, **info, "numpy_s": host_s,
+            "worst_limit_share": worst["limit_share"]}
+
+
+def irregular_store(root: Path, dense, kw) -> dict:
+    """A fleet with one job-attributed sample dropped: the IR cannot compact
+    it, so the torch backend replays it on rows, with one ``compact -> row``
+    fallback and no kernel launch, to the numpy backend's answer."""
+    import numpy as np
+    from repro_torch.cluster import generate_cluster
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.telemetry.records import TelemetryFrame
+    from repro_torch.whatif import frontier_to_dict, run_sweep
+    from repro_torch.whatif import ir as ir_mod
+
+    frame = generate_cluster(n_devices=8, horizon_s=3600, seed=3).frame
+    keep = np.ones(len(frame), dtype=bool)
+    keep[int(np.flatnonzero(frame["job_id"] >= 0)[100])] = False
+    store = TelemetryStore(root / "irregular")
+    store.write_shard(TelemetryFrame({k: v[keep] for k, v in frame.columns.items()}),
+                      host="h0")
+    ir_mod._IR_UNSUPPORTED.clear()
+    out, info = routes_of(lambda: run_sweep(store, dense, **kw))
+    if info["fallbacks"] != {"compact->row": 1.0} or any(info["launches"].values()) \
+            or info["paths"] != {"row_batched": float(len(dense))}:
+        raise AssertionError(f"irregular store: {info}")
+    ref = run_sweep(store, dense, backend="numpy", **kw)
+    if frontier_to_dict(out) != frontier_to_dict(ref):
+        raise AssertionError("irregular store: frontier differs from the numpy backend's")
+    log(f"irregular store ({store.total_rows} rows, one sample dropped): one compact -> row "
+        f"fallback, {len(dense)} configs on rows, no kernel launch, == the numpy backend bit "
+        f"for bit ({info['s']:.2f} s)")
+    return {"rows": store.total_rows, **info}
+
+
+def ir_differences(a, b) -> list[str]:
+    """What differs between two run-level IRs of one store: counts, stream
+    keys, each stream's scalars and run tables, and the per-chunk
+    unattributed pairs as a multiset (their order follows the partitions;
+    every consumer sums them with ``math.fsum``, which is exact)."""
+    import numpy as np
+    out = [f for f in ("source_rows", "source_shards", "n_runs", "n_rows")
+           if getattr(a, f) != getattr(b, f)]
+    if list(a.streams) != list(b.streams):
+        return out + ["stream keys"]
+    for k in a.streams:
+        x, y = a.streams[k], b.streams[k]
+        out += [f"{k} {f}" for f in ("host_label", "platform_id", "ts_first", "dt_s")
+                if getattr(x, f) != getattr(y, f)]
+        out += [f"{k} {f}" for f in ("state", "low", "length", "power_sum", "power")
+                if not np.array_equal(getattr(x, f), getattr(y, f))]
+    if sorted(a.unattributed) != sorted(b.unattributed):
+        out.append("unattributed pairs")
+    return out
+
+
+def analysis_key(a) -> tuple:
+    return (a.fleet, a.unattributed_energy_j, a.n_intervals,
+            [(j.job_id, j.duration_s, j.breakdown, tuple(j.intervals)) for j in a.jobs])
+
+
+def process_pool(root: Path, store, dense, front, rows_witness, kw) -> dict:
+    """The pool on the what-if fleet: its start-up (workers import no
+    torch), ``build_ir`` and ``analyze_store`` at 4 workers against 1, the
+    torch sweep on the pool-built IR against the main phase's, and a sweep
+    whose first worker a fault plan crashes, retried to the answer."""
+    from repro_torch.telemetry import FaultTolerance, analyze_store
+    from repro_torch.telemetry.pipeline import run_supervised
+    from repro_torch.testing import faults
+    from repro_torch.whatif import (build_ir, default_policy_grid, frontier_to_dict,
+                                    ir_config_for, run_sweep)
+
+    starts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        probes = run_supervised(pool_probe, [()] * POOL_WORKERS, stage="probe")
+        starts.append(time.perf_counter() - t0)
+        if any(p["cuda_initialized"] for p in probes):
+            raise AssertionError(f"pool probe: a worker initialised CUDA: {probes}")
+    cfg = ir_config_for(dense)
+    t0 = time.perf_counter()
+    ir1 = build_ir(store, cfg, workers=1)
+    build1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ir4 = build_ir(store, cfg, workers=POOL_WORKERS)
+    build4_s = time.perf_counter() - t0
+    diff = ir_differences(ir1, ir4)
+    if diff:
+        raise AssertionError(f"pool: build_ir(workers=4) differs from workers=1: {diff[:8]}")
+    t0 = time.perf_counter()
+    a1 = analyze_store(store, compact=False, **kw)
+    analyze1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a4 = analyze_store(store, compact=False, workers=POOL_WORKERS, **kw)
+    analyze4_s = time.perf_counter() - t0
+    if analysis_key(a1) != analysis_key(a4):
+        raise AssertionError("pool: analyze_store(workers=4) differs from workers=1")
+    swept, info = routes_of(lambda: run_sweep(store, dense, ir=ir4, **kw))
+    if frontier_to_dict(swept) != frontier_to_dict(front) or \
+            info["launches"]["cap_bucket_scan"] <= 0 or info["launches"]["downscale_replay"] <= 0:
+        raise AssertionError(f"pool: the torch sweep on the pool-built IR differs from the "
+                             f"main phase's, or launched {info['launches']}")
+    sparse = default_policy_grid(dense=False)
+    with faults.plan(root / "plan", crash=("sweep",)):
+        crashed, crash_info = routes_of(lambda: run_sweep(
+            store, sparse, compact=False, workers=POOL_WORKERS,
+            fault=FaultTolerance(max_retries=2, backoff_s=0.01), **kw))
+    retries = crash_info["partition_retries"].get("sweep", 0.0)
+    if frontier_to_dict(crashed) != frontier_to_dict(rows_witness) or retries < 1 \
+            or "pool->in_process" in crash_info["fallbacks"]:
+        raise AssertionError(f"pool crash: retries {retries}, fallbacks "
+                             f"{crash_info['fallbacks']}")
+    result = {"workers": POOL_WORKERS, "start_s": starts,
+              "worker_import_s": max(p["import_s"] for p in probes),
+              "worker_torch_imported": any(p["torch_imported"] for p in probes),
+              "build_ir_s": {"1": build1_s, "4": build4_s},
+              "analyze_store_rows_s": {"1": analyze1_s, "4": analyze4_s},
+              "sweep_on_pool_ir": info, "crash": {"retries": retries, "s": crash_info["s"]},
+              "host": host_cpus()}
+    log(f"pool ({POOL_WORKERS} workers, forkserver): start {starts[0]:.2f} s the first, "
+        f"{starts[1]:.2f} s the next (workers import the host modules in "
+        f"{result['worker_import_s']:.3f} s; torch imported there: "
+        f"{result['worker_torch_imported']}; CUDA initialised: no); build_ir {build1_s:.2f} s at 1 "
+        f"worker, {build4_s:.2f} s at 4, the same IR; analyze_store on rows {analyze1_s:.2f}"
+        f" / {analyze4_s:.2f} s, the same analysis; the torch sweep on the pool-built IR == "
+        f"the main phase's bit for bit; a crashed worker retried {retries:.0f} time(s) to the "
+        f"same frontier ({crash_info['s']:.2f} s); host {result['host']}")
+    return result
+
+
+def host_paths(root: Path, store, dense, front, kw) -> dict:
+    """The row path, the torch backend's routing and the process pool, on
+    the what-if fleet's store."""
+    t0 = time.perf_counter()
+    rows = row_routes(store, dense, front, kw)
+    mixed = mixed_grid(store, dense, kw)
+    irregular = irregular_store(root, dense, kw)
+    pool_ = process_pool(root, store, dense, front, rows.pop("witness"), kw)
+    phase_s = time.perf_counter() - t0
+    log(f"rows, routing and pool phases: {phase_s:.1f} s")
+    launches: dict[str, int] = {}
+    for counts in (mixed["launches"], pool_["sweep_on_pool_ir"]["launches"]):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    return {"rows": rows, "mixed": mixed, "irregular": irregular, "pool": pool_,
+            "launches": launches, "phase_s": phase_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -3117,7 +3489,7 @@ def live_degradation(dev, root: Path) -> dict:
     if not {("warm_torch", "warm_numpy"), ("warm_numpy", "cold_numpy"),
             ("live_tick", "stale_knee")} <= steps or \
             {dict(k)["reason"] for k in walked if dict(k)["from"] == "warm_torch"} \
-            != {"IRUnsupportedError"}:
+            != {"StreamOrderError"}:
         raise AssertionError(f"live degradation skew: ladder walked {walked}")
     skew = {"result": r.result, "error": r.error, "watermark": ctrl.n_shards,
             "fallbacks": {"/".join(f"{a}={b}" for a, b in k): v for k, v in walked.items()}}
@@ -3146,6 +3518,68 @@ def live_degradation(dev, root: Path) -> dict:
     result = {"skew": skew, "truncate": truncate,
               "corrupt_checkpoint": {"cold_start": True, "next_tick": r.result}}
     log("live degradation " + json.dumps(result))
+    return result
+
+
+#: the reference bench's own settings (benchmarks/live_bench.py:40-44,
+#: :59-69): no dt_s or job-filter override, so the IR refuses the 5-second
+#: samples at the default dt_s = 1 and every config replays on rows; the
+#: first window and one steady one (a third tick on rows, which re-read the
+#: whole store each round, would take the phase past a minute)
+LIVE_BENCH_WINDOWS = 2
+
+
+def live_bench(dev, root: Path) -> dict:
+    """The reference live bench at its own settings on the card's
+    controller: 10^4 streams, ``LiveConfig(max_evals=24)``, one round over
+    the downscale family, the replay's defaults. Each tick refreshes on
+    ``warm_torch`` with its configs on rows, as counted, and no kernel
+    launch; staleness first and steady."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.live import LiveConfig, LiveController, SyntheticProducer
+    from repro_torch.telemetry import TelemetryStore
+    from repro_torch.whatif.search import default_families
+
+    fams = [f for f in default_families(composites=False) if f.name == "downscale"]
+    cfg = LiveConfig(max_evals=LIVE_EVALS, search_kwargs={"max_rounds": 1, "families": fams})
+    store = TelemetryStore(root / "bench")
+    prod = SyntheticProducer(store, **LIVE_DEPLOYMENT)
+    ctrl = LiveController(store, root / "bench_ckpt.json", cfg)
+    ticks = []
+    for w in range(LIVE_BENCH_WINDOWS):
+        prod.step()
+        before = (counter_values("repro_replay_configs_total", "path"),
+                  counter_values("repro_fallbacks_total"), kernels.launch_counts())
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = ctrl.tick()
+        torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t0
+        after = (counter_values("repro_replay_configs_total", "path"),
+                 counter_values("repro_fallbacks_total"), kernels.launch_counts())
+        paths, ladder, launches = ({k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+                                   for b, a in zip(before, after))
+        if r.result != "refreshed" or r.rung != "warm_torch" or \
+                set(paths) != {"row_batched"} or set(ladder) != {"compact->row"} or launches:
+            raise AssertionError(f"live bench window {w}: {r.result} on {r.rung} ({r.error}); "
+                                 f"paths {paths}, fallbacks {ladder}, launches {launches}")
+        if ctrl.frontier.n_rows != store.total_rows:
+            raise AssertionError(f"live bench window {w}: {ctrl.frontier.n_rows} rows "
+                                 f"replayed of {store.total_rows}")
+        ticks.append({"tick": r.tick, "staleness_s": r.staleness_s, "tick_s": wall_s,
+                      "configs_on_rows": paths["row_batched"],
+                      "compact_to_row": ladder["compact->row"],
+                      "rows": store.total_rows, "n_jobs": ctrl.frontier.n_jobs})
+    result = {"deployment": LIVE_DEPLOYMENT, "max_evals": LIVE_EVALS, "ticks": ticks,
+              "staleness_s_first": ticks[0]["staleness_s"],
+              "staleness_s_steady": ticks[-1]["staleness_s"]}
+    log("live bench " + json.dumps(result))
+    log(f"live bench settings ({LIVE_DEPLOYMENT['n_streams']} streams, dt_s 1, 2-hour job "
+        f"filter, {LIVE_EVALS} evaluations): {len(ticks)} ticks refreshed on warm_torch, "
+        f"configs on rows {[t['configs_on_rows'] for t in ticks]} (compact -> row "
+        f"{[t['compact_to_row'] for t in ticks]}), no kernel launch; staleness first "
+        f"{ticks[0]['staleness_s']:.3f} s, steady {ticks[-1]['staleness_s']:.3f} s")
     return result
 
 
@@ -3180,6 +3614,7 @@ def live(dev) -> dict:
             if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0 \
                     or any(launches[k] for k in SERVING_KERNELS):
                 raise AssertionError(f"live: launches {launches}")
+            bench = live_bench(dev, root)
             crash = live_crash_resume(dev, root)
             degradation = live_degradation(dev, root)
         text = obs.render_prometheus()
@@ -3196,7 +3631,7 @@ def live(dev) -> dict:
     log(f"live exposition: {len(text.splitlines())} lines lint clean, every repro_live_* "
         f"family present, non-zero: {emitted}")
     log(f"live phase: {phase_s:.1f} s")
-    return {"fleet": fleet, "simulated": simulated, "crash_resume": crash,
+    return {"fleet": fleet, "simulated": simulated, "bench": bench, "crash_resume": crash,
             "degradation": degradation, "launches": launches, "phase_s": phase_s}
 
 
@@ -3275,7 +3710,7 @@ def main() -> int:
     wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs)
     for counts in [r["launches"] for r in runs] + [r["spill"]["launches"] for r in runs] + [
             presult["launches"], wresult["launches"], wresult["search"]["launches"],
-            lresult["launches"]]:
+            wresult["host_paths"]["launches"], lresult["launches"]]:
         for name, n in counts.items():
             launches[name] += n
     if any(n <= 0 for n in launches.values()):

@@ -1,7 +1,8 @@
 """Sustained-interval extraction over classified state series (paper §2.2, §4.4).
 
 The paper counts an execution-idle interval only when the low-activity
-condition holds *continuously* for at least ``min_duration_s`` (5 s baseline).
+condition holds *continuously* for at least ``min_duration_s`` (5 s baseline;
+1 s permissive / 10 s conservative in Table 2).
 Intervals shorter than the threshold are re-labelled as part of the
 surrounding execution (ACTIVE) for accounting purposes.
 """
@@ -103,3 +104,36 @@ def extract_intervals(
     """All maximal runs of ``state`` lasting at least ``min_duration_s``."""
     min_samples = int(np.ceil(min_duration_s / dt_s))
     return [r for r in runs(states) if r.state == state and r.duration >= min_samples]
+
+
+def apply_min_duration(
+    states: np.ndarray,
+    min_duration_s: float = 5.0,
+    dt_s: float = 1.0,
+    short_relabel: DeviceState = DeviceState.ACTIVE,
+) -> np.ndarray:
+    """Return a copy of ``states`` where EXECUTION_IDLE runs shorter than the
+    sustain threshold are relabelled (conservative accounting, §2.2).
+
+    Deep-idle runs are never relabelled — they are not transient DVFS events.
+    """
+    out = np.asarray(states).copy()
+    min_samples = int(np.ceil(min_duration_s / dt_s))
+    for r in runs(out):
+        if r.state == DeviceState.EXECUTION_IDLE and r.duration < min_samples:
+            out[r.start : r.end] = int(short_relabel)
+    return out
+
+
+def duration_percentiles(
+    intervals: list[Interval], percentiles=(50, 90, 99), dt_s: float = 1.0
+) -> dict[float, float]:
+    """Duration percentiles in seconds over a set of intervals (Fig 8)."""
+    if not intervals:
+        return {float(p): float("nan") for p in percentiles}
+    durations = np.array([iv.duration * dt_s for iv in intervals], dtype=np.float64)
+    return {float(p): float(np.percentile(durations, p)) for p in percentiles}
+
+
+def interval_count(states: np.ndarray, min_duration_s: float = 5.0, dt_s: float = 1.0) -> int:
+    return len(extract_intervals(states, DeviceState.EXECUTION_IDLE, min_duration_s, dt_s))

@@ -72,13 +72,17 @@ class LiveConfig:
     ``"cpu"`` (the kernels' plain versions). ``search_kwargs`` passes
     straight through to :func:`repro_torch.whatif.search.search_frontier`
     (e.g. ``max_rounds``, ``min_job_duration_s``, ``families``); ``fault``
-    supervises the tick ladder. The JAX package's ``workers`` and ``mmap``
-    are not ported: the port runs in one process."""
+    supervises both the tick ladder and — threaded through the search — the
+    pool partitions inside it. ``workers`` and ``mmap`` pass to the search
+    too: the host work (IR builds, the row path) spreads over a process
+    pool whose workers never touch the card."""
 
     backend: str = "torch"
     device: str = "cuda"
     max_evals: int = 64
     budget: Optional[PenaltyBudget] = None
+    workers: int = 1
+    mmap: bool = False
     strict: bool = False        # live loops skip bad shards, account coverage
     verify: bool = False
     fault: FaultTolerance = dataclasses.field(
@@ -195,8 +199,9 @@ class LiveController:
             init = self._frontier if rung.warm else None
             return search_frontier(
                 self.store, budget=cfg.budget, max_evals=cfg.max_evals,
-                backend=rung.backend, device=cfg.device, init_frontier=init,
-                strict=cfg.strict, verify=cfg.verify, **cfg.search_kwargs)
+                workers=cfg.workers, mmap=cfg.mmap, backend=rung.backend,
+                device=cfg.device, init_frontier=init, strict=cfg.strict,
+                verify=cfg.verify, fault=cfg.fault, **cfg.search_kwargs)
 
         res, rung, err = self.supervisor.run(attempt)
         fault_hook(PRE_CHECKPOINT_STAGE)

@@ -17,8 +17,9 @@ walks a degradation ladder:
 The ladder exists to survive *poisoned data* (a clock-skewed shard, a
 store the run-level IR cannot carry), not a broken device. A device rung
 (any backend but ``numpy``) therefore descends only on
-:data:`HOST_DATA_ERRORS`, which are raised on the host while the run-level
-IR is acquired, before anything is packed for the card. Every other error
+:data:`HOST_DATA_ERRORS`, which the host raises over the store's data:
+while the run-level IR is acquired, before anything is packed for the
+card, or on the row path the torch backend routes the IR's refusals to. Every other error
 of a device rung propagates out of :meth:`TickSupervisor.run`: a kernel
 that does not build or launch (:class:`~repro_torch.kernels.KernelError`),
 a wrapper's guard (``ValueError``), a CUDA or cuBLAS error, out of memory.
@@ -52,6 +53,7 @@ import torch
 import repro_torch.obs as obs
 from repro_torch.kernels._build import KernelError
 from repro_torch.telemetry.pipeline import FaultTolerance
+from repro_torch.telemetry.records import StreamOrderError
 from repro_torch.telemetry.storage import ShardReadError
 from repro_torch.whatif.ir import IRUnsupportedError
 
@@ -67,11 +69,14 @@ DEVICE_ERRORS: tuple[type[BaseException], ...] = (
     *((torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()))
 
 #: the errors on which a device rung descends the ladder: the run-level IR
-#: refusing the store's data (e.g. a clock-skewed shard) and a shard that
-#: cannot be read under ``strict=True``. Both are raised on the host while
-#: the IR is acquired, before anything is packed for the card.
+#: refusing the store's data, a shard that cannot be read under
+#: ``strict=True``, and a stream out of time order on the host's row path
+#: (e.g. a clock-skewed shard: the IR refuses it, so its configs go to
+#: rows, which refuse it too). All are raised on the host by the host's
+#: own work on the store's data, never by the card.
 HOST_DATA_ERRORS: tuple[type[BaseException], ...] = (IRUnsupportedError,
-                                                     ShardReadError)
+                                                     ShardReadError,
+                                                     StreamOrderError)
 
 
 class DeviceDeadlineError(RuntimeError):

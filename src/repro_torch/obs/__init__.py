@@ -17,8 +17,9 @@ Quick start::
 
 Layout: :mod:`~repro_torch.obs.metrics` (registry: counters / gauges /
 log-bucket histograms), :mod:`~repro_torch.obs.spans` (hierarchical
-traces), :mod:`~repro_torch.obs.prom` (text exposition, linter, stdlib HTTP
-endpoint), :mod:`~repro_torch.obs.report` (stage-tree reports).
+traces + process-pool transport), :mod:`~repro_torch.obs.prom` (text
+exposition, linter, stdlib HTTP endpoint), :mod:`~repro_torch.obs.report`
+(stage-tree reports).
 """
 from repro_torch.obs.metrics import (DEGRADATION_FAMILIES, IR_APPEND_FAMILIES,
                                      LIVE_FAMILIES, REGISTRY, Counter, Gauge,
@@ -30,10 +31,11 @@ from repro_torch.obs.metrics import (DEGRADATION_FAMILIES, IR_APPEND_FAMILIES,
 from repro_torch.obs.prom import (lint_exposition, render_prometheus,
                                   start_http_server, write_textfile)
 from repro_torch.obs.report import stage_breakdown, stage_report
-from repro_torch.obs.spans import (SpanNode, SpanRecord, clear_spans,
+from repro_torch.obs.spans import (SpanNode, SpanRecord, absorb,
+                                   call_with_obs, clear_spans,
                                    dump_spans_jsonl, format_span_tree,
                                    load_spans_jsonl, span, span_tree, spans,
-                                   stage_totals)
+                                   stage_totals, worker_token)
 
 
 def reset() -> None:
@@ -45,11 +47,12 @@ def reset() -> None:
 __all__ = [
     "DEGRADATION_FAMILIES", "IR_APPEND_FAMILIES", "LIVE_FAMILIES",
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "SpanNode", "SpanRecord", "clear_spans", "counter", "default_buckets",
-    "disable", "dump_spans_jsonl", "enable", "enabled", "fallback",
-    "format_span_tree", "gauge", "init_degradation_metrics",
-    "init_ir_append_metrics", "init_live_metrics", "lint_exposition",
-    "load_spans_jsonl", "observe", "render_prometheus", "reset", "span",
-    "span_tree", "spans", "stage_breakdown", "stage_report", "stage_totals",
-    "start_http_server", "write_textfile",
+    "SpanNode", "SpanRecord", "absorb", "call_with_obs", "clear_spans",
+    "counter", "default_buckets", "disable", "dump_spans_jsonl", "enable",
+    "enabled", "fallback", "format_span_tree", "gauge",
+    "init_degradation_metrics", "init_ir_append_metrics",
+    "init_live_metrics", "lint_exposition", "load_spans_jsonl", "observe",
+    "render_prometheus", "reset", "span", "span_tree", "spans",
+    "stage_breakdown", "stage_report", "stage_totals", "start_http_server",
+    "worker_token", "write_textfile",
 ]

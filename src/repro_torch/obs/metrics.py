@@ -157,6 +157,48 @@ class MetricsRegistry:
         with self._lock:
             self._families.clear()
 
+    # --------------------------------------------- worker-process transport
+    def dump(self) -> list[dict]:
+        """Picklable snapshot for shipping worker-side metrics back to the
+        parent process (see :func:`repro_torch.obs.spans.call_with_obs`)."""
+        out = []
+        for fam in self.collect():
+            for key, metric in sorted(fam.metrics.items()):
+                entry = {"name": fam.name, "kind": fam.kind, "help": fam.help,
+                         "labels": dict(key)}
+                if fam.kind == "histogram":
+                    entry["edges"] = metric.edges
+                    entry["counts"] = list(metric.counts)
+                    entry["sum"] = metric.sum
+                    entry["count"] = metric.count
+                else:
+                    entry["value"] = metric.value
+                out.append(entry)
+        return out
+
+    def merge(self, entries: list[dict]) -> None:
+        """Fold a :meth:`dump` from another process into this registry:
+        counters and histograms add, gauges last-write-win."""
+        for e in entries:
+            labels = e.get("labels", {})
+            if e["kind"] == "counter":
+                self.counter(e["name"], e.get("help", ""), **labels).inc(
+                    e["value"])
+            elif e["kind"] == "gauge":
+                self.gauge(e["name"], e.get("help", ""), **labels).set(
+                    e["value"])
+            else:
+                h = self.histogram(e["name"], e.get("help", ""),
+                                   buckets=tuple(e["edges"]), **labels)
+                if tuple(h.edges) != tuple(e["edges"]):
+                    raise ValueError(
+                        f"histogram {e['name']!r}: bucket edges differ "
+                        "between processes")
+                for i, c in enumerate(e["counts"]):
+                    h.counts[i] += c
+                h.sum += e["sum"]
+                h.count += e["count"]
+
 
 #: The process-wide default registry. Everything in ``repro_torch`` records here.
 REGISTRY = MetricsRegistry()
@@ -209,9 +251,7 @@ def observe(name: str, value: float, help: str = "", **labels) -> None:
 # ------------------------------------------------- degradation-ladder metrics
 #: the robustness layer's metric families (name, kind, help) — preregistered
 #: zero-valued by :func:`init_degradation_metrics` so expositions always
-#: carry them even on fault-free runs. The JAX package's fifth family,
-#: ``repro_partition_retries_total``, counts its process pool's retries; the
-#: port runs in one process and never emits it.
+#: carry them even on fault-free runs.
 DEGRADATION_FAMILIES: tuple[tuple[str, str, str], ...] = (
     ("repro_fallbacks_total", "counter",
      "degradation-ladder transitions, labelled {from, to, reason}"),
@@ -219,6 +259,8 @@ DEGRADATION_FAMILIES: tuple[tuple[str, str, str], ...] = (
      "telemetry shards skipped or quarantined, by reason"),
     ("repro_shards_repaired_total", "counter",
      "telemetry shards repaired by the hygiene layer, by reason"),
+    ("repro_partition_retries_total", "counter",
+     "pool partition attempts that crashed/hung and were retried or degraded"),
     ("repro_coverage_fraction", "gauge",
      "rows analyzed / rows on disk for the last run, by stage"),
 )
@@ -226,9 +268,9 @@ DEGRADATION_FAMILIES: tuple[tuple[str, str, str], ...] = (
 
 def fallback(frm: str, to: str, reason: str, amount: float = 1.0) -> None:
     """Record one degradation-ladder transition (``repro_fallbacks_total``):
-    compact -> row, sidecar -> rebuild, manifest -> rescan, and the live
-    tick ladder's rungs. ``from`` is a Python keyword, hence the dict
-    unpacking. Gated like every module helper — free when obs is off."""
+    compact -> row, sidecar -> rebuild, pool -> in_process, manifest ->
+    rescan, and the live tick ladder's rungs. ``from`` is a Python keyword,
+    hence the dict unpacking. Gated like every module helper — free when obs is off."""
     if not STATE.enabled:
         return
     REGISTRY.counter(

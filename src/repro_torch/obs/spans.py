@@ -2,7 +2,11 @@
 
 ``span(name)`` is a context manager that records a :class:`SpanRecord`
 (start time, duration, parent link) into a process-local buffer.  Nesting is
-tracked per-thread with an explicit stack; span ids are ``"{pid:x}-{seq}"``.
+tracked per-thread with an explicit stack; span ids are ``"{pid:x}-{seq}"``
+so traces from process-pool workers re-parent cleanly into the parent
+process's trace (see :func:`call_with_obs` / :func:`absorb`, which
+``map_shard_partitions`` and ``replay_ir`` use to carry worker spans and
+metrics home).
 
 When observability is disabled, ``span()`` returns a shared no-op context
 manager: one branch, zero allocation — cheap enough to leave in every stage
@@ -16,9 +20,10 @@ import os
 import pathlib
 import threading
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
-from repro_torch.obs.metrics import STATE
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs.metrics import REGISTRY, STATE
 
 
 @dataclasses.dataclass
@@ -40,6 +45,9 @@ _SPANS: list[SpanRecord] = []
 _TLS = threading.local()
 _SEQ_LOCK = threading.Lock()
 _SEQ = 0
+# Parent span id inherited from another process (set in pool workers so the
+# worker's root span hangs off the submitting span in the parent trace).
+_ROOT_PARENT: str | None = None
 
 
 def _next_id() -> str:
@@ -87,7 +95,7 @@ class _Span:
 
     def __enter__(self):
         stack = _stack()
-        self.parent_id = stack[-1] if stack else None
+        self.parent_id = stack[-1] if stack else _ROOT_PARENT
         self.span_id = _next_id()
         stack.append(self.span_id)
         self._t_wall = time.time()
@@ -112,7 +120,7 @@ def span(name: str, **attrs):
 
 
 def spans() -> list[SpanRecord]:
-    """Snapshot of all spans recorded so far."""
+    """Snapshot of all spans recorded (and absorbed) so far."""
     return list(_SPANS)
 
 
@@ -194,3 +202,53 @@ def format_span_tree(records: Sequence[SpanRecord] | None = None,
     for root in span_tree(records):
         walk(root, 0)
     return "\n".join(lines)
+
+
+# --------------------------------------------- process-pool span transport
+def worker_token(name: str = "worker") -> dict | None:
+    """Context to ship to a pool worker so its spans/metrics rejoin this
+    process's trace.  ``None`` (obs disabled) makes :func:`call_with_obs`
+    a plain passthrough."""
+    if not STATE.enabled:
+        return None
+    stack = _stack()
+    return {"name": name, "parent_id": stack[-1] if stack else None}
+
+
+def call_with_obs(token: dict | None, fn: Callable, *args):
+    """Run ``fn(*args)`` in a (fresh) worker process, recording under
+    ``token``'s parent span; returns ``(result, payload)`` where payload
+    carries the worker's spans and metrics (``None`` when obs is off).
+
+    Must stay module-level so pool submissions pickle.
+    """
+    if token is None:
+        return fn(*args), None
+    global _ROOT_PARENT
+    # spawn/forkserver children start with obs off and empty buffers; enable
+    # for the duration of the call and ship everything back explicitly.
+    prev_enabled, prev_root = STATE.enabled, _ROOT_PARENT
+    _metrics.enable()
+    _ROOT_PARENT = token.get("parent_id")
+    try:
+        with span(token.get("name", "worker")):
+            result = fn(*args)
+        payload = {"spans": list(_SPANS), "metrics": REGISTRY.dump()}
+    finally:
+        _ROOT_PARENT = prev_root
+        STATE.enabled = prev_enabled
+    if not prev_enabled:
+        # fresh worker: drop buffers we just shipped (workers are reused
+        # across submissions within one pool)
+        clear_spans()
+        REGISTRY.reset()
+    return result, payload
+
+
+def absorb(payload: dict | None) -> None:
+    """Parent side: fold a worker payload into this process's trace and
+    registry. Worker span ids are pid-prefixed, so no collisions."""
+    if payload is None:
+        return
+    _SPANS.extend(payload["spans"])
+    REGISTRY.merge(payload["metrics"])

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import TYPE_CHECKING, Iterable
 
@@ -37,7 +38,7 @@ import repro_torch.obs as obs
 from repro_torch.core.energy import EnergyBreakdown, StreamingIntegrator, integrate, merge
 from repro_torch.core.intervals import Interval, extract_intervals
 from repro_torch.core.states import ClassifierConfig, DEFAULT_CLASSIFIER, DeviceState, classify_series
-from repro_torch.telemetry.records import TelemetryFrame
+from repro_torch.telemetry.records import StreamOrderError, TelemetryFrame
 
 if TYPE_CHECKING:
     from repro_torch.telemetry.storage import TelemetryStore
@@ -193,7 +194,7 @@ class FleetAccumulator:
             # must hold wherever the boundary falls — so an exactly re-fed
             # abutting shard is NOT detectable here; genuine reordering is
             if float(ts[0]) < g.ts_last:
-                raise ValueError(
+                raise StreamOrderError(
                     f"chunks for stream {key} are not time-ordered: got "
                     f"t={float(ts[0])} after t={g.ts_last}")
             g.ts_first = min(g.ts_first, float(ts[0]))
@@ -209,6 +210,34 @@ class FleetAccumulator:
             if g.state_pieces is not None:
                 g.state_pieces.append(states)
             g.integrator.update(states, seg["power"])
+
+    def merge(self, other: "FleetAccumulator") -> "FleetAccumulator":
+        """Absorb an accumulator that processed a *disjoint* set of streams.
+
+        This is the reduction step of process-pool shard analysis
+        (``analyze_store(workers=N)``): each worker accumulates a
+        host-label partition, the main process merges. Overlapping stream
+        keys raise — per-stream run carry is sequential and cannot be
+        joined after the fact. ``finalize`` after merging is bit-identical
+        to the serial pass: per-stream results are computed identically,
+        streams are re-sorted globally, and the unattributed total is
+        ``math.fsum`` (exact, hence order-independent) over the same
+        per-chunk partial sums.
+        """
+        overlap = self._groups.keys() & other._groups.keys()
+        if overlap:
+            raise ValueError(
+                "cannot merge accumulators with overlapping streams: "
+                f"{sorted(overlap)[:3]}...")
+        if (other.min_job_duration_s, other.min_interval_s, other.config,
+                other.dt_s) != (self.min_job_duration_s, self.min_interval_s,
+                                self.config, self.dt_s):
+            raise ValueError("cannot merge accumulators with different configs")
+        self._groups.update(other._groups)
+        self._unattributed_pieces.extend(other._unattributed_pieces)
+        self.n_rows += other.n_rows
+        self.n_chunks += other.n_chunks
+        return self
 
     def finalize(self) -> FleetAnalysis:
         """Flush carried run state and assemble the :class:`FleetAnalysis`."""
@@ -274,6 +303,233 @@ def analyze_fleet(
     return acc.finalize()
 
 
+def _pool_context():
+    """forkserver where available, spawn elsewhere — never plain fork, so a
+    parent with a live CUDA context is safe: the worker bodies are host
+    NumPy, module-level, and import nothing that initialises CUDA or builds
+    a kernel. Both start methods re-execute the caller's main module in
+    each worker, so scripts calling ``workers > 1`` entry points at top
+    level need the standard ``if __name__ == "__main__":`` guard (as
+    ``chip_smoke.py`` has)."""
+    import multiprocessing
+    try:
+        return multiprocessing.get_context("forkserver")
+    except ValueError:
+        return multiprocessing.get_context("spawn")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultTolerance:
+    """Fault-supervisor policy for process-pool stages.
+
+    ``max_retries`` bounds how many times a *crashed* (BrokenProcessPool) or
+    *timed-out* partition is resubmitted — with exponential backoff starting
+    at ``backoff_s`` — before it degrades to in-process execution in the
+    parent (recorded as a ``pool -> in_process`` fallback). ``timeout_s``
+    is the wall-clock budget for one pool round (``None`` = never time out;
+    hung workers then hang the stage, exactly as before this layer existed).
+    Worker-raised exceptions are *not* retried: a deterministic error (a
+    corrupt shard under ``strict=True``, a bad config) propagates
+    immediately with its original type.
+
+    The live controller uses the same object one level up, for its tick
+    (:class:`repro_torch.live.supervisor.TickSupervisor`): ``max_retries``
+    bounds the same-rung retries of a failed tick attempt, ``timeout_s`` is
+    the budget of the whole ladder walk.
+    """
+
+    max_retries: int = 2
+    timeout_s: float | None = None
+    backoff_s: float = 0.05
+
+
+DEFAULT_FAULT_TOLERANCE = FaultTolerance()
+
+
+def _fault_plan() -> str | None:
+    """The active fault-plan path, captured in the *parent* at submission
+    time. It must travel as a task argument, not ambiently: forkserver
+    children inherit the fork server's environment from when it first
+    launched, so a plan installed later would be invisible to them."""
+    return os.environ.get("REPRO_FAULT_PLAN")   # == faults.ENV_PLAN
+
+
+def _partition_body(stage, plan, worker, root, shard_files, *extra):
+    """Pool submission wrapper: give the fault-injection harness its hook,
+    then run the worker. The plan check keeps the harness import (and any
+    file reads) entirely off the production path."""
+    if plan:
+        from repro_torch.testing import faults
+        faults.check(stage, plan)
+    return worker(root, shard_files, *extra)
+
+
+def _shutdown_pool(pool, hard: bool) -> None:
+    if hard:
+        # hung or crashed round: terminate live workers (a hung worker
+        # never exits on its own) and abandon queued futures
+        for proc in list((getattr(pool, "_processes", None) or {}).values()):
+            try:
+                proc.terminate()
+            except Exception:
+                pass
+        pool.shutdown(wait=False, cancel_futures=True)
+    else:
+        pool.shutdown(wait=True)
+
+
+def run_supervised(fn, task_args: list[tuple], stage: str,
+                   fault: FaultTolerance | None = None) -> list:
+    """Run ``fn(*args)`` for each args-tuple in a process pool under the
+    bounded-retry fault supervisor; returns results **in task order**.
+
+    Crash/hang handling: a task whose worker dies (``BrokenProcessPool``)
+    or exceeds ``fault.timeout_s`` is retried in a fresh pool up to
+    ``fault.max_retries`` times with exponential backoff, then degraded to
+    in-process execution in the parent — so one bad worker can no longer
+    take down an entire ``analyze_store``/``run_sweep``. Note a broken pool
+    fails *every* in-flight task of that round; innocent tasks are simply
+    retried and succeed. Worker-raised exceptions propagate immediately
+    (they are deterministic; retrying cannot help). Obs payloads are
+    absorbed in task order after all tasks settle, preserving the
+    bit-identical obs-on/obs-off contract.
+    """
+    from concurrent.futures import TimeoutError as FutTimeout
+    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures.process import BrokenProcessPool
+
+    fault = fault or DEFAULT_FAULT_TOLERANCE
+    n = len(task_args)
+    results: dict[int, object] = {}
+    payloads: dict[int, object] = {}
+    attempts = [0] * n
+    token = obs.worker_token(f"{stage}.partition")
+    pending = list(range(n))
+    while pending:
+        pool = ProcessPoolExecutor(max_workers=len(pending),
+                                   mp_context=_pool_context())
+        futures = {i: pool.submit(obs.call_with_obs, token, fn, *task_args[i])
+                   for i in pending}
+        deadline = (time.monotonic() + fault.timeout_s
+                    if fault.timeout_s is not None else None)
+        failed: list[tuple[int, BaseException]] = []
+        error: BaseException | None = None
+        for i in pending:
+            if error is not None:
+                futures[i].cancel()
+                continue
+            try:
+                budget = (None if deadline is None
+                          else max(deadline - time.monotonic(), 0.0))
+                results[i], payloads[i] = futures[i].result(timeout=budget)
+            except (BrokenProcessPool, FutTimeout) as e:
+                failed.append((i, e))
+            except BaseException as e:
+                error = e               # worker-raised: not retryable
+        _shutdown_pool(pool, hard=bool(failed) or error is not None)
+        if error is not None:
+            raise error
+        pending = []
+        backoff_round = 0
+        for i, exc in failed:
+            attempts[i] += 1
+            reason = type(exc).__name__
+            obs.counter("repro_partition_retries_total",
+                        stage=stage, reason=reason,
+                        help="pool partition attempts that crashed/hung and "
+                             "were retried or degraded")
+            if attempts[i] <= fault.max_retries:
+                pending.append(i)
+                backoff_round = max(backoff_round, attempts[i])
+            else:
+                obs.fallback("pool", "in_process", reason)
+                with obs.span(f"{stage}.partition", degraded=True):
+                    results[i] = fn(*task_args[i])
+                payloads[i] = None
+        if pending and fault.backoff_s > 0:
+            time.sleep(min(fault.backoff_s * (2 ** (backoff_round - 1)), 2.0))
+    for i in range(n):
+        obs.absorb(payloads.get(i))
+    return [results[i] for i in range(n)]
+
+
+def map_shard_partitions(store, hosts, workers, worker, extra_args, merge,
+                         stage: str = "pipeline",
+                         fault: FaultTolerance | None = None):
+    """Run ``worker(root, shard_files, *extra_args)`` over host-label
+    partitions of a store and fold the results with ``merge(acc, part)``.
+    Every worker body returns ``(obj, skips)`` — its result plus the shard
+    skip records its ``strict=False`` reads produced — and this returns the
+    folded ``(result, skips)`` with skips concatenated in partition order.
+
+    The shared scaffold of ``analyze_store(workers=N)`` and
+    ``repro_torch.whatif.sweep.run_sweep``. Determinism contract: partitions are
+    disjoint in streams (see :meth:`TelemetryStore.partition_hosts`) and
+    results are merged **in submit order**, so for order-exact reductions
+    (``math.fsum`` pieces, sorted stream keys) any worker count is
+    bit-identical to the serial pass. With one partition or ``workers <= 1``
+    the worker runs in-process.
+
+    Pool rounds run under the :func:`run_supervised` fault supervisor
+    (crashed/hung partitions retry with backoff, then degrade to
+    in-process; policy via ``fault``, default
+    :data:`DEFAULT_FAULT_TOLERANCE`).
+
+    When observability is enabled (:mod:`repro_torch.obs`), each pool submission
+    is wrapped in :func:`repro_torch.obs.call_with_obs`: the worker runs under a
+    ``{stage}.partition`` span in its own process, and its spans/metrics
+    are folded back into the parent trace in submit order.  Obs off, the
+    wrapper is a pure passthrough, and merge order is unchanged either way.
+    """
+    # materialize: `hosts` may be a one-shot iterable, and it is consumed
+    # both by partition_hosts and by the serial fallback below
+    hosts = list(hosts) if hosts is not None else None
+    partitions = store.partition_hosts(workers, hosts) if workers > 1 else []
+    if len(partitions) <= 1:
+        obs.gauge("repro_pool_workers", 1.0, stage=stage,
+                  help="process-pool fan-out per stage (1 = in-process)")
+        with obs.span(f"{stage}.partition", serial=True):
+            return _partition_body(stage, _fault_plan(), worker,
+                                   str(store.root),
+                                   store.shard_files(hosts), *extra_args)
+    obs.gauge("repro_pool_workers", float(len(partitions)), stage=stage,
+              help="process-pool fan-out per stage (1 = in-process)")
+    parts = run_supervised(
+        _partition_body,
+        [(stage, _fault_plan(), worker, str(store.root),
+          store.shard_files(part), *extra_args) for part in partitions],
+        stage=stage, fault=fault)
+    result, skips = None, []
+    for part, part_skips in parts:
+        skips.extend(part_skips)
+        result = part if result is None else merge(result, part)
+    return result, skips
+
+
+def _accumulate_shards(
+    root: str,
+    shard_files: list[str],
+    mmap: bool,
+    acc_kwargs: dict,
+    strict: bool = True,
+    verify: bool = False,
+) -> tuple[FleetAccumulator, list[dict]]:
+    """Process-pool worker body: accumulate one shard subset (must stay
+    module-level picklable). Returns ``(accumulator, skip_records)`` —
+    under ``strict=False`` unreadable shards are skipped and recorded
+    instead of raising (see :meth:`TelemetryStore.read_shard_or_skip`)."""
+    from repro_torch.telemetry.storage import TelemetryStore
+    store = TelemetryStore(root)
+    acc = FleetAccumulator(**acc_kwargs)
+    skips: list[dict] = []
+    for name in shard_files:
+        frame = store.read_shard_or_skip(name, skips, mmap=mmap,
+                                         strict=strict, verify=verify)
+        if frame is not None:
+            acc.update(frame)
+    return acc, skips
+
+
 def _analyze_ir(ir, hosts, min_job_duration_s: float,
                 min_interval_s: float | None, dt_s: float) -> FleetAnalysis:
     """Run-algebra fleet analysis over a prebuilt :class:`RunIR`.
@@ -331,7 +587,11 @@ def analyze_store(
     min_interval_s: float = 5.0,
     config: ClassifierConfig = DEFAULT_CLASSIFIER,
     dt_s: float = 1.0,
+    workers: int = 1,
+    mmap: bool = False,
     strict: bool = True,
+    verify: bool = False,
+    fault: FaultTolerance | None = None,
     compact: bool | None = None,
     ir=None,
 ) -> FleetAnalysis:
@@ -357,16 +617,27 @@ def analyze_store(
     ``unattributed_energy_j`` are bit-identical; energies agree within
     1e-9 relative (float summation order).
 
+    ``workers > 1`` spreads host-label partitions over a process pool
+    (streams never span host labels, so partitions are disjoint) and merges
+    the partial accumulators — bit-identical to the serial pass, including
+    ``unattributed_energy_j`` (see :meth:`FleetAccumulator.merge`).
+    ``mmap=True`` memory-maps ``npy_dir`` shards (zero-copy reads; see
+    :meth:`TelemetryStore.iter_shards`).
+
     Robustness: ``strict=False`` skips unreadable shards instead of raising
     — the result is bit-identical to analyzing the clean subset, with the
     skipped shards recorded in ``result.skipped`` and ``result.coverage``
-    reporting rows analyzed / rows on disk.
+    reporting rows analyzed / rows on disk. ``verify=True`` additionally
+    checksums every shard read (on the compact path that is the shard
+    reads IR acquisition performs; cached IRs were verified when built).
+    ``fault`` tunes the pool's crash/hang supervisor (see
+    :class:`FaultTolerance`).
     """
     hosts = list(hosts) if hosts is not None else None
     t0 = time.perf_counter()
     result = None
     n_rows = n_chunks = n_runs = 0
-    with obs.span("analyze_store"):
+    with obs.span("analyze_store", workers=workers):
         if compact is not False:
             # local import: whatif.ir imports core/* which pipeline feeds
             from repro_torch.telemetry.storage import ShardReadError
@@ -387,7 +658,8 @@ def analyze_store(
                     ir_obj = ir_mod.get_ir(
                         store,
                         ir_mod.IRConfig(classifier=config, dt_s=dt_s),
-                        strict=strict)
+                        workers=workers, mmap=mmap, strict=strict,
+                        verify=verify, fault=fault)
                 skips = [dict(s) for s in ir_obj.skipped
                          if hosts is None or s.get("host", "") in set(hosts)]
                 with obs.span("analyze.reduce_runs"):
@@ -402,17 +674,16 @@ def analyze_store(
                           else "shard_read_error")
                 obs.fallback("compact", "row", reason)
         if result is None:
-            acc = FleetAccumulator(
+            acc_kwargs = dict(
                 min_job_duration_s=min_job_duration_s,
                 min_interval_s=min_interval_s,
                 config=config,
                 dt_s=dt_s,
             )
-            skips = []
-            with obs.span("analyze.accumulate"):
-                for frame in store.iter_shards(hosts, strict=strict,
-                                               skips=skips):
-                    acc.update(frame)
+            acc, skips = map_shard_partitions(
+                store, hosts, workers, _accumulate_shards,
+                (mmap, acc_kwargs, strict, verify),
+                merge=lambda a, b: a.merge(b), stage="analyze", fault=fault)
             n_rows, n_chunks = acc.n_rows, acc.n_chunks
             with obs.span("analyze.finalize"):
                 result = acc.finalize()
@@ -442,27 +713,6 @@ def analyze_store(
         obs.gauge("repro_analyze_jobs", float(len(result.jobs)),
                   help="jobs surviving the min-duration filter")
     return result
-
-
-@dataclasses.dataclass(frozen=True)
-class FaultTolerance:
-    """Fault-supervisor policy: how often a failed attempt is retried,
-    the backoff between tries, and the wall-clock budget.
-
-    The JAX package's process-pool stages use it per partition; the port
-    runs in one process and uses it one level up, for the live controller's
-    tick (:class:`repro_torch.live.supervisor.TickSupervisor`):
-    ``max_retries`` bounds the same-rung retries of a failed tick attempt
-    (exponential backoff from ``backoff_s``), ``timeout_s`` is the budget of
-    the whole ladder walk (``None`` = never time out).
-    """
-
-    max_retries: int = 2
-    timeout_s: float | None = None
-    backoff_s: float = 0.05
-
-
-DEFAULT_FAULT_TOLERANCE = FaultTolerance()
 
 
 def per_job_fraction_cdf(jobs: Iterable[JobAnalysis]) -> dict[str, np.ndarray]:

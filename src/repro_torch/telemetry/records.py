@@ -54,6 +54,16 @@ ACTIVITY_FIELDS = ("sm", "tensor", "fp16", "fp32", "fp64", "dram")
 COMM_FIELDS = ("pcie_tx", "pcie_rx", "nvlink_tx", "nvlink_rx", "ici_tx", "ici_rx")
 
 
+class StreamOrderError(ValueError):
+    """A (job, host, device) stream's chunks arrived out of time order, e.g.
+    a shard whose producer's clock stepped back. Raised by the streaming
+    consumers (:class:`repro_torch.telemetry.pipeline.FleetAccumulator`, the
+    what-if row replayers) where the JAX package raises a plain
+    ``ValueError``; the subclass lets the live tick ladder tell poisoned
+    data on the host from a fault on the card
+    (:data:`repro_torch.live.supervisor.HOST_DATA_ERRORS`)."""
+
+
 @dataclasses.dataclass
 class TelemetryFrame:
     """Columnar batch of samples, aligned by row."""

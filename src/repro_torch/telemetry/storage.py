@@ -3,7 +3,10 @@
 Two shard formats behind one manifest:
 
 * ``npz`` (default) — columnar zip-deflate ``.npz``, smallest on disk;
-* ``npy_dir`` — one raw ``.npy`` per column in a shard directory.
+* ``npy_dir`` — one raw ``.npy`` per column in a shard directory, readable
+  with ``np.load(mmap_mode="r")`` so ``iter_shards(mmap=True)`` is
+  zero-copy: columns a pass never touches (e.g. host counters during a
+  what-if sweep) are never faulted into memory.
 
 Append-oriented: writers append shards labelled (host, day) — possibly
 several per label, e.g. one per device or per flush — and a reader
@@ -378,8 +381,13 @@ class TelemetryStore:
         return self.write_shard(frame, host=host, day=day,
                                 flush_manifest=flush_manifest)
 
-    def read_shard(self, name: str, verify: bool = False) -> TelemetryFrame:
+    def read_shard(self, name: str, mmap: bool = False,
+                   verify: bool = False) -> TelemetryFrame:
         """Read one shard by manifest name.
+
+        ``mmap=True`` memory-maps ``npy_dir`` columns (zero-copy until a
+        column is actually gathered); ``npz`` shards are deflate-compressed,
+        which cannot be mapped, so they fall back to a normal load.
 
         A missing or unreadable shard raises :class:`ShardReadError` with a
         machine-readable ``reason`` (never a raw ``FileNotFoundError`` /
@@ -394,8 +402,9 @@ class TelemetryStore:
             if path.is_dir():
                 if verify:
                     self._verify_checksum(name, path)
+                mode = "r" if mmap else None
                 return TelemetryFrame({
-                    f: np.load(path / f"{f}.npy")
+                    f: np.load(path / f"{f}.npy", mmap_mode=mode)
                     for f in FIELDS if (path / f"{f}.npy").exists()})
             if not path.exists():
                 raise ShardReadError(name, "missing_file",
@@ -418,14 +427,15 @@ class TelemetryStore:
                                  "bytes on disk differ from write-time sha256")
 
     def read_shard_or_skip(self, name: str, skips: list,
-                           strict: bool = True,
+                           mmap: bool = False, strict: bool = True,
                            verify: bool = False) -> TelemetryFrame | None:
         """:meth:`read_shard`, but with ``strict=False`` a bad shard returns
         ``None`` and appends a skip record ``{"file", "host", "rows",
         "reason"}`` to ``skips`` (rows from the manifest — the coverage
-        denominator the pipelines account against)."""
+        denominator the pipelines account against). The shared read step of
+        every fault-tolerant worker body."""
         try:
-            return self.read_shard(name, verify=verify)
+            return self.read_shard(name, mmap=mmap, verify=verify)
         except ShardReadError as e:
             if strict:
                 raise
@@ -439,7 +449,8 @@ class TelemetryStore:
             return None
 
     def iter_shards(self, hosts: Iterable[str] | None = None,
-                    strict: bool = True, verify: bool = False,
+                    mmap: bool = False, strict: bool = True,
+                    verify: bool = False,
                     skips: list | None = None) -> Iterator[TelemetryFrame]:
         """Yield shard frames one at a time, in manifest (append) order.
 
@@ -447,7 +458,10 @@ class TelemetryStore:
         and the what-if sweep consume this so that at most one shard is
         materialized; writers append each stream's shards in time order,
         which is exactly the per-stream ordering :class:`FleetAccumulator`
-        requires.
+        requires. With ``mmap=True``, ``npy_dir`` shards arrive as
+        ``np.memmap``-backed columns — cold columns are never read off disk
+        (note ``TelemetryFrame.group_streams`` gathers every column it
+        sorts, so the win is for passes that slice or subset columns).
 
         ``strict=False`` skips missing/corrupt shards instead of raising,
         appending one record per skip to ``skips`` (when given) so callers
@@ -458,7 +472,7 @@ class TelemetryStore:
         for s in self.manifest["shards"]:
             if hosts is None or s["host"] in hosts:
                 frame = self.read_shard_or_skip(
-                    s["file"], sink, strict=strict, verify=verify)
+                    s["file"], sink, mmap=mmap, strict=strict, verify=verify)
                 if frame is not None:
                     yield frame
 
@@ -521,6 +535,32 @@ class TelemetryStore:
         host_filter = set(hosts) if hosts is not None else None
         return sum(s["rows"] for s in self.manifest["shards"]
                    if host_filter is None or s["host"] in host_filter)
+
+    def partition_hosts(self, workers: int,
+                        hosts: Iterable[str] | None = None) -> list[list[str]]:
+        """Split host labels into at most ``workers`` row-balanced partitions
+        (greedy, heaviest host first — deterministic).
+
+        Host labels are the parallelism unit for process-pool analysis:
+        every (job, host, device) stream lives entirely under one host
+        label, so partitions hold disjoint streams and per-stream carry
+        state never crosses workers.
+        """
+        host_filter = set(hosts) if hosts is not None else None
+        rows_per_host: dict[str, int] = {}
+        for s in self.manifest["shards"]:
+            if host_filter is None or s["host"] in host_filter:
+                rows_per_host[s["host"]] = (
+                    rows_per_host.get(s["host"], 0) + s["rows"])
+        ordered = sorted(rows_per_host, key=lambda h: (-rows_per_host[h], h))
+        n_parts = max(1, min(workers, len(ordered)))
+        parts: list[list[str]] = [[] for _ in range(n_parts)]
+        loads = [0] * n_parts
+        for h in ordered:
+            i = loads.index(min(loads))
+            parts[i].append(h)
+            loads[i] += rows_per_host[h]
+        return parts
 
     def shard_files(self, hosts: Iterable[str] | None = None) -> list[str]:
         """Manifest-ordered shard file names, optionally host-filtered."""

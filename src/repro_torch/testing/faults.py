@@ -8,24 +8,30 @@ Three families of faults, all reproducible (no randomness, no wall-clock):
   the way a full disk, a torn copy, silent media corruption or a stepped
   clock would.
 * **Process faults** — a *fault plan* written to disk and advertised via the
-  ``REPRO_FAULT_PLAN`` environment variable. :func:`check` is the hook the
-  live controller calls at its tick-phase boundaries
-  (:func:`repro_torch.live.checkpoint.fault_hook`); a stage listed in the
+  ``REPRO_FAULT_PLAN`` environment variable. :func:`check` is the hook at
+  the top of every pool worker submission
+  (:func:`repro_torch.telemetry.pipeline._partition_body`, which receives
+  the path as a task argument captured in the parent: forkserver children
+  keep the fork server's original environment, so the env var alone would
+  go stale) and at the live controller's tick-phase boundaries
+  (:func:`repro_torch.live.checkpoint.fault_hook`). A stage listed in the
   plan's ``crash`` list makes the *first* process to claim the marker file
-  die with ``os._exit`` (an un-catchable hard crash, exactly what ``kill
-  -9`` looks like to the store), ``hang`` sleeps instead. Markers are
+  die with ``os._exit`` (an un-catchable hard crash, exactly what an
+  OOM-kill or ``kill -9`` looks like), ``hang`` sleeps instead. Markers are
   claimed with ``O_CREAT | O_EXCL``, so each fault fires exactly once per
-  plan — the relaunched process runs clean, which is what lets tests assert
-  the resume path deterministically. The installer's own process never
-  faults (``installer_pid`` guard), so only the child it launches dies.
+  plan — retried pool attempts and relaunched processes run clean, which is
+  what lets tests assert the retry and resume paths deterministically. The
+  installer's own process never faults (``installer_pid`` guard), so
+  degraded in-process execution is safe.
 * **Kill-mid-write** — :func:`dying_renames` patches
   :func:`repro_torch.telemetry.storage.atomic_replace` (the single commit
   point of every manifest/shard/sidecar/checkpoint write) to raise,
   simulating a process killed after the temp file is written but before
   the rename commits.
 
-Everything here is stdlib-only and import-free on the hot path: the live
-controller only imports this module when ``REPRO_FAULT_PLAN`` is set.
+Everything here is stdlib-only and import-free on the hot path: the
+pipelines and the live controller only import this module when a plan is
+set.
 """
 from __future__ import annotations
 
@@ -36,8 +42,9 @@ import pathlib
 import time
 
 #: environment variable holding the fault-plan path; also read by
-#: repro_torch.live.checkpoint.fault_hook, so the controller never imports
-#: this module unless a plan is active
+#: repro_torch.telemetry.pipeline._fault_plan and
+#: repro_torch.live.checkpoint.fault_hook, so neither imports this module
+#: unless a plan is active
 ENV_PLAN = "REPRO_FAULT_PLAN"
 #: exit status of an injected crash (distinguishable from a real segfault)
 CRASH_EXIT_CODE = 13
@@ -121,9 +128,10 @@ def install_plan(plan_dir: str | pathlib.Path, crash: tuple | list = (),
                  hang: tuple | list = (), hang_s: float = 60.0) -> pathlib.Path:
     """Write a fault plan and export ``REPRO_FAULT_PLAN`` so child processes
     (which inherit the environment) pick it up. ``crash``/``hang`` list the
-    stage names (the live controller's ``"live_pre_extend"``,
-    ``"live_pre_checkpoint"``, ``"live_mid_checkpoint"``) whose first
-    occurrence in a child should die/stall."""
+    stage names whose first occurrence in a child should die/stall: the
+    pipeline stages (``"analyze"``, ``"sweep"``, ``"ir_build"``,
+    ``"replay_ir"``) and the live controller's (``"live_pre_extend"``,
+    ``"live_pre_checkpoint"``, ``"live_mid_checkpoint"``)."""
     plan_dir = pathlib.Path(plan_dir)
     plan_dir.mkdir(parents=True, exist_ok=True)
     plan = {"installer_pid": os.getpid(), "dir": str(plan_dir),
@@ -166,7 +174,8 @@ def check(stage: str, plan_path: str | None = None) -> None:
     installed, the caller is *not* the installing process (so the process
     that set the plan up never kills itself), and the stage's fire-once
     marker is still unclaimed. ``plan_path`` defaults to the
-    ``REPRO_FAULT_PLAN`` environment variable."""
+    ``REPRO_FAULT_PLAN`` environment variable; pool workers get it passed
+    explicitly (see ``pipeline._fault_plan``)."""
     plan_path = plan_path or os.environ.get(ENV_PLAN)
     if not plan_path:
         return

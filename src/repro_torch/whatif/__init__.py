@@ -66,8 +66,11 @@ from repro_torch.whatif.ir import (  # noqa: F401
 from repro_torch.whatif.replay import (  # noqa: F401
     BatchedPolicyReplayer,
     JobReplay,
+    PolicyReplayer,
     ReplayResult,
+    replay_chunk,
     replay_ir,
+    replay_store,
 )
 from repro_torch.whatif.sweep import (  # noqa: F401
     Frontier,
@@ -77,6 +80,7 @@ from repro_torch.whatif.sweep import (  # noqa: F401
     evaluate,
     pareto_flags,
     run_sweep,
+    sweep_frame,
 )
 from repro_torch.whatif.search import (  # noqa: F401
     CategoricalAxis,

@@ -55,9 +55,8 @@ Memory: unlike the row paths (peak ~ one shard), a resident IR holds the
 store's *power column* (~8 bytes/row, 1/25th of the full schema) plus the
 run tables and lazy per-stream aggregates — the price of O(runs)
 replays. The in-process cache is a small LRU (``_IR_CACHE_MAX``); for a
-corpus whose power column alone exceeds RAM, the NumPy row path (what
-``evaluate(backend="numpy")`` runs for configs the IR cannot carry) stays
-fully out-of-core.
+corpus whose power column alone exceeds RAM, sweep with
+``compact=False`` to stay fully out-of-core.
 
 Observability: build time, compaction ratio and every cache-ladder
 outcome (memory/sidecar hit, invalidation, negative-cache hit) are
@@ -168,11 +167,12 @@ class StreamIR:
     ``power`` keeps the raw samples so nonlinear per-sample aggregates
     (cap clipping, downscale floors) stay exact — computed **once** per
     stream (lazily, memoized in ``_cache``) and shared by every config and
-    every sweep/search round.
+    every sweep/search round. ``_cache`` is dropped on pickling, so
+    process-pool workers rebuild their own aggregates.
     """
 
     key: tuple[int, int, int]        # (job_id, hostname, device_id)
-    host_label: str                  # manifest host label
+    host_label: str                  # manifest host label (partition unit)
     platform_id: int
     ts_first: float
     dt_s: float
@@ -184,6 +184,11 @@ class StreamIR:
 
     def __post_init__(self) -> None:
         self._cache: dict = {}
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["_cache"] = {}
+        return d
 
     # ------------------------------------------------------------------ #
     @property
@@ -390,7 +395,7 @@ class RunIR:
 
 
 # --------------------------------------------------------------------------- #
-# Builder (streaming — same chunk contract as the replayers)
+# Builder (streaming, mergeable — same partition contract as the replayers)
 # --------------------------------------------------------------------------- #
 @dataclasses.dataclass
 class _StreamAccum:
@@ -443,6 +448,8 @@ class IRBuilder:
     stream they arrive in time order), one classification + low-activity
     pass + run-length encoding per chunk — this is the *only* O(rows) work
     the compact path ever does, paid once per (store, IRConfig).
+    ``merge`` absorbs a builder that saw a disjoint stream set (the
+    process-pool reduction).
     """
 
     def __init__(self, config: IRConfig):
@@ -487,7 +494,7 @@ class IRBuilder:
             raise IRUnsupportedError(
                 f"stream {key} is not regularly sampled at dt={self.config.dt_s}"
                 f" (run-level IR stores offsets, not timestamps); replay this "
-                f"store on the row path (backend='numpy')")
+                f"store with compact=False")
         states = classify_series(
             seg["program_resident"].astype(bool),
             seg.activity_pct(),
@@ -520,6 +527,17 @@ class IRBuilder:
             acc.t_low = bool(low[starts[i]])
             acc.t_len = int(ends[i] - starts[i])
             acc.t_sum = float(sums[i])
+
+    def merge(self, other: "IRBuilder") -> "IRBuilder":
+        overlap = self._acc.keys() & other._acc.keys()
+        if overlap:
+            raise ValueError(f"cannot merge IR builders with overlapping "
+                             f"streams: {sorted(overlap)[:3]}...")
+        if other.config != self.config:
+            raise ValueError("cannot merge IR builders with different configs")
+        self._acc.update(other._acc)
+        self._unattr.extend(other._unattr)
+        return self
 
     def finalize(self, source_rows: int = 0, source_shards: int = 0) -> RunIR:
         streams: dict[tuple[int, int, int], StreamIR] = {}
@@ -778,27 +796,46 @@ def _extend_stream_memos(old: StreamIR, new: StreamIR) -> int:
     return new.n_rows - B
 
 
+def _build_partition(root: str, shard_files: list[str], config: IRConfig,
+                     mmap: bool, strict: bool = True,
+                     verify: bool = False) -> tuple[IRBuilder, list[dict]]:
+    """Process-pool worker body (module-level picklable)."""
+    from repro_torch.telemetry.storage import TelemetryStore
+    store = TelemetryStore(root)
+    host_of = {s["file"]: s["host"] for s in store.manifest["shards"]}
+    builder = IRBuilder(config)
+    skips: list[dict] = []
+    for name in shard_files:
+        frame = store.read_shard_or_skip(name, skips, mmap=mmap,
+                                         strict=strict, verify=verify)
+        if frame is not None:
+            builder.update(frame, host_label=host_of.get(name, ""))
+    return builder, skips
+
+
 def build_ir(store: "TelemetryStore", config: IRConfig | None = None,
-             strict: bool = True, verify: bool = False) -> RunIR:
+             workers: int = 1, mmap: bool = False, strict: bool = True,
+             verify: bool = False, fault=None) -> RunIR:
     """One O(rows) pass over the store: group, classify, low-flag, RLE.
+
+    ``workers > 1`` partitions by host label exactly like the sweep; the
+    result is identical for any worker count (per-stream decomposition is
+    independent, streams are reassembled in sorted order).
 
     ``strict=False`` skips unreadable shards (recorded in
     :attr:`RunIR.skipped`) instead of raising — note a skipped mid-stream
     shard usually makes its streams irregular, so the build then raises
     :class:`IRUnsupportedError` and callers replay through the row path,
-    exactly as they would on the clean shard subset. ``verify=True``
-    checksums every shard read against the manifest.
+    exactly as they would on the clean shard subset.
     """
+    from repro_torch.telemetry.pipeline import map_shard_partitions
     config = config or IRConfig()
     t0 = time.perf_counter()
-    with obs.span("ir.build"):
-        builder = IRBuilder(config)
-        skips: list[dict] = []
-        for entry in store.manifest["shards"]:
-            frame = store.read_shard_or_skip(entry["file"], skips,
-                                             strict=strict, verify=verify)
-            if frame is not None:
-                builder.update(frame, host_label=entry.get("host", ""))
+    with obs.span("ir.build", workers=workers):
+        builder, skips = map_shard_partitions(
+            store, None, workers, _build_partition,
+            (config, mmap, strict, verify),
+            merge=lambda a, b: a.merge(b), stage="ir_build", fault=fault)
         ir = builder.finalize(source_rows=store.total_rows,
                               source_shards=len(store.manifest["shards"]))
         ir.skipped = tuple(skips)
@@ -1025,7 +1062,7 @@ def load_sidecar(store: "TelemetryStore", config: IRConfig,
                  source_shards=src_shards, unattributed=unattr)
 
 
-def _try_extend(store: "TelemetryStore", ir: RunIR,
+def _try_extend(store: "TelemetryStore", ir: RunIR, mmap: bool,
                 strict: bool, verify: bool) -> RunIR | None:
     """Catch a stale IR up to the store by appending only the new shards.
 
@@ -1048,8 +1085,8 @@ def _try_extend(store: "TelemetryStore", ir: RunIR,
     chunks = []
     with obs.span("ir.extend", shards=len(shards) - k):
         for s in shards[k:]:
-            frame = store.read_shard_or_skip(s["file"], skips, strict=strict,
-                                             verify=verify)
+            frame = store.read_shard_or_skip(s["file"], skips, mmap=mmap,
+                                             strict=strict, verify=verify)
             if frame is not None:
                 chunks.append((frame, s.get("host", "")))
         try:
@@ -1074,8 +1111,9 @@ _IR_UNSUPPORTED: dict[tuple[str, str], tuple[int, str]] = {}
 
 
 def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
+           workers: int = 1, mmap: bool = False,
            persist: bool = True, strict: bool = True,
-           verify: bool = False) -> RunIR:
+           verify: bool = False, fault=None) -> RunIR:
     """The IR acquisition ladder: in-memory cache, then incremental
     *extension* of a stale cached IR (:func:`_try_extend`: only the
     appended shards are read, only the appended-to streams' tails rebuilt
@@ -1119,7 +1157,7 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
             obs.counter("repro_ir_cache_hits_total", level="memory",
                         help="IR acquisitions served from a cache level")
             return _finish(ir, save=False)
-        ext = _try_extend(store, ir, strict, verify)
+        ext = _try_extend(store, ir, mmap, strict, verify)
         if ext is not None and not (ext.skipped and strict):
             obs.counter("repro_ir_cache_hits_total", level="memory_extend",
                         help="IR acquisitions served from a cache level")
@@ -1139,7 +1177,7 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
     stale = load_sidecar(store, config, allow_stale=True)
     if stale is not None and stale.source_rows != store.total_rows \
             and not (stale.skipped and strict):
-        ext = _try_extend(store, stale, strict, verify)
+        ext = _try_extend(store, stale, mmap, strict, verify)
         if ext is not None and not (ext.skipped and strict):
             obs.counter("repro_ir_cache_hits_total", level="sidecar_extend",
                         help="IR acquisitions served from a cache level")
@@ -1147,7 +1185,8 @@ def get_ir(store: "TelemetryStore", config: IRConfig | None = None,
     obs.counter("repro_ir_cache_misses_total",
                 help="IR acquisitions that required a fresh build")
     try:
-        ir = build_ir(store, config, strict=strict, verify=verify)
+        ir = build_ir(store, config, workers=workers, mmap=mmap,
+                      strict=strict, verify=verify, fault=fault)
     except IRUnsupportedError as e:
         _IR_UNSUPPORTED[cache_key] = (store.total_rows, str(e))
         raise

@@ -21,8 +21,8 @@ The refinement mirrors the data-driven deadline-aware frequency-scaling
 approach of Ilager et al. (budgeted knob search instead of exhaustive
 sweep); the parking/cap axes follow the "Model Parking Tax" trade-off study.
 Everything is deterministic — candidate generation is order-fixed and the
-batched evaluator returns the same outcomes on every call — so a search is
-reproducible across runs.
+batched evaluator is bit-identical for any worker count — so a search is
+reproducible across runs and process-pool widths.
 
 The rounds run on the port's evaluator: the torch backend on the card by
 default (``backend="torch"``, ``device="cuda"``, the cap-bucket scan and the
@@ -31,9 +31,8 @@ the host oracle. Rounds, candidate order, the knee test and the trace follow
 the JAX package's search line by line, so a search here evaluates the same
 configs in the same order as the JAX package's over the same store (time
 and count fields exact, energies and penalties within 1e-9 relative). The
-port does not take the JAX package's ``workers``, ``mmap``, ``batched``,
-``compact``, ``dist``, ``verify`` or ``fault`` arguments, nor
-``backend="jax"``; passing one raises.
+port takes every argument of the JAX package's search but ``dist`` (the
+config-axis mesh) and ``backend="jax"``; passing either raises.
 
 Typical use::
 
@@ -486,13 +485,18 @@ def search_frontier(
     knee_patience: int = 2,
     anchors_per_family: int = 2,
     include_noop: bool = True,
+    workers: int = 1,
     hosts: Iterable[str] | None = None,
+    mmap: bool = False,
+    batched: bool = True,
+    compact: bool | None = None,
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
     init_frontier=None,
     strict: bool = True,
     verify: bool = False,
+    fault=None,
     **replayer_kwargs,
 ) -> SearchResult:
     """Budgeted closed-loop knob search over a telemetry store.
@@ -509,15 +513,16 @@ def search_frontier(
     consecutive rounds, no axis can be subdivided above its resolution, or
     ``max_rounds`` is reached.
 
-    The run-level IR is acquired **once** — memory cache, store sidecar, or
-    one O(rows) build — and every refinement round replays against it, so
+    With the compact path on (``compact=None`` follows ``batched``), the
+    run-level IR is acquired **once** — memory cache, store sidecar, or one
+    O(rows) build — and every refinement round replays against it, so
     rounds cost O(runs x new configs) instead of re-streaming and
     re-classifying the store (:mod:`repro_torch.whatif.ir`). Pass ``ir=`` to
     reuse one across searches. ``backend="torch"`` (the default) replays
-    every round on ``device`` (``"cuda"`` by default, raising without CUDA;
-    ``"cpu"`` runs the kernels' plain versions) and refuses configs and
-    stores the IR cannot carry; ``backend="numpy"`` is the host oracle,
-    which replays those on the row path.
+    every IR-capable config on ``device`` (``"cuda"`` by default, raising
+    without CUDA; ``"cpu"`` runs the kernels' plain versions);
+    ``backend="numpy"`` is the host oracle. On both, configs and stores the
+    IR cannot carry replay on the row path.
 
     ``init_frontier`` (a :class:`~repro_torch.whatif.sweep.Frontier` or a
     saved frontier JSON path) warm-starts the search: the previous
@@ -527,19 +532,20 @@ def search_frontier(
 
     Determinism: candidates are generated in family/axis order from sorted
     tried-value sets and evaluated through the batched replay, so a search
-    is the same on every run, and evaluates the same configs in the same
-    order on either backend (tests/test_torch_search.py).
+    is the same on every run and for any ``workers``, and evaluates the
+    same configs in the same order on either backend
+    (tests/test_torch_search.py).
 
     Returns a :class:`SearchResult`; its ``frontier`` holds every evaluated
     config with the Pareto subset flagged, ``best`` answers the operator's
     budget question directly.
 
-    ``verify=True`` checksums every shard read against the manifest.
-    ``strict=False`` skips unreadable shards (the returned frontier's
-    ``coverage`` reports the replayed fraction). The JAX package's
-    ``workers``, ``mmap``, ``batched``, ``compact``, ``dist`` and ``fault``
-    raise a ``TypeError`` naming them, and ``backend="jax"`` a
-    ``ValueError``.
+    ``strict`` / ``verify`` / ``fault`` are :func:`repro_torch.whatif.sweep
+    .evaluate`'s dirty-telemetry knobs: ``strict=False`` skips unreadable
+    shards (the returned frontier's ``coverage`` reports the replayed
+    fraction), ``verify=True`` checksums every shard read, ``fault`` tunes
+    the pool crash/hang supervisor. The JAX package's ``dist`` raises a
+    ``TypeError`` naming it, and ``backend="jax"`` a ``ValueError``.
     """
     if max_evals < 1:
         raise ValueError(f"max_evals must be >= 1, got {max_evals}")
@@ -550,12 +556,14 @@ def search_frontier(
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate family names: {names}")
     hosts = list(hosts) if hosts is not None else None
+    if compact is None:
+        compact = batched
     with obs.span("whatif.search", backend=backend, max_evals=max_evals):
         return _search_loop(
             store, budget, families, max_evals, max_rounds, knee_tol,
-            knee_patience, anchors_per_family, include_noop, hosts, ir,
-            backend, device, init_frontier, replayer_kwargs, strict=strict,
-            verify=verify)
+            knee_patience, anchors_per_family, include_noop, workers, hosts,
+            mmap, batched, compact, ir, backend, device, init_frontier,
+            replayer_kwargs, strict=strict, verify=verify, fault=fault)
 
 
 def _search_loop(
@@ -568,7 +576,11 @@ def _search_loop(
     knee_patience: int,
     anchors_per_family: int,
     include_noop: bool,
+    workers: int,
     hosts: Iterable[str] | None,
+    mmap: bool,
+    batched: bool,
+    compact: bool,
     ir,
     backend: str,
     device: str,
@@ -576,6 +588,7 @@ def _search_loop(
     replayer_kwargs: dict,
     strict: bool = True,
     verify: bool = False,
+    fault=None,
 ) -> SearchResult:
     """The :func:`search_frontier` loop body (arguments already resolved).
 
@@ -612,9 +625,10 @@ def _search_loop(
         pols = [pol for _, (_, _, pol) in cands]
         with obs.span("search.round", round=round_no, new=len(cands)):
             outs, rows, runs, skips = _evaluate_outcomes(
-                pols, store, hosts=hosts, replayer_kwargs=replayer_kwargs,
-                ir=ir, backend=backend, device=device, strict=strict,
-                verify=verify)
+                pols, store, workers=workers, hosts=hosts, mmap=mmap,
+                batched=batched, replayer_kwargs=replayer_kwargs,
+                compact=compact, ir=ir, backend=backend, device=device,
+                strict=strict, verify=verify, fault=fault)
         n_rows = rows
         n_runs = max(n_runs, runs)
         if skips:
@@ -668,14 +682,13 @@ def _search_loop(
                         help="warm-start seeds admitted into round 0")
         round0.extend(seed_cands)
 
-    # acquire the shared IR handle ONCE (memory cache / sidecar / one
-    # O(rows) build) and thread it through every refinement round: rounds
-    # then skip get_ir's freshness re-validation entirely, and a store that
-    # grows mid-search cannot shear the search across two IR generations.
-    # On the NumPy backend, configs the handle's config cannot cover replay
-    # per config on the row path inside the evaluator; the torch backend
-    # refuses them, and a store that cannot be compacted.
-    if ir is None:
+    # acquire the shared IR handle ONCE (memory cache / sidecar /
+    # incremental extend / one O(rows) build) and thread it through every
+    # refinement round: rounds then skip get_ir's freshness re-validation
+    # entirely, and a store that grows mid-search cannot shear the search
+    # across two IR generations. Configs the handle's config cannot cover
+    # fall back per-config to the row path inside the evaluator.
+    if compact and ir is None:
         from repro_torch.core.states import DEFAULT_CLASSIFIER
         from repro_torch.whatif import ir as ir_mod
         pols0 = [pol for _, (_, _, pol) in round0]
@@ -684,12 +697,9 @@ def _search_loop(
             replayer_kwargs.get("dt_s", 1.0))
         if any(ir_mod.ir_supported(p, cfg) for p in pols0):
             try:
-                ir = ir_mod.get_ir(store, cfg, strict=strict, verify=verify)
-            except ir_mod.IRUnsupportedError as e:
-                if backend == "torch":
-                    raise ir_mod.IRUnsupportedError(
-                        f"{e}; the torch backend replays only the run-level "
-                        f"IR, pass backend='numpy' for the row path") from e
+                ir = ir_mod.get_ir(store, cfg, workers=workers, mmap=mmap,
+                                   strict=strict, verify=verify, fault=fault)
+            except ir_mod.IRUnsupportedError:
                 ir = None          # e.g. irregular sampling: use rows
                 obs.fallback("compact", "row", "ir_unsupported")
 

@@ -5,19 +5,38 @@ over one :class:`TelemetryStore`, one :class:`PolicyOutcome` per config.
 :func:`run_sweep` is its fixed-grid caller — it assembles a
 :class:`Frontier` (energy saved vs performance penalty per config, the
 Pareto-optimal subset flagged, per-job CDFs attached) from the default
-200-config grid. The closed-loop search (:mod:`repro_torch.whatif.search`)
-is the other caller: the same kernel inside a budgeted refinement loop
+200-config grid. :func:`repro_torch.whatif.search.search_frontier` is the
+*closed-loop* caller: the same kernel inside a budgeted refinement loop
 around the Pareto knee.
 
-Execution model: the store is compacted once into the run-level IR
-(:mod:`repro_torch.whatif.ir`, cached in memory and as a store sidecar),
-and every config replays against its run tables. ``backend="torch"`` (the
-default) does that on the card (:mod:`repro_torch.whatif.backend`) and
-refuses what the IR cannot carry. ``backend="numpy"`` is the host oracle:
-IR-capable configs replay on the run tables
-(:func:`repro_torch.whatif.replay.replay_ir`), the rest stream the store
-shard by shard through one
-:class:`~repro_torch.whatif.replay.BatchedPolicyReplayer`.
+Execution model: by default the store is compacted once into the run-level
+IR (:mod:`repro_torch.whatif.ir`, cached in memory and as a store sidecar),
+and every config the IR can carry replays against its run tables:
+``backend="torch"`` (the default) on the card
+(:mod:`repro_torch.whatif.backend`), ``backend="numpy"`` on the host
+(:func:`repro_torch.whatif.replay.replay_ir`). Configs the IR cannot carry,
+stores it cannot compact and ``compact=False`` take the row path on the
+host, on either backend.
+
+The row path: the store's shards are partitioned by host label (each
+(job, host, device) stream lives entirely under one host label, so
+partitions hold disjoint streams); each partition streams its shards once.
+By default (``batched=True``) the whole grid rides one
+:class:`~repro_torch.whatif.replay.BatchedPolicyReplayer` per partition:
+the grid is grouped into family batches and every stream segment is
+classified, run-length-encoded and baseline-integrated ONCE for all
+configs, each family evaluated as a ``(n_configs, n_samples)`` block — the
+sweep is O(rows + configs), not O(rows x configs). ``batched=False`` keeps
+one :class:`~repro_torch.whatif.replay.PolicyReplayer` per config (sharing
+only grouping + classification via
+:func:`repro_torch.whatif.replay.replay_chunk`); it is the reference oracle
+the batched path is verified bit-identical against. Either way peak memory
+is one shard + per-stream carry state. With ``workers > 1`` partitions run
+in a process pool and the replayers are merged (disjoint-stream merge);
+every per-stream computation is identical and the cross-stream reductions
+are exact (``math.fsum``) or order-fixed (sorted stream keys), so
+``workers=N`` is **bit-identical** to ``workers=1``. The pool's workers are
+host NumPy and never touch the card.
 """
 from __future__ import annotations
 
@@ -31,9 +50,11 @@ import numpy as np
 import repro_torch.obs as obs
 from repro_torch.core.controller import ControllerConfig, DownscaleMode
 from repro_torch.core.imbalance import PoolConfig, PoolPolicy
+from repro_torch.telemetry.pipeline import map_shard_partitions
 from repro_torch.whatif.policies import (DownscalePolicy, NoOpPolicy, ParkingPolicy,
                                          Policy, PowerCapPolicy)
-from repro_torch.whatif.replay import BatchedPolicyReplayer, ReplayResult
+from repro_torch.whatif.replay import (BatchedPolicyReplayer, PolicyReplayer,
+                                       ReplayResult, replay_chunk)
 
 if TYPE_CHECKING:
     from repro_torch.telemetry.storage import TelemetryStore
@@ -230,9 +251,60 @@ def _outcome(result: ReplayResult) -> PolicyOutcome:
     )
 
 
+def _assemble(results: list[ReplayResult], n_rows: int,
+              n_runs: int = 0) -> Frontier:
+    return assemble_frontier([_outcome(r) for r in results], n_rows, n_runs)
+
+
 # --------------------------------------------------------------------------- #
 # Evaluation kernel and its fixed-grid caller
 # --------------------------------------------------------------------------- #
+def _replay_partition(
+    root: str,
+    shard_files: list[str],
+    policies: Sequence[Policy],
+    mmap: bool,
+    replayer_kwargs: dict,
+    strict: bool = True,
+    verify: bool = False,
+) -> tuple[list[PolicyReplayer], list[dict]]:
+    """Stream one shard subset through every policy's replayer (worker body;
+    must stay module-level picklable). The reference oracle path."""
+    from repro_torch.telemetry.storage import TelemetryStore
+    store = TelemetryStore(root)
+    replayers = [PolicyReplayer(p, **replayer_kwargs) for p in policies]
+    skips: list[dict] = []
+    for name in shard_files:
+        frame = store.read_shard_or_skip(name, skips, mmap=mmap,
+                                         strict=strict, verify=verify)
+        if frame is not None:
+            replay_chunk(replayers, frame)
+    return replayers, skips
+
+
+def _replay_partition_batched(
+    root: str,
+    shard_files: list[str],
+    policies: Sequence[Policy],
+    mmap: bool,
+    replayer_kwargs: dict,
+    strict: bool = True,
+    verify: bool = False,
+) -> tuple[BatchedPolicyReplayer, list[dict]]:
+    """Stream one shard subset through the config-axis batched replayer
+    (worker body; must stay module-level picklable)."""
+    from repro_torch.telemetry.storage import TelemetryStore
+    store = TelemetryStore(root)
+    replayer = BatchedPolicyReplayer(policies, **replayer_kwargs)
+    skips: list[dict] = []
+    for name in shard_files:
+        frame = store.read_shard_or_skip(name, skips, mmap=mmap,
+                                         strict=strict, verify=verify)
+        if frame is not None:
+            replayer.update(frame)
+    return replayer, skips
+
+
 def _ir_skips(ir_obj, hosts: Iterable[str] | None) -> list[dict]:
     """The IR's recorded shard skips, filtered to the replayed host set."""
     if not ir_obj.skipped:
@@ -270,50 +342,121 @@ def _coverage_of(store: "TelemetryStore", hosts: Iterable[str] | None,
                / expected)
 
 
-def _replay_rows(
+def _evaluate(
     configs: Sequence[Policy],
     store: "TelemetryStore",
-    hosts: Iterable[str] | None,
-    replayer_kwargs: dict,
-    strict: bool,
-    verify: bool,
-) -> tuple[list[ReplayResult], int, list[dict]]:
-    """The NumPy row path: stream the store shard by shard through one
-    config-axis :class:`BatchedPolicyReplayer`, one shard in memory."""
+    workers: int = 1,
+    hosts: Iterable[str] | None = None,
+    mmap: bool = False,
+    batched: bool = True,
+    replayer_kwargs: dict | None = None,
+    compact: bool | None = None,
+    ir=None,
+    strict: bool = True,
+    verify: bool = False,
+    fault=None,
+) -> tuple[list[ReplayResult], int, int, list[dict]]:
+    """Kernel body shared by :func:`evaluate` / :func:`run_sweep`: one
+    :class:`ReplayResult` per config in input order, plus the replayed
+    job-attributed row count, (when the compact path ran) the IR's run
+    count, and the shard skip records of a ``strict=False`` replay.
+
+    ``compact=None`` resolves to ``batched`` — the row-exact reference
+    paths (``batched=False`` / ``compact=False``) stay byte-for-byte what
+    they were. With the compact path on, configs the IR supports replay
+    against the run axis (:func:`repro_torch.whatif.replay.replay_ir`); the rest
+    — custom policies, mismatched thresholds, unsupported composites —
+    stream the store through the row path, and an irregularly-sampled
+    store falls back entirely (a ``compact -> row`` fallback in the
+    degradation ladder).
+    """
+    configs = list(configs)
+    replayer_kwargs = replayer_kwargs or {}
+    if compact is None:
+        compact = batched
+
+    if compact:
+        from repro_torch.whatif import ir as ir_mod
+        from repro_torch.whatif.replay import replay_ir
+
+        classifier = replayer_kwargs.get("classifier", None)
+        dt_s = replayer_kwargs.get("dt_s", 1.0)
+        if ir is not None:
+            ir_obj = ir
+        else:
+            from repro_torch.core.states import DEFAULT_CLASSIFIER
+            cfg = ir_mod.ir_config_for(
+                configs, classifier or DEFAULT_CLASSIFIER, dt_s)
+            ir_obj = None
+            if any(ir_mod.ir_supported(p, cfg) for p in configs):
+                try:
+                    ir_obj = ir_mod.get_ir(store, cfg, workers=workers,
+                                           mmap=mmap, strict=strict,
+                                           verify=verify, fault=fault)
+                except ir_mod.IRUnsupportedError:
+                    ir_obj = None       # e.g. irregular sampling: use rows
+                    obs.fallback("compact", "row", "ir_unsupported")
+        if ir_obj is not None:
+            sup = [i for i, p in enumerate(configs)
+                   if ir_mod.ir_supported(p, ir_obj.config)]
+            if sup:
+                ir_kwargs = {k: v for k, v in replayer_kwargs.items()
+                             if k in ("platform_of", "min_job_duration_s",
+                                      "min_interval_s", "classifier", "dt_s")}
+                obs.counter("repro_replay_configs_total", float(len(sup)),
+                            path="compact",
+                            help="policy configs replayed, by execution path")
+                sup_results = replay_ir(
+                    ir_obj, [configs[i] for i in sup], hosts=hosts,
+                    workers=workers, fault=fault, **ir_kwargs)
+                skips = _ir_skips(ir_obj, hosts)
+                results: list[ReplayResult | None] = [None] * len(configs)
+                for i, res in zip(sup, sup_results):
+                    results[i] = res
+                rest = [i for i in range(len(configs)) if results[i] is None]
+                if rest:
+                    obs.counter("repro_replay_row_fallback_configs_total",
+                                float(len(rest)),
+                                help="configs the IR could not cover "
+                                     "(row-path fallback)")
+                    rest_results, _, _, rest_skips = _evaluate(
+                        [configs[i] for i in rest], store, workers=workers,
+                        hosts=hosts, mmap=mmap, batched=batched,
+                        replayer_kwargs=replayer_kwargs, compact=False,
+                        strict=strict, verify=verify, fault=fault)
+                    for i, res in zip(rest, rest_results):
+                        results[i] = res
+                    skips = _merge_skips(skips, rest_skips)
+                selected = ir_obj.select(hosts)
+                n_rows = sum(s.n_rows for s in selected)
+                n_runs = sum(s.n_runs for s in selected)
+                return results, n_rows, n_runs, skips
+
+    if batched:
+        obs.counter("repro_replay_configs_total", float(len(configs)),
+                    path="row_batched",
+                    help="policy configs replayed, by execution path")
+        replayer, skips = map_shard_partitions(
+            store, hosts, workers, _replay_partition_batched,
+            (configs, mmap, replayer_kwargs, strict, verify),
+            merge=lambda a, b: a.merge(b), stage="sweep", fault=fault)
+        n_rows = replayer.n_rows          # finalize() resets the counter
+        return replayer.finalize(), n_rows, 0, skips
+
+    def merge_lists(a: list[PolicyReplayer], b: list[PolicyReplayer]):
+        for dst, src in zip(a, b):
+            dst.merge(src)
+        return a
+
     obs.counter("repro_replay_configs_total", float(len(configs)),
-                path="row", help="policy configs replayed, by execution path")
-    replayer = BatchedPolicyReplayer(configs, **replayer_kwargs)
-    skips: list[dict] = []
-    with obs.span("sweep.rows", configs=len(configs)):
-        for frame in store.iter_shards(hosts, strict=strict, verify=verify,
-                                       skips=skips):
-            replayer.update(frame)
-    n_rows = replayer.n_rows              # finalize() resets the counter
-    return replayer.finalize(), n_rows, skips
-
-
-def _ir_config(configs: Sequence[Policy], replayer_kwargs: dict):
-    """The IR config the configs imply under the replay's classifier/dt."""
-    from repro_torch.core.states import DEFAULT_CLASSIFIER
-    from repro_torch.whatif import ir as ir_mod
-
-    return ir_mod.ir_config_for(
-        configs, replayer_kwargs.get("classifier") or DEFAULT_CLASSIFIER,
-        replayer_kwargs.get("dt_s", 1.0))
-
-
-def _acquire_ir(configs: Sequence[Policy], store: "TelemetryStore",
-                replayer_kwargs: dict, ir, strict: bool, verify: bool):
-    """The run-level IR the configs replay against: ``ir`` when given,
-    else :func:`repro_torch.whatif.ir.get_ir` under the IR config the
-    configs imply. Raises :class:`~repro_torch.whatif.ir.IRUnsupportedError`
-    when the store cannot be compacted (e.g. irregular sampling)."""
-    from repro_torch.whatif import ir as ir_mod
-
-    if ir is not None:
-        return ir
-    return ir_mod.get_ir(store, _ir_config(configs, replayer_kwargs),
-                         strict=strict, verify=verify)
+                path="row_serial",
+                help="policy configs replayed, by execution path")
+    replayers, skips = map_shard_partitions(
+        store, hosts, workers, _replay_partition,
+        (configs, mmap, replayer_kwargs, strict, verify),
+        merge=merge_lists, stage="sweep", fault=fault)
+    n_rows = replayers[0].n_rows if replayers else 0
+    return [r.finalize() for r in replayers], n_rows, 0, skips
 
 
 def _ir_kwargs(replayer_kwargs: dict) -> dict:
@@ -322,116 +465,96 @@ def _ir_kwargs(replayer_kwargs: dict) -> dict:
                      "classifier", "dt_s")}
 
 
-def _evaluate_numpy(
-    configs: list[Policy],
-    store: "TelemetryStore",
-    hosts: Iterable[str] | None,
-    replayer_kwargs: dict,
-    ir,
-    strict: bool,
-    verify: bool,
-) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
-    """The host oracle. Configs the IR supports replay against the run axis
-    (:func:`repro_torch.whatif.replay.replay_ir`); the rest — custom
-    policies, mismatched thresholds, unsupported composites — stream the
-    store through the row path, and a store that cannot be compacted
-    (irregular sampling) replays entirely on rows (a ``compact -> row``
-    fallback)."""
-    from repro_torch.whatif import ir as ir_mod
-    from repro_torch.whatif.replay import replay_ir
-
-    results: list[ReplayResult | None] = [None] * len(configs)
-    n_rows = n_runs = 0
-    skips: list[dict] = []
-    ir_obj = None
-    cfg = ir.config if ir is not None else _ir_config(configs, replayer_kwargs)
-    if ir is not None or any(ir_mod.ir_supported(p, cfg) for p in configs):
-        try:
-            ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict,
-                                 verify)
-        except ir_mod.IRUnsupportedError:
-            obs.fallback("compact", "row", "ir_unsupported")
-    sup = ([i for i, p in enumerate(configs)
-            if ir_mod.ir_supported(p, ir_obj.config)]
-           if ir_obj is not None else [])
-    if sup:
-        obs.counter("repro_replay_configs_total", float(len(sup)),
-                    path="compact",
-                    help="policy configs replayed, by execution path")
-        for i, res in zip(sup, replay_ir(ir_obj, [configs[i] for i in sup],
-                                         hosts=hosts,
-                                         **_ir_kwargs(replayer_kwargs))):
-            results[i] = res
-        skips = _ir_skips(ir_obj, hosts)
-        selected = ir_obj.select(hosts)
-        n_rows = sum(s.n_rows for s in selected)
-        n_runs = sum(s.n_runs for s in selected)
-    rest = [i for i in range(len(configs)) if results[i] is None]
-    if rest or not sup:
-        rest_results, rest_rows, rest_skips = _replay_rows(
-            [configs[i] for i in rest], store, hosts, replayer_kwargs, strict,
-            verify)
-        for i, res in zip(rest, rest_results):
-            results[i] = res
-        skips = _merge_skips(skips, rest_skips)
-        if not sup:
-            n_rows = rest_rows
-    return [_outcome(r) for r in results], n_rows, n_runs, skips
-
-
 def _evaluate_torch(
     configs: list[Policy],
     store: "TelemetryStore",
+    workers: int,
     hosts: Iterable[str] | None,
+    mmap: bool,
+    batched: bool,
     replayer_kwargs: dict,
+    compact: bool | None,
     ir,
     strict: bool,
     verify: bool,
+    fault,
     device: str,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
-    """The card: every config replays on the run-level IR through
-    :func:`repro_torch.whatif.backend.replay_ir_outcomes` on ``device``.
+    """The torch backend, routed as the JAX package routes its accelerator
+    backend. The split is made on the host, before anything is packed for
+    the card: IR-capable configs replay on ``device`` through
+    :func:`repro_torch.whatif.backend.replay_ir_outcomes`; configs the IR
+    cannot carry take the row path (counted in
+    ``repro_replay_row_fallback_configs_total``); a store the IR cannot
+    compact replays on rows (one ``compact -> row`` fallback), and so does
+    ``compact=False``.
 
-    Nothing here runs on the host in the card's place: a config the IR
-    cannot carry and a store that cannot be compacted raise (the NumPy
-    backend is the explicit route for both), and an error in the torch
-    backend (a kernel that does not build or launch, device loss)
-    propagates to the caller.
+    Unlike the JAX package's dispatch, nothing here carries on on the host
+    when the card fails: an error of the torch backend (a kernel that does
+    not build or launch, device loss) propagates to the caller.
     """
     from repro_torch.device import resolve_device
-    from repro_torch.whatif import backend as torch_backend
     from repro_torch.whatif import ir as ir_mod
 
     device = resolve_device(device)
-    cfg = ir.config if ir is not None else _ir_config(
-        configs, replayer_kwargs)
-    unsupported = [p.name for p in configs if not ir_mod.ir_supported(p, cfg)]
-    if unsupported:
-        raise ValueError(
-            f"{len(unsupported)} config(s) cannot replay on the run-level IR "
-            f"({sorted(set(unsupported))}); the torch backend replays only "
-            f"IR-capable configs, pass backend='numpy' for the row path")
-    try:
-        ir_obj = _acquire_ir(configs, store, replayer_kwargs, ir, strict,
-                             verify)
-    except ir_mod.IRUnsupportedError as e:
-        raise ir_mod.IRUnsupportedError(
-            f"{e}; the torch backend replays only the run-level IR, pass "
-            f"backend='numpy' for the row path") from e
-    outcomes, n_rows, n_runs = torch_backend.replay_ir_outcomes(
-        ir_obj, configs, hosts=hosts, device=device,
-        **_ir_kwargs(replayer_kwargs))
-    obs.counter("repro_replay_configs_total", float(len(configs)),
-                path="torch", help="policy configs replayed, by execution path")
-    return outcomes, n_rows, n_runs, _ir_skips(ir_obj, hosts)
+    if compact is None or compact:
+        if ir is not None:
+            ir_obj = ir
+        else:
+            from repro_torch.core.states import DEFAULT_CLASSIFIER
+            cfg = ir_mod.ir_config_for(
+                configs, replayer_kwargs.get("classifier") or DEFAULT_CLASSIFIER,
+                replayer_kwargs.get("dt_s", 1.0))
+            ir_obj = None
+            if any(ir_mod.ir_supported(p, cfg) for p in configs):
+                try:
+                    ir_obj = ir_mod.get_ir(store, cfg, workers=workers,
+                                           mmap=mmap, strict=strict,
+                                           verify=verify, fault=fault)
+                except ir_mod.IRUnsupportedError:
+                    obs.fallback("compact", "row", "ir_unsupported")
+        sup = ([i for i, p in enumerate(configs)
+                if ir_mod.ir_supported(p, ir_obj.config)]
+               if ir_obj is not None else [])
+        if sup:
+            from repro_torch.whatif import backend as torch_backend
+            sup_out, n_rows, n_runs = torch_backend.replay_ir_outcomes(
+                ir_obj, [configs[i] for i in sup], hosts=hosts, device=device,
+                **_ir_kwargs(replayer_kwargs))
+            obs.counter("repro_replay_configs_total", float(len(sup)),
+                        path="torch",
+                        help="policy configs replayed, by execution path")
+            skips = _ir_skips(ir_obj, hosts)
+            outcomes: list[PolicyOutcome | None] = [None] * len(configs)
+            for i, out in zip(sup, sup_out):
+                outcomes[i] = out
+            rest = [i for i in range(len(configs)) if outcomes[i] is None]
+            if rest:
+                obs.counter("repro_replay_row_fallback_configs_total",
+                            float(len(rest)),
+                            help="configs the IR could not cover "
+                                 "(row-path fallback)")
+                rest_results, _, _, rest_skips = _evaluate(
+                    [configs[i] for i in rest], store, workers=workers,
+                    hosts=hosts, mmap=mmap, batched=batched,
+                    replayer_kwargs=replayer_kwargs, compact=False,
+                    strict=strict, verify=verify, fault=fault)
+                for i, res in zip(rest, rest_results):
+                    outcomes[i] = _outcome(res)
+                skips = _merge_skips(skips, rest_skips)
+            return outcomes, n_rows, n_runs, skips
+    # nothing for the card: the row path (compaction was already tried)
+    results, n_rows, n_runs, skips = _evaluate(
+        configs, store, workers=workers, hosts=hosts, mmap=mmap,
+        batched=batched, replayer_kwargs=replayer_kwargs, compact=False,
+        strict=strict, verify=verify, fault=fault)
+    return [_outcome(r) for r in results], n_rows, n_runs, skips
 
 
-#: arguments of the JAX package's ``evaluate``/``run_sweep``/``search_frontier``
-#: that the port does not take: it replays in one process (no ``workers``
-#: pool, no pool supervisor ``fault``, no config-axis mesh ``dist``), always
-#: batched on the run-level IR (no ``batched``/``compact`` switch), and reads
-#: shards without ``mmap``
-DROPPED_ARGUMENTS = ("workers", "mmap", "batched", "compact", "dist", "fault")
+#: the one argument of the JAX package's ``evaluate``/``run_sweep``/
+#: ``search_frontier`` that the port does not take yet: ``dist``, the
+#: config-axis device mesh, which comes with the distribution slice
+DROPPED_ARGUMENTS = ("dist",)
 
 
 def reject_dropped(kwargs: dict, caller: str) -> None:
@@ -439,9 +562,10 @@ def reject_dropped(kwargs: dict, caller: str) -> None:
     so that none is silently ignored."""
     dropped = sorted(set(kwargs) & set(DROPPED_ARGUMENTS))
     if dropped:
-        raise TypeError(f"{caller}() got {dropped}, which the port does not take: it "
-                        f"replays in one process on the run-level IR (the JAX "
-                        f"package's {list(DROPPED_ARGUMENTS)} are not ported)")
+        raise TypeError(f"{caller}() got {dropped}, which the port does not "
+                        f"take: it replays on one device (the JAX package's "
+                        f"config-axis mesh {list(DROPPED_ARGUMENTS)} is not "
+                        f"ported)")
 
 
 def resolve_backend(backend: str) -> str:
@@ -463,13 +587,18 @@ def resolve_backend(backend: str) -> str:
 def _evaluate_outcomes(
     configs: Sequence[Policy],
     store: "TelemetryStore",
+    workers: int = 1,
     hosts: Iterable[str] | None = None,
+    mmap: bool = False,
+    batched: bool = True,
     replayer_kwargs: dict | None = None,
+    compact: bool | None = None,
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
     verify: bool = False,
+    fault=None,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
     """Backend dispatch under a ``whatif.evaluate`` span, with per-family
     config counts and a throughput gauge recorded when :mod:`repro_torch.obs`
@@ -481,11 +610,16 @@ def _evaluate_outcomes(
     t0 = time.perf_counter()
     with obs.span("whatif.evaluate", configs=len(configs), backend=backend):
         if backend == "torch":
-            out = _evaluate_torch(configs, store, hosts, replayer_kwargs, ir,
-                                  strict, verify, device)
+            out = _evaluate_torch(configs, store, workers, hosts, mmap,
+                                  batched, replayer_kwargs, compact, ir,
+                                  strict, verify, fault, device)
         else:
-            out = _evaluate_numpy(configs, store, hosts, replayer_kwargs, ir,
-                                  strict, verify)
+            results, n_rows, n_runs, skips = _evaluate(
+                configs, store, workers=workers, hosts=hosts, mmap=mmap,
+                batched=batched, replayer_kwargs=replayer_kwargs,
+                compact=compact, ir=ir, strict=strict, verify=verify,
+                fault=fault)
+            out = [_outcome(r) for r in results], n_rows, n_runs, skips
     if obs.enabled():
         dt = max(time.perf_counter() - t0, 1e-12)
         obs.observe("repro_replay_seconds", dt,
@@ -502,17 +636,23 @@ def _evaluate_outcomes(
 def evaluate(
     configs: Sequence[Policy],
     store: "TelemetryStore",
+    workers: int = 1,
     hosts: Iterable[str] | None = None,
+    mmap: bool = False,
+    batched: bool = True,
+    compact: bool | None = None,
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
     verify: bool = False,
+    fault=None,
     **replayer_kwargs,
 ) -> list[PolicyOutcome]:
     """Evaluate an arbitrary set of policy configs over a store.
 
-    The reusable kernel under the fixed-grid :func:`run_sweep`: replays
+    The reusable kernel under both the fixed-grid :func:`run_sweep` and the
+    closed-loop :func:`repro_torch.whatif.search.search_frontier`: replays
     ``configs`` and returns one :class:`PolicyOutcome` per config, **in
     input order**, with no Pareto flags — Pareto-ness is a property of a
     *set* of outcomes; flag a set with :func:`assemble_frontier`.
@@ -520,7 +660,25 @@ def evaluate(
     Args:
         configs: policy configs to evaluate (any mix of families).
         store: shard store to replay (simulator output or DES/serving traces).
+        workers: process-pool width of the host work (the row path and the
+            IR build). Partitions are host-label-disjoint, so results are
+            bit-identical for every worker count. Scripts calling this with
+            ``workers > 1`` at top level need the standard
+            ``if __name__ == "__main__":`` guard (workers re-import main).
         hosts: optional host-label filter.
+        mmap: pass ``mmap=True`` to shard reads (zero-copy for ``npy_dir``
+            shards; see :meth:`TelemetryStore.iter_shards`).
+        batched: on the row path, evaluate the configs family-by-family
+            along a config axis (:class:`BatchedPolicyReplayer`);
+            ``batched=False`` runs the per-policy reference path. Both are
+            bit-identical.
+        compact: replay against the run-level IR (:mod:`repro_torch.whatif.ir`)
+            where the configs support it. ``None`` (default) follows
+            ``batched`` on the numpy backend; the torch backend, as the JAX
+            package's accelerator backend, takes the IR unless
+            ``compact=False``, which replays every config on rows.
+            Unsupported configs and stores the IR cannot compact take the
+            row path.
         ir: a prebuilt :class:`repro_torch.whatif.ir.RunIR` to replay against
             (skips the cache lookup; otherwise the IR is built once per
             (store, IR config) and cached in memory and as a store sidecar).
@@ -528,51 +686,80 @@ def evaluate(
             ``device``, :mod:`repro_torch.whatif.backend`), ``"numpy"`` (the
             host oracle) or ``"auto"`` (``"torch"``). Time/count metrics are
             bit-identical across backends, energies/penalties <= 1e-9
-            relative (tests/test_torch_whatif.py). The torch backend replays
-            only IR-capable configs on a store that can be compacted, and
-            raises otherwise; its errors propagate. This is its one
-            behavioural difference from the JAX package's dispatch, which
-            replays such configs, and the JAX backend's failures, on NumPy.
+            relative (tests/test_torch_whatif.py). Both backends route what
+            the IR cannot carry to the row path. An error of the torch
+            backend propagates: this is its one behavioural difference from
+            the JAX package's dispatch, which replays the JAX backend's
+            failures on NumPy.
         device: where the torch backend runs, ``"cuda"`` (default; raises
             without CUDA) or ``"cpu"`` (the kernels' plain PyTorch
             versions). Ignored by the NumPy backend.
         strict: ``False`` skips unreadable shards instead of raising —
             results are bit-identical to replaying the clean shard subset.
         verify: checksum every shard read against the manifest.
+        fault: a :class:`repro_torch.telemetry.pipeline.FaultTolerance`
+            policy for the process-pool crash/hang supervisor.
         **replayer_kwargs: forwarded to the replay
             (``min_job_duration_s``, ``platform_of``, ``classifier``, ...).
     """
     outcomes, _, _, _ = _evaluate_outcomes(
-        configs, store, hosts=hosts, replayer_kwargs=replayer_kwargs, ir=ir,
-        backend=backend, device=device, strict=strict, verify=verify)
+        configs, store, workers=workers, hosts=hosts, mmap=mmap,
+        batched=batched, replayer_kwargs=replayer_kwargs, compact=compact,
+        ir=ir, backend=backend, device=device, strict=strict, verify=verify,
+        fault=fault)
     return outcomes
 
 
 def run_sweep(
     store: "TelemetryStore",
     policies: Sequence[Policy] | None = None,
+    workers: int = 1,
     hosts: Iterable[str] | None = None,
+    mmap: bool = False,
+    batched: bool = True,
+    compact: bool | None = None,
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
     strict: bool = True,
     verify: bool = False,
+    fault=None,
     **replayer_kwargs,
 ) -> Frontier:
     """Replay a fixed policy grid over a store and report the trade-off
     frontier — the fixed-grid caller of the :func:`evaluate` kernel.
 
     ``policies`` defaults to :func:`default_policy_grid` (200 configs). All
-    other arguments are :func:`evaluate`'s. With ``strict=False`` the
-    returned frontier's ``coverage`` reports the fraction of on-disk rows
-    actually replayed (< 1.0 when shards were skipped).
+    other arguments are :func:`evaluate`'s; ``run_sweep(compact=False)`` is
+    the row-exact verification path for the default compact (run-IR)
+    sweep. With ``strict=False`` the returned frontier's ``coverage``
+    reports the fraction of on-disk rows actually replayed (< 1.0 when
+    shards were skipped).
     """
     hosts = list(hosts) if hosts is not None else None
     policies = list(default_policy_grid() if policies is None else policies)
     outcomes, n_rows, n_runs, skips = _evaluate_outcomes(
-        policies, store, hosts=hosts, replayer_kwargs=replayer_kwargs, ir=ir,
-        backend=backend, device=device, strict=strict, verify=verify)
+        policies, store, workers=workers, hosts=hosts, mmap=mmap,
+        batched=batched, replayer_kwargs=replayer_kwargs, compact=compact,
+        ir=ir, backend=backend, device=device, strict=strict, verify=verify,
+        fault=fault)
     coverage = _coverage_of(store, hosts, skips)
     obs.gauge("repro_coverage_fraction", coverage, stage="sweep",
               help="rows analyzed / rows on disk for the last run")
     return assemble_frontier(outcomes, n_rows, n_runs, coverage=coverage)
+
+
+def sweep_frame(frame, policies: Sequence[Policy] | None = None,
+                batched: bool = True, **replayer_kwargs) -> Frontier:
+    """In-memory convenience: sweep a single :class:`TelemetryFrame`
+    (e.g. a DES :class:`PoolResult` telemetry) without a store."""
+    policies = list(default_policy_grid() if policies is None else policies)
+    if batched:
+        replayer = BatchedPolicyReplayer(policies, **replayer_kwargs)
+        replayer.update(frame)
+        n_rows = replayer.n_rows          # finalize() resets the counter
+        return _assemble(replayer.finalize(), n_rows)
+    replayers = [PolicyReplayer(p, **replayer_kwargs) for p in policies]
+    replay_chunk(replayers, frame)
+    n_rows = replayers[0].n_rows if replayers else 0
+    return _assemble([r.finalize() for r in replayers], n_rows)

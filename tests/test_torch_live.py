@@ -384,11 +384,13 @@ def test_publish_is_idempotent_across_restart(tmp_path):
 
 
 def test_controller_defaults_to_the_card(monkeypatch, tmp_path):
-    """``LiveConfig`` defaults to the torch backend on CUDA; without CUDA
-    the controller raises before any tick, and an unknown backend raises."""
+    """``LiveConfig`` defaults to the torch backend on CUDA, with the JAX
+    package's pool and read knobs at its defaults (one process, no mmap);
+    without CUDA the controller raises before any tick, and an unknown
+    backend raises."""
     cfg = LiveConfig()
     assert (cfg.backend, cfg.device) == ("torch", "cuda")
-    assert not hasattr(cfg, "workers") and not hasattr(cfg, "mmap")
+    assert (cfg.workers, cfg.mmap) == (1, False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     store = TelemetryStore(tmp_path / "store")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -632,16 +632,15 @@ def test_degradation_families_registered_and_lintable(tmp_path, ref):
     for name, _, _ in obs.DEGRADATION_FAMILIES:
         assert f"\n{name} " in text or text.startswith(f"{name} ")
     assert obs.lint_exposition(text) == []
-    # the reference's families less the pool's retry counter
-    assert [f for f in ref.obs.DEGRADATION_FAMILIES
-            if f[0] != "repro_partition_retries_total"] == \
-        list(obs.DEGRADATION_FAMILIES)
+    # the reference's families, the pool's retry counter included
+    assert list(ref.obs.DEGRADATION_FAMILIES) == list(obs.DEGRADATION_FAMILIES)
     prom = tmp_path / "metrics.prom"
     prom.write_text(text)
     import prom_lint
     assert prom_lint.check_file(str(prom), [
         "repro_fallbacks_total", "repro_shards_quarantined_total",
-        "repro_shards_repaired_total", "repro_coverage_fraction"]) == []
+        "repro_shards_repaired_total", "repro_partition_retries_total",
+        "repro_coverage_fraction"]) == []
     assert prom_lint.check_file(str(prom), ["repro_not_a_metric"]) != []
 
 

@@ -199,20 +199,22 @@ def test_search_budget_feasibility(stores):
 
 
 def test_search_deterministic_and_workers_bit_identical(stores, default_searches):
-    """Two searches give the same bits; the port's NumPy backend equals the
-    reference's search exactly (the same host code); the reference's
-    ``workers`` pool is not ported and raises (every such argument:
-    test_search_rejects_dropped_arguments)."""
+    """Two searches give the same bits, and so does one at ``workers=2``
+    (as tests/test_whatif_search.py asserts of the reference); the port's
+    NumPy backend equals the reference's search exactly (the same host
+    code)."""
     ref_store, store = stores
     ref, a = default_searches
     b = search_frontier(store, **TORCH)
     assert frontier_to_dict(a.frontier) == frontier_to_dict(b.frontier)
     assert a.knee.params == b.knee.params
     assert a.n_evals == b.n_evals
+    c = search_frontier(store, workers=2, **TORCH)
+    assert frontier_to_dict(a.frontier) == frontier_to_dict(c.frontier)
+    assert a.knee.params == c.knee.params
+    assert a.n_evals == c.n_evals
     host = search_frontier(store, **ORACLE)
     assert frontier_to_dict(host.frontier) == frontier_to_dict(ref.frontier)
-    with pytest.raises(TypeError, match="workers"):
-        search_frontier(store, workers=2, **TORCH)
 
 
 def test_search_tracks_dense_sweep_at_the_knee(stores):
@@ -322,17 +324,42 @@ def test_custom_single_family_search(stores):
 # --------------------------------------------------------------------------- #
 # the port's own surface
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("name", DROPPED_ARGUMENTS)
+def _pool_and_path_value(name, ref):
+    """A non-default value of one of the JAX package's pool, read and path
+    arguments, built from the reference's classes (``ref``) or the
+    port's."""
+    if name == "fault":
+        from repro.telemetry import FaultTolerance as RefFault
+        from repro_torch.telemetry import FaultTolerance
+        return (RefFault if ref else FaultTolerance)(max_retries=1)
+    return {"workers": 2, "mmap": True, "batched": False,
+            "compact": False}[name]
+
+
+@pytest.mark.parametrize("name", ("workers", "mmap", "batched", "compact",
+                                  "dist", "fault"))
 def test_search_rejects_dropped_arguments(stores, name):
-    """The JAX package's process pool, mesh, mmap reads, pool fault
-    supervisor and compact switch are not ported: each raises, naming
-    itself, in the search and in the evaluate it calls; none is ignored.
-    (``verify`` is taken: tests/test_torch_robustness.py.)"""
-    _, store = stores
-    with pytest.raises(TypeError, match=name):
-        search_frontier(store, **{name: 1}, **TORCH)
-    with pytest.raises(TypeError, match=name):
-        evaluate([PowerCapPolicy()], store, **{name: 1}, **TORCH)
+    """The JAX package's pool, read and path arguments, one case each. The
+    config-axis mesh ``dist`` is not ported (:data:`DROPPED_ARGUMENTS`): it
+    raises, naming itself, in the search and in the evaluate it calls. The
+    other five are taken, and a search with each agrees with the
+    reference's search given the same argument."""
+    ref_store, store = stores
+    if name in DROPPED_ARGUMENTS:
+        with pytest.raises(TypeError, match=name):
+            search_frontier(store, **{name: 1}, **TORCH)
+        with pytest.raises(TypeError, match=name):
+            evaluate([PowerCapPolicy()], store, **{name: 1}, **TORCH)
+        return
+    kw = dict(max_rounds=1, max_evals=40,
+              families=default_families(composites=False))
+    out = search_frontier(store, **{name: _pool_and_path_value(name, False)},
+                          **kw, **TORCH)
+    ref = ref_search.search_frontier(
+        ref_store, **{name: _pool_and_path_value(name, True)},
+        max_rounds=1, max_evals=40,
+        families=ref_search.default_families(composites=False), **ORACLE)
+    assert_search_matches(ref, out)
 
 
 def test_search_rejects_jax_backend(stores):

@@ -227,7 +227,7 @@ def test_backend_validation_errors(stores):
 
 
 # --------------------------------------------------------------------------- #
-# what the run-level IR cannot carry: the NumPy row path, refused on the card
+# what the run-level IR cannot carry: the row path, on either backend
 # --------------------------------------------------------------------------- #
 def _down_then_park(pkg):
     """A downscale-then-parking composite: not IR-capable."""
@@ -273,23 +273,66 @@ def test_numpy_row_path_equals_reference_for_non_ir_configs(stores):
     assert as_dicts(out) == as_dicts(ref)
 
 
+def route_counts(text):
+    """The replay route counters of a Prometheus exposition."""
+    import re
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'repro_replay_configs_total\{path="(\w+)"\} (\S+)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+        m = re.match(r"repro_replay_row_fallback_configs_total (\S+)", line)
+        if m:
+            out["row_fallback"] = float(m.group(1))
+        m = re.match(r'repro_fallbacks_total\{from="(\w+)",reason="\w+",'
+                     r'to="(\w+)"\} (\S+)', line)
+        if m:
+            out[f"{m.group(1)}->{m.group(2)}"] = float(m.group(3))
+    return out
+
+
+def with_route_counts(fn):
+    from repro_torch import obs
+    obs.enable()
+    obs.reset()
+    try:
+        result = fn()
+        return result, route_counts(obs.render_prometheus())
+    finally:
+        obs.disable()
+        obs.reset()
+
+
 def test_torch_backend_refuses_non_ir_configs(stores):
-    """The card never hands a config to the host: a grid holding one the IR
-    cannot carry raises and points at the NumPy backend."""
+    """A grid holding a config the IR cannot carry: the torch backend
+    replays the IR-capable configs on the card and routes the other to the
+    row path, counted, as the reference routes its accelerator backend; the
+    outcomes equal the NumPy backend's and the reference's exactly."""
+    import repro.core.imbalance as r_imb
+    import repro.whatif as r_whatif
     import repro_torch.core.imbalance as imb
     import repro_torch.whatif as whatif
 
-    _, store = stores
-    with pytest.raises(ValueError, match="backend='numpy'"):
-        evaluate(_down_then_park(_pkg(whatif, imb)), store, device="cpu",
-                 min_job_duration_s=0.0)
+    ref_store, store = stores
+    out, counts = with_route_counts(lambda: evaluate(
+        _down_then_park(_pkg(whatif, imb)), store, device="cpu",
+        min_job_duration_s=0.0))
+    assert counts == {"torch": 1.0, "row_fallback": 1.0, "row_batched": 1.0}
+    oracle = evaluate(_down_then_park(_pkg(whatif, imb)), store,
+                      backend="numpy", min_job_duration_s=0.0)
+    assert_outcomes_equivalent(oracle, out)
+    assert as_dicts(out)[1] == as_dicts(oracle)[1]      # the row config
+    ref = ref_evaluate(_down_then_park(_pkg(r_whatif, r_imb)), ref_store,
+                       backend="numpy", min_job_duration_s=0.0)
+    assert_outcomes_equivalent(ref, out)
 
 
 def test_irregular_store_row_path_and_torch_refusal():
     """A store the IR cannot compact: the NumPy backend replays it on rows,
-    exactly as the reference does (tolerance 0); the torch backend raises."""
+    exactly as the reference does (tolerance 0); so does the torch backend,
+    with one ``compact -> row`` fallback and nothing on the card."""
     from repro.telemetry.records import TelemetryFrame as RefFrame
-    from repro_torch.whatif import IRUnsupportedError
+    from repro_torch.whatif import ir as ir_mod
 
     grid, ref_grid = family_grid(), ref_family_grid()
     with tempfile.TemporaryDirectory() as d_ref, tempfile.TemporaryDirectory() as d:
@@ -300,8 +343,11 @@ def test_irregular_store_row_path_and_torch_refusal():
                            min_job_duration_s=0.0)
         out = evaluate(grid, store, backend="numpy", min_job_duration_s=0.0)
         assert as_dicts(out) == as_dicts(ref)
-        with pytest.raises(IRUnsupportedError, match="backend='numpy'"):
-            evaluate(grid, store, device="cpu", min_job_duration_s=0.0)
+        ir_mod._IR_UNSUPPORTED.clear()
+        on_card, counts = with_route_counts(lambda: evaluate(
+            grid, store, device="cpu", min_job_duration_s=0.0))
+        assert as_dicts(on_card) == as_dicts(ref)
+        assert counts == {"compact->row": 1.0, "row_batched": float(len(grid))}
 
 
 @pytest.mark.parametrize("compact", [None, False])
