@@ -70,6 +70,22 @@ paths:
   L40S calibration (energy ratios and p95 increases, not this card's); the
   2-active run spilled every 300 s, held to the monolithic run and priced
   on the card as above;
+* training: K1's and K2's autograd Functions against autograd through
+  their plain versions (outputs and every input gradient, bf16 and f32,
+  qwen1.5-0.5b's shapes, K2 also without the causal mask at whisper's and
+  the VLM's cross-attention shapes and with a window), timed beside them;
+  each family whose loss trains on the card (dense, moe, mla_moe, encdec,
+  vlm) kernel path against plain path in f32, loss and every gradient,
+  at F32_DEPTH's depth (deepseek-v3's routed experts cut to 64); hymba's
+  and RWKV-6's kernel-path losses raising by name; then qwen1.5-0.5b at
+  full width through ``repro_torch.launch.train``'s ``Trainer`` (bf16,
+  AdamW, batch 8 x 128, 20 steps, the controller on, a checkpoint every
+  10 steps): step 0 against the plain path beside its chaos floor leaf by
+  leaf, the loss gate shown to fail an unmasked attention, K1 and
+  K2 launches per step as the remat implies, a fresh trainer over the
+  finished run resuming byte for byte and a restart from step 10
+  reproducing steps 11-20, with the step's median time, tokens/s, idle
+  share, peak memory, FLOP rate, bound and the checkpoints' times;
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -137,7 +153,9 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1329,10 +1347,10 @@ def routed(fn):
     seen = []
     orig = moe.router_topk
 
-    def record(x, w, cfg):
-        gates, ids = orig(x, w, cfg)
-        seen.append(ids)
-        return gates, ids
+    def record(x, w, cfg, aux=False):
+        out = orig(x, w, cfg, aux)
+        seen.append(out[1])
+        return out
 
     moe.router_topk = record
     try:
@@ -1417,7 +1435,7 @@ def moe_layers_check(cfg, params, dev, tol: float, prompt: int = 32) -> dict:
     positions = torch.arange(prompt, device=dev)
     for i in range(cfg.n_layers):
         outs, r = routed(lambda: {
-            plain: family._prefill_layer(x, layers[i], cfg, positions, plain)
+            plain: family._prefill_layer(x, layers[i], cfg, positions, plain)[:3]
             for plain in (False, True)})
         compare(i, outs, r)
         x, *parts = outs[True]
@@ -3635,6 +3653,478 @@ def live(dev) -> dict:
             "degradation": degradation, "launches": launches, "phase_s": phase_s}
 
 
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+#: the trained model and run: the reference launcher's own example
+#: (src/repro/launch/train.py:4-5) without --smoke, AdamW as for_arch picks
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_RUN = dict(steps=20, checkpoint_every=10, lr=3e-4)
+TRAIN_BATCH = (8, 128)
+#: K2's training cases: (B, Sq, Sk, H, KV, d, causal, window): qwen1.5-0.5b's
+#: self-attention, whisper-tiny's and the VLM's cross-attention (no mask,
+#: Sq != Sk), and windows with and without the causal mask (no query row
+#: masked whole: there K2 and its plain version differ, and no model asks)
+TRAIN_ATTN_CASES = ((8, 128, 128, 16, 16, 64, True, 0), (8, 128, 1500, 6, 6, 64, False, 0),
+                    (1, 128, 1601, 64, 8, 128, False, 0), (2, 256, 256, 8, 2, 64, True, 64),
+                    (2, 130, 70, 8, 2, 64, False, 64))
+#: the families whose loss trains on the card, checked kernel path against
+#: plain path in f32 at F32_DEPTH's depth (two layers elsewhere)
+TRAIN_F32_MODELS = ("qwen1.5-0.5b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+                    "whisper-tiny", "llama-3.2-vision-90b")
+#: cuts memory forces on that check beyond F32_DEPTH: deepseek-v3's MoE layer
+#: holds 11.3 B routed-expert parameters, 90 GB with their f32 gradients
+TRAIN_F32_CUTS = {"deepseek-v3-671b": dict(n_experts=64)}
+TRAIN_F32_BATCH = (1, 32)
+LOSS_F32_TOL = 1e-5                # relative, the f32 loss
+GRAD_F32_TOL = 1e-4                # normwise per leaf, as LOGITS_F32_TOL
+#: a leaf's gradient is held against the larger of its own norm and this
+#: share of the whole gradient's: qwen's key bias has a zero gradient in
+#: exact arithmetic (it shifts a query's scores alike), so both paths' are
+#: rounding noise
+GRAD_FLOOR = 1e-4
+#: leaves left out of step 0's bf16 gradient gate: qwen's key bias, whose
+#: gradient is zero in exact arithmetic (as GRAD_FLOOR says), so that both
+#: paths' readings there are rounding noise
+ZERO_GRAD_LEAVES = ("['bk']",)
+#: step 0's bf16 gradients, kernel path against plain path, at the worst
+#: leaf (normwise, as GRAD_FLOOR says; ZERO_GRAD_LEAVES left out): twice the
+#: chaos floor (the plain path against itself with attention in float64) at
+#: the kernel path's worst leaf, ['layers']['wq'], 2.472e-2 (the kernel path
+#: 3.078e-2 there; NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_BF16_GRAD_TOL = 4.944e-2
+#: step 0's bf16 loss, kernel path against plain path, relative: five times
+#: the chaos floor 4.243e-6 (the kernel path 1.076e-5, an unmasked attention
+#: 1.011e-3; same card). Wider than the gradients' twice: the loss is one
+#: scalar, so its floor is a single draw of the rounding, where a leaf's
+#: norm sums over up to 10^8 elements
+TRAIN_BF16_LOSS_TOL = 2.1e-5
+#: losses of steps 11-20 restarted from the step-10 checkpoint, relative
+RESUME_RTOL = 1e-3
+
+
+def loss_and_grads(params, batch, cfg, plain: bool) -> tuple:
+    """(loss, metrics as floats, gradient of every leaf in the tree's
+    flattening order) of the family's loss; ``plain`` runs the plain
+    versions under autograd."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.train.tree import leaves as tree_leaves
+
+    flat = tree_leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss, metrics = api.loss_fn(params, batch, cfg, plain=plain)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+    return loss.item(), {k: torch.as_tensor(v).item() for k, v in metrics.items()}, list(grads)
+
+
+def grad_errors(got: list, want: list, paths: list[str], skip: tuple = ()) -> dict:
+    """Per leaf ||got - want|| / max(||want||, GRAD_FLOOR * ||want as a
+    whole||), on the card (``got`` may lie on the host); the worst leaf
+    among those whose path ends in none of ``skip``, every leaf's error,
+    and the whole gradient's normwise error."""
+    import torch
+    total = float(torch.stack([w.float().norm() for w in want]).norm())
+    worst, worst_path, diff2, leaves = 0.0, None, 0.0, {}
+    for path, g, w in zip(paths, got, want):
+        d = float((g.to(w.device).float() - w.float()).norm())
+        diff2 += d * d
+        err = leaves[path] = d / max(float(w.float().norm()), GRAD_FLOOR * total, 1e-30)
+        if not err <= worst and not path.endswith(skip):
+            worst, worst_path = err, path
+    return {"worst_leaf": worst, "worst_path": worst_path, "leaves": leaves,
+            "whole": diff2 ** 0.5 / max(total, 1e-30), "grad_norm": total}
+
+
+def check_train_functions(dev) -> dict:
+    """K1's and K2's autograd Functions (the training path) against autograd
+    through their plain versions on the same inputs and output gradients:
+    outputs and every input's gradient, bf16 per element at BF16_TOL and f32
+    at F32_TOL; qwen1.5-0.5b's training shapes and :data:`TRAIN_ATTN_CASES`.
+    Then the Functions' forward and backward timed eagerly at qwen's shapes in
+    bf16 beside the plain version's backward."""
+    import torch
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(shape, dtype, grad=True):
+        return torch.randn(shape, generator=g, device=dev).to(dtype).requires_grad_(grad)
+
+    def check(label, fn, ins, tol):
+        out = fn(*ins, plain=False)
+        ref = fn(*ins, plain=True)
+        dy = rnd(out.shape, out.dtype, grad=False)
+        worst = check_close(f"{label} out", out.detach(), ref.detach(), tol)
+        for i, (a, b) in enumerate(zip(torch.autograd.grad(out, ins, dy),
+                                       torch.autograd.grad(ref, ins, dy))):
+            worst = max(worst, check_close(f"{label} grad {i}", a, b, tol))
+        return worst
+
+    def norm(x, w, plain):
+        return ops.rmsnorm(x, w, 1e-6, plain=plain)
+
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tag = str(dtype).removeprefix("torch.")
+        errs[f"rmsnorm {tag}"] = check(f"train rmsnorm {tag}", norm,
+                                       (rnd((8, 128, 1024), dtype), rnd((1024,), dtype)), tol)
+        for (b, sq, sk, h, kv, d, causal, window) in TRAIN_ATTN_CASES:
+            def attn(q, k, v, plain, causal=causal, window=window):
+                return ops.flash_attention(q, k, v, causal=causal, window=window, plain=plain)
+            label = f"train flash_attention {tag} {(b, sq, sk, h, kv, d, causal, window)}"
+            errs[label.removeprefix("train ")] = check(
+                label, attn, (rnd((b, sq, h, d), dtype), rnd((b, sk, kv, d), dtype),
+                              rnd((b, sk, kv, d), dtype)), tol)
+    log(f"train functions vs plain under autograd (bf16 per element |err| <= {BF16_TOL} * "
+        f"(1 + |plain|), f32 {F32_TOL}): output and input gradients, max abs err {errs}")
+
+    times = {}
+    bf = torch.bfloat16
+    x, w = rnd((8, 128, 1024), bf), rnd((1024,), bf)
+    q, k, v = (rnd((8, 128, 16, 64), bf) for _ in range(3))
+    for name, fn, ins in (("rmsnorm", norm, (x, w)),
+                          ("flash_attention", lambda q, k, v, plain: ops.flash_attention(
+                              q, k, v, plain=plain), (q, k, v))):
+        out, ref = fn(*ins, plain=False), fn(*ins, plain=True)
+        dy = rnd(out.shape, bf, grad=False)
+        times[name] = {
+            "shape": [list(t.shape) for t in ins],
+            "forward_ms": cuda_ms(lambda: fn(*ins, plain=False)),
+            "backward_ms": cuda_ms(lambda: torch.autograd.grad(out, ins, dy, retain_graph=True)),
+            "plain_forward_ms": cuda_ms(lambda: fn(*ins, plain=True)),
+            "plain_backward_ms": cuda_ms(
+                lambda: torch.autograd.grad(ref, ins, dy, retain_graph=True)),
+        }
+    log(f"time train functions (eager, CUDA events, bf16 at qwen1.5-0.5b's shapes; forward = "
+        f"the kernel inside the Function, backward = its analytic gradient in PyTorch ops): "
+        f"{json.dumps(times)}")
+    return {"errors": errs, "times": times}
+
+
+def train_family_f32(name: str, dev) -> dict:
+    """One family's loss and every gradient, kernel path against plain path,
+    in f32 at full width (F32_DEPTH's depth, or two layers; the cuts of
+    :data:`TRAIN_F32_CUTS`), on a seeded batch; the VLM's gates opened and
+    its vision random, whisper's frames random. The kernel path's gradients
+    wait on the host while the plain path's are taken."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.tree import flatten
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32",
+                              **F32_DEPTH.get(name, dict(n_layers=2)),
+                              **TRAIN_F32_CUTS.get(name, {}))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(4), cfg)
+    open_gates(cfg, params, dev)
+    batch = api.make_batch(cfg, *TRAIN_F32_BATCH, torch.Generator(device=dev).manual_seed(5))
+    kloss, kmetrics, kgrads = loss_and_grads(params, batch, cfg, plain=False)
+    for i, grad in enumerate(kgrads):
+        kgrads[i] = grad.cpu()
+    ploss, pmetrics, pgrads = loss_and_grads(params, batch, cfg, plain=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    err = grad_errors(kgrads, pgrads, [path for path, _ in flatten(params)])
+    loss_err = abs(kloss - ploss) / abs(ploss)
+    metric_err = {k: abs(kmetrics[k] - v) / max(abs(v), 1e-30) for k, v in pmetrics.items()}
+    n = count_params(params)
+    del params, kgrads, pgrads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (loss_err <= LOSS_F32_TOL and err["worst_leaf"] <= GRAD_F32_TOL
+            and max(metric_err.values()) <= LOSS_F32_TOL):
+        raise AssertionError(f"train {name} f32: kernel vs plain loss {loss_err}, metrics "
+                             f"{metric_err}, gradient {err}")
+    log(f"train {name} f32 ({cfg.n_layers} layers, {n / 1e9:.3f} B parameters"
+        + (f", cut {TRAIN_F32_CUTS[name]}" if name in TRAIN_F32_CUTS else "")
+        + f", batch {TRAIN_F32_BATCH}): loss {kloss:.6f} vs plain {ploss:.6f} (rel "
+          f"{loss_err:.2e}, tol {LOSS_F32_TOL}), metrics rel {metric_err}; gradients worst "
+          f"leaf {err['worst_leaf']:.3e} at {err['worst_path']} (tol {GRAD_F32_TOL}), whole "
+          f"{err['whole']:.3e}; peak {peak / 2**30:.1f} GiB")
+    return {"loss_rel_err": loss_err, "metrics_rel_err": metric_err, **err,
+            "params": n, "peak_gib": peak / 2**30}
+
+
+def train_refusals(dev) -> dict:
+    """hymba's and RWKV-6's kernel-path losses under autograd raise the
+    named ``NotImplementedError`` (K5 and K6 have no backward yet)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    out = {}
+    for name, kernel in (("hymba-1.5b", "K5"), ("rwkv6-3b", "K6")):
+        cfg = dataclasses.replace(get_config(name), dtype="float32", n_layers=2)
+        params = api.init_params(torch.Generator(device=dev).manual_seed(6), cfg)
+        batch = api.make_batch(cfg, 1, 16, torch.Generator(device=dev).manual_seed(7))
+        try:
+            loss_and_grads(params, batch, cfg, plain=False)
+        except NotImplementedError as e:
+            if kernel not in str(e):
+                raise AssertionError(f"{name}: the error does not name {kernel}: {e}")
+            out[name] = str(e)
+        else:
+            raise AssertionError(f"{name}: the kernel-path loss trained on the card")
+        del params
+    torch.cuda.empty_cache()
+    log(f"train refusals (kernel-path loss under autograd): {out}")
+    return out
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Model FLOPs of one training step with per-layer remat: the layers'
+    matrix products (2 a parameter a token) and causal attention (QKᵀ and
+    PV over the half of the scores the mask keeps) run forward, again in
+    the backward's recompute, and twice in the backward; the tied head
+    forward and twice in the backward."""
+    hd = cfg.resolved_head_dim
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    tokens = batch * seq
+    layer_params = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * f
+    layers = 2 * tokens * L * layer_params
+    attn = 2 * 2 * batch * cfg.n_heads * hd * seq * seq / 2 * L
+    head = 2 * tokens * d * cfg.vocab_size
+    return {"flops": 4 * (layers + attn) + 3 * head, "layer_matmul_params": L * layer_params,
+            "recompute_flops": layers + attn, "tokens": tokens}
+
+
+def step0_check(trainer, cfg, dev) -> dict:
+    """Step 0's bf16 loss and gradients, kernel path against plain path, on
+    the trainer's parameters and batch, beside the chaos floor: the plain
+    path against itself with attention in float64 (as the bf16 logit checks
+    measure theirs), leaf by leaf. The loss gate is shown to see a wrong
+    forward: the plain path with its attention unmasked (causal=False) must
+    fail it."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import api
+    from repro_torch.train.tree import flatten
+
+    batch = trainer.dataset.device_batch_at(0, dev)
+    paths = [path for path, _ in flatten(trainer.params)]
+    kloss, _, kgrads = loss_and_grads(trainer.params, batch, cfg, plain=False)
+    ploss, _, pgrads = loss_and_grads(trainer.params, batch, cfg, plain=True)
+    saved = flash_attention.flash_attention_plain
+    flash_attention.flash_attention_plain = mha_f64
+    try:
+        floss, _, fgrads = loss_and_grads(trainer.params, batch, cfg, plain=True)
+    finally:
+        flash_attention.flash_attention_plain = saved
+    flash_attention.flash_attention_plain = (
+        lambda q, k, v, causal=True, window=0: saved(q, k, v, causal=False, window=window))
+    try:
+        with torch.no_grad():
+            uloss = api.loss_fn(trainer.params, batch, cfg, plain=True)[0].item()
+    finally:
+        flash_attention.flash_attention_plain = saved
+    err = grad_errors(kgrads, pgrads, paths, ZERO_GRAD_LEAVES)
+    floor = grad_errors(fgrads, pgrads, paths, ZERO_GRAD_LEAVES)
+    at = err["worst_path"]
+    out = {"loss": kloss, "plain_loss": ploss, "loss_rel_err": abs(kloss - ploss) / abs(ploss),
+           "floor_loss_rel_err": abs(floss - ploss) / abs(ploss),
+           "unmasked_loss_rel_err": abs(uloss - ploss) / abs(ploss),
+           "grads": err, "floor_grads": floor, "floor_at_worst_leaf": floor["leaves"][at],
+           "loss_tol": TRAIN_BF16_LOSS_TOL, "grad_tol": TRAIN_BF16_GRAD_TOL,
+           "left_out": [p for p in paths if p.endswith(ZERO_GRAD_LEAVES)]}
+    top = sorted(err["leaves"], key=err["leaves"].get, reverse=True)[:6]
+    log(f"train {cfg.name} step 0 bf16, kernel vs plain: loss {kloss:.6f} vs {ploss:.6f} "
+        f"(rel {out['loss_rel_err']:.3e}, tol {TRAIN_BF16_LOSS_TOL}; chaos floor "
+        f"{out['floor_loss_rel_err']:.3e}; unmasked attention {out['unmasked_loss_rel_err']:.3e}), "
+        f"gradients worst leaf {err['worst_leaf']:.3e} at {at} (tol {TRAIN_BF16_GRAD_TOL}; "
+        f"chaos floor there {out['floor_at_worst_leaf']:.3e}), whole {err['whole']:.3e} (floor "
+        f"{floor['whole']:.3e}); left out {out['left_out']}; leaves kernel / floor "
+        + ", ".join(f"{p} {err['leaves'][p]:.3e} / {floor['leaves'][p]:.3e}" for p in top))
+    if not (out["loss_rel_err"] <= TRAIN_BF16_LOSS_TOL
+            and err["worst_leaf"] <= TRAIN_BF16_GRAD_TOL):
+        raise AssertionError(f"train step 0 bf16 kernel vs plain: {out}")
+    if not out["unmasked_loss_rel_err"] > TRAIN_BF16_LOSS_TOL:
+        raise AssertionError(f"train step 0: the loss gate {TRAIN_BF16_LOSS_TOL} passes an "
+                             f"unmasked attention ({out['unmasked_loss_rel_err']:.3e})")
+    return out
+
+
+def step_parts(trainer, batches) -> dict:
+    """Mean card time of the step's forward, backward and optimizer update by
+    CUDA events over ``batches`` (one step each, the trainer's own step
+    split at its seams)."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.train.tree import leaves as tree_leaves, unflatten
+
+    parts = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for batch in batches:
+        flat = tree_leaves(trainer.params)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = api.loss_fn(trainer.params, batch, trainer.cfg)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        ev[2].record()
+        trainer.params, trainer.opt_state, _ = trainer.optimizer.step(
+            trainer.params, unflatten(trainer.params, grads), trainer.opt_state)
+        ev[3].record()
+        ev[3].synchronize()
+        for key, (a, b) in zip(parts, zip(ev, ev[1:])):
+            parts[key] += a.elapsed_time(b) / len(batches)
+    return parts
+
+
+def train(dev) -> dict:
+    """Training on the card: K1's and K2's Functions alone, the f32 family
+    checks and the refusals; then qwen1.5-0.5b at full width through
+    ``repro_torch.launch.train``'s ``Trainer`` (bf16, AdamW, the controller,
+    a checkpoint every 10 steps into a temporary directory), its step 0 held
+    to the plain path, its launches counted, both resumes checked, its step
+    timed, profiled and bounded."""
+    import shutil
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves as tree_leaves
+
+    t_phase = time.perf_counter()
+    result = {"functions": check_train_functions(dev)}
+    result["f32"] = {name: train_family_f32(name, dev) for name in TRAIN_F32_MODELS}
+    result["refusals"] = train_refusals(dev)
+
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq = TRAIN_BATCH
+    root = Path(tempfile.mkdtemp(prefix="repro_train_"))
+    timings = {"save": [], "restore": []}
+    originals = (ckpt.save, ckpt.restore)
+
+    def timed_call(kind, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            timings[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    ckpt.save, ckpt.restore = timed_call("save", ckpt.save), timed_call("restore", ckpt.restore)
+    try:
+        def trainer_at(directory, every=TRAIN_RUN["checkpoint_every"]):
+            tc = launch_train.TrainerConfig(steps=TRAIN_RUN["steps"], checkpoint_every=every,
+                                            checkpoint_dir=str(directory), lr=TRAIN_RUN["lr"])
+            return launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq,
+                                        controller=True, device=dev)
+
+        trainer = trainer_at(root / "run")
+        n_params = count_params(trainer.params)
+        result["step0"] = step0_check(trainer, cfg, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        report = trainer.run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        wgmma = kernels.flash_attention.WGMMA_LAUNCHES
+        peak = torch.cuda.max_memory_allocated(dev)
+        summary = launch_train.summarize(trainer, report)
+        steps = TRAIN_RUN["steps"]
+        per_step = {"rmsnorm": 4 * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers}
+        want = {k: (steps * per_step[k] if k in per_step else 0) for k in launches}
+        if launches != want or wgmma != launches["flash_attention"]:
+            raise AssertionError(f"train launches {launches} (tensor cores {wgmma}) != {want}")
+        if not (report.steps_run == steps and all(map(math.isfinite, report.losses))):
+            raise AssertionError(f"train run: {report}")
+        log(f"train {cfg.name} full width ({n_params / 1e9:.3f} B parameters, bf16, batch "
+            f"{batch} x {seq}, AdamW lr {TRAIN_RUN['lr']}, controller on): {steps} steps, losses "
+            f"{[round(x, 4) for x in report.losses]}; launches {launches} = {steps} x "
+            f"{per_step} (forward 2 x {cfg.n_layers} + 1 norms and {cfg.n_layers} attentions, "
+            f"the backward's per-layer recompute 2 x {cfg.n_layers} and {cfg.n_layers} more), "
+            f"all {wgmma} K2 launches on the tensor cores; summary {json.dumps(summary)}")
+
+        # resume 1: the finished directory
+        fresh = trainer_at(root / "run")
+        rep = fresh.run()
+        same = all(a.dtype == b.dtype and torch.equal(a.detach(), b.detach())
+                   for a, b in zip(tree_leaves({"p": trainer.params, "o": trainer.opt_state}),
+                                   tree_leaves({"p": fresh.params, "o": fresh.opt_state})))
+        if not (rep.resumed_from == steps and rep.steps_run == 0 and same):
+            raise AssertionError(f"resume from step {steps}: {rep}, state equal: {same}")
+        del fresh
+        # resume 2: restarted from the step-10 checkpoint (the run's own files)
+        mid = TRAIN_RUN["checkpoint_every"]
+        from10 = root / "from10"
+        from10.mkdir()
+        (from10 / f"step_{mid:08d}").symlink_to(root / "run" / f"step_{mid:08d}")
+        (from10 / "LATEST").write_text(f"step_{mid:08d}")
+        again = trainer_at(from10, every=10 ** 9)
+        rep2 = again.run()
+        diffs = [abs(a - b) / abs(b) for a, b in zip(rep2.losses, report.losses[mid:])]
+        bitwise = all(torch.equal(a.detach(), b.detach())
+                      for a, b in zip(tree_leaves(trainer.params), tree_leaves(again.params)))
+        if not (rep2.resumed_from == mid and len(diffs) == steps - mid
+                and max(diffs) <= RESUME_RTOL):
+            raise AssertionError(f"resume from step {mid}: {rep2.losses} vs "
+                                 f"{report.losses[mid:]}")
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train resume: from step {steps}, steps_run 0 and parameters and optimizer state "
+            f"equal byte for byte; from step {mid}, steps {mid + 1}-{steps} losses within "
+            f"{max(diffs):.2e} relative (tol {RESUME_RTOL}), final parameters "
+            f"{'equal' if bitwise else 'not equal'} bit for bit; save "
+            f"{[round(t, 3) for t in timings['save']]} s, restore "
+            f"{[round(t, 3) for t in timings['restore']]} s")
+
+        # the step: its time, the card's share of it, its parts and its bound
+        step_s = sorted(report.step_s[2:])
+        median_ms = 1e3 * step_s[len(step_s) // 2] if len(step_s) % 2 else \
+            1e3 * (step_s[len(step_s) // 2 - 1] + step_s[len(step_s) // 2]) / 2
+        batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
+        it = itertools.cycle(batches)
+
+        def one_step():
+            trainer.params, trainer.opt_state, _ = trainer.step_fn(
+                trainer.params, trainer.opt_state, next(it))
+
+        prof = profile_steps(one_step, steps=3)
+        parts = step_parts(trainer, batches)
+        flops = train_flops(cfg, batch, seq)
+        opt_bytes = 30 * n_params
+        bound = max((flops["flops"] / BF16_FLOPS_PER_S * 1e3, "operations"),
+                    (opt_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        idle = 1 - prof["card_active_ms_per_step"] / median_ms
+        result["run"] = {
+            "losses": report.losses, "launches": launches, "wgmma": wgmma,
+            "median_step_ms": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
+            "peak_gib": peak / 2**30, "card_idle_share": idle, "profile": prof,
+            "parts": parts, "flops": flops, "flop_rate_tflops": flops["flops"] / median_ms / 1e9,
+            "mfu": flops["flops"] / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+            "optimizer_bytes": opt_bytes, "bound_ms": bound[0], "bound_by": bound[1],
+            "save_s": timings["save"], "restore_s": timings["restore"], "summary": summary,
+            "resume_max_rel": max(diffs), "resume_bitwise": bitwise,
+        }
+        log(f"train step {cfg.name}: median {median_ms:.3f} ms over steps 3-{steps} (host clock "
+            f"around the step and float(loss)), {result['run']['tokens_per_s']:.0f} tokens/s; "
+            f"card active {prof['card_active_ms_per_step']:.3f} ms a step (busy "
+            f"{prof['card_busy_ms_per_step']:.3f}, {prof['device_ops_per_step']:.0f} device ops), "
+            f"idle share {idle:.3f}; parts (CUDA events) {parts}; peak "
+            f"{peak / 2**30:.2f} GiB; model FLOPs {flops['flops'] / 1e12:.3f} T a step "
+            f"({flops['layer_matmul_params'] / 1e6:.1f} M layer matmul parameters + the tied "
+            f"head, {flops['recompute_flops'] / 1e12:.3f} T of it the remat recompute) = "
+            f"{result['run']['flop_rate_tflops']:.1f} TFLOP/s, {result['run']['mfu']:.3f} of "
+            f"989; bound {bound[0]:.3f} ms by {bound[1]} (FLOPs "
+            f"{flops['flops'] / BF16_FLOPS_PER_S * 1e3:.3f} ms, the optimizer's 30 B a "
+            f"parameter {opt_bytes / 1e9:.2f} GB {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+            f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
+            f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
+        del trainer, batches
+    finally:
+        ckpt.save, ckpt.restore = originals
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3687,6 +4177,7 @@ def main() -> int:
     for name in DENSE_LOGIT_MODELS:
         dense_logits(name, dev)
     presult = pool(dev)
+    tresult = train(dev)
 
     wresult, wtimes = whatif(dev)
     lresult = live(dev)
@@ -3707,9 +4198,10 @@ def main() -> int:
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
-    wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs)
+    wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs) + tresult["run"]["wgmma"]
     for counts in [r["launches"] for r in runs] + [r["spill"]["launches"] for r in runs] + [
-            presult["launches"], wresult["launches"], wresult["search"]["launches"],
+            presult["launches"], tresult["run"]["launches"], wresult["launches"],
+            wresult["search"]["launches"],
             wresult["host_paths"]["launches"], lresult["launches"]]:
         for name, n in counts.items():
             launches[name] += n
@@ -3748,6 +4240,9 @@ def main() -> int:
             row["launches_tensor_cores"] = wgmma_launches
         if lresult["launches"].get(name):
             row["launches_live"] = lresult["launches"][name]
+        if tresult["run"]["launches"].get(name):
+            row["launches_train"] = tresult["run"]["launches"][name]
+            row["train"] = tresult["functions"]["times"][name]
         rows.append(row)
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}
     print(json.dumps({"kernels": rows}))

@@ -175,3 +175,19 @@ def require_cuda(*tensors: torch.Tensor) -> None:
     devices = {t.device for t in tensors}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"expected tensors on one CUDA device, got {devices}")
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor, function: str | None = None) -> None:
+    """Raise if grad mode is on and a tensor requires grad. A launch writes
+    its result through a raw pointer, so the result would carry no gradient
+    and cut every gradient upstream of it without a word. ``function`` names
+    the ``torch.autograd.Function`` that runs the kernel with a backward
+    (a ``RuntimeError`` then); without one the kernel has no backward yet
+    (``NotImplementedError``)."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return
+    if function is not None:
+        raise RuntimeError(f"{kernel}: the kernel's result carries no gradient; under "
+                           f"autograd call it through {function}")
+    raise NotImplementedError(f"{kernel} has no backward yet: its kernel cannot run "
+                              f"under autograd (pass plain=True for the plain version)")

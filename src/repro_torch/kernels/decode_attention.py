@@ -67,6 +67,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     _build.require_cuda(q, k_cache, v_cache)
+    _build.refuse_grad("decode_attention (K3)", q, k_cache, v_cache)
     b, h, d = q.shape
     kb, kv, s, kd = k_cache.shape
     if (kb, kd) != (b, d) or v_cache.shape != k_cache.shape:

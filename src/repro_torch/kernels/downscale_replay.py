@@ -194,6 +194,7 @@ def downscale_replay(lr_s0, lr_len, lr_busy, lr_valid, lr_trail, cum_res, ds_cum
         return downscale_replay_plain(lr_s0, lr_len, lr_busy, lr_valid, lr_trail,
                                       cum_res, ds_cum, ts_first, float(dt), trig, y)
     _build.require_cuda(*tensors.values())
+    _build.refuse_grad("downscale_replay (K7)", *tensors.values())
     if not all(t.is_contiguous() for t in tensors.values()):
         raise ValueError("the replay tensors must be contiguous")
     return launch(tensors, float(dt), replay_plan(k_dim, c_dim))

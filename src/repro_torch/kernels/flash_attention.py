@@ -66,6 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _build.require_cuda(q, k, v)
+    _build.refuse_grad("flash_attention (K2)", q, k, v,
+                       function="repro_torch.kernels.ops.FlashAttentionFunction")
     b, h, sq, d = q.shape
     kb, kv, sk, kd = k.shape
     if (kb, kd) != (b, d) or v.shape != k.shape:

@@ -6,8 +6,19 @@ The head-major kernels read and write through strides, so these wrappers
 only take views: no transpose copy of q, k, v, r, w or the KV cache. ``plain=True``
 runs the plain PyTorch version on any device; it exists so the kernels can be
 held against it on the card, and the serving path never sets it.
+
+Under autograd (grad mode on and an input that requires grad) RMSNorm and
+prefill attention run inside :class:`RMSNormFunction` and
+:class:`FlashAttentionFunction`: the forward is the kernel wrapper (the
+plain version on a CPU tensor), the backward the analytic gradient in
+PyTorch ops. Only the training loss reaches them; inference, whose inputs
+require no grad, calls the wrappers as before. The other kernels have no
+backward yet: their wrappers refuse a CUDA tensor that requires grad.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -17,18 +28,117 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import run_replay as _rr
 from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels.ref import NEG_INF, acc_dtype, attention_mask
+
+
+def _grad_wanted(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """K1 with its gradient. Forward: the kernel wrapper alone; it saves x
+    and the weight. Backward, from the rows' f32 reciprocal RMS rstd
+    computed there once, with x̂ = x * rstd and g = dy * w:
+    dx = rstd * (g - x̂ * mean(g * x̂)), dw = sum over rows of dy * x̂, both
+    in f32 (f64 for f64 inputs)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms.rmsnorm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        x32 = x.to(acc_dtype(x.dtype))
+        rstd = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = x32 * rstd
+        dy = dy.to(x32.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            g = dy * weight.to(x32.dtype)
+            dx = (rstd * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (dy * xhat).reshape(-1, x.shape[-1]).sum(dim=0).to(weight.dtype)
+        return dx, dw, None
+
+
+@functools.lru_cache(maxsize=8)
+def _backward_masks(sq: int, sk: int, causal: bool, window: int, groups: int, scale: float,
+                    device: torch.device, dtype: torch.dtype) -> tuple:
+    """(score bias, 0 where a key is kept and NEG_INF where masked; scale
+    where kept and 0 where masked), each (groups * Sq, Sk) for the
+    backward's stacked rows. Every layer's backward at one shape takes the
+    same two, so they are built once."""
+    keep = attention_mask(sq, sk, causal, window, device).repeat(groups, 1)
+    bias = torch.full(keep.shape, NEG_INF, dtype=dtype, device=device).masked_fill_(keep, 0.0)
+    return bias, keep.to(dtype) * scale
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K2 with its gradient, in the model's (B, S, H, d) layout. Forward: the
+    kernel wrapper; it saves q, k, v and the output O. Backward in f32 (f64
+    for f64 inputs), each kv head's group of g q heads stacked as g * Sq
+    rows so that every product is one batched matmul: P = softmax(QKᵀ/√d)
+    recomputed under the forward's mask (causal, window, Sq ≠ Sk) as an
+    additive bias, dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)),
+    dQ = dS K/√d, dK = dSᵀ Q/√d; the products over the stacked rows sum dK
+    and dV over the group's q heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=causal, window=window).transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        acc = acc_dtype(q.dtype)
+        scale = 1.0 / math.sqrt(d)
+
+        def heads(t):  # (B, S, N, d) -> (B * KV, N // KV * S, d) in acc: one copy
+            n, t_s = t.shape[2], t.shape[1]
+            return t.new_empty((b, n, t_s, d), dtype=acc).copy_(t.transpose(1, 2)).view(
+                b * kvh, n // kvh * t_s, d)
+
+        qh, doh, oh, kh, vh = map(heads, (q, dout, out, k, v))
+        bias, keep_scale = _backward_masks(sq, sk, ctx.causal, ctx.window, h // kvh, scale,
+                                           q.device, acc)
+        p = torch.softmax(torch.baddbmm(bias, qh, kh.transpose(1, 2), alpha=scale), dim=-1)
+        dv = torch.bmm(p.transpose(1, 2), doh)
+        rowsum = (doh * oh).sum(dim=-1, keepdim=True)
+        # dS, in place of dP; a masked score is a constant: no gradient (a
+        # row masked whole averages V)
+        ds = torch.bmm(doh, vh.transpose(1, 2)).sub_(rowsum).mul_(p).mul_(keep_scale)
+        dq = torch.bmm(ds, kh).view(b, h, sq, d).transpose(1, 2)
+        dk = torch.bmm(ds.transpose(1, 2), qh).view(b, kvh, sk, d).transpose(1, 2)
+        dv = dv.view(b, kvh, sk, d).transpose(1, 2)
+        return (dq.to(q.dtype, memory_format=torch.contiguous_format),
+                dk.to(k.dtype, memory_format=torch.contiguous_format),
+                dv.to(v.dtype, memory_format=torch.contiguous_format), None, None)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             plain: bool = False) -> torch.Tensor:
-    fn = _rms.rmsnorm_plain if plain else _rms.rmsnorm
-    return fn(x, weight, eps)
+    if plain:
+        return _rms.rmsnorm_plain(x, weight, eps)
+    if _grad_wanted(x, weight):
+        return RMSNormFunction.apply(x, weight, eps)
+    return _rms.rmsnorm(x, weight, eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     plain: bool = False) -> torch.Tensor:
     """q: (B,S,H,d); k/v: (B,S,KV,d). Returns (B,S,H,d)."""
+    if not plain and _grad_wanted(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
     fn = _fa.flash_attention_plain if plain else _fa.flash_attention
     out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
              causal=causal, window=window)

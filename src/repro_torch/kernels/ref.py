@@ -14,23 +14,40 @@ import torch
 NEG_INF = -1e30
 
 
-def mha_reference(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B,H,Sq,d); k/v: (B,KV,Sk,d) -> (B,H,Sq,d) f32."""
-    b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
-    k = torch.repeat_interleave(k, h // kvh, dim=1)
-    v = torch.repeat_interleave(v, h // kvh, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions compute in: float32, or float64 for
+    float64 inputs (the gradient checks' precision)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window: int,
+                   device: torch.device) -> torch.Tensor:
+    """(Sq, Sk) bool, True where query i may attend key j: ``j <= i`` when
+    causal, ``j > i - window`` when ``window > 0``; positions count from 0
+    on both sides."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window > 0:
         mask &= k_pos > q_pos - window
-    s = torch.where(mask[None, None], s, NEG_INF)
+    return mask
+
+
+def mha_reference(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B,H,Sq,d); k/v: (B,KV,Sk,d) -> (B,H,Sq,d) f32 (f64 for f64
+    inputs)."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    acc = acc_dtype(q.dtype)
+    k = torch.repeat_interleave(k, h // kvh, dim=1)
+    v = torch.repeat_interleave(v, h // kvh, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(d)
+    s = torch.where(attention_mask(sq, sk, causal, window, q.device)[None, None], s,
+                    NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
 
 
 def decode_attention_reference(q, k_cache, v_cache, cache_len):
@@ -85,6 +102,6 @@ def ssm_scan_reference(u, dt, a, b, c, h0=None):
 
 
 def rmsnorm_reference(x, weight, eps: float = 1e-6):
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x.dtype))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * weight.to(x32.dtype)).to(x.dtype)

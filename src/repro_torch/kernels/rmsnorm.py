@@ -69,6 +69,8 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)
     _build.require_cuda(x, weight)
+    _build.refuse_grad("rmsnorm (K1)", x, weight,
+                       function="repro_torch.kernels.ops.RMSNormFunction")
     d = x.shape[-1]
     if weight.shape != (d,) or weight.dtype != x.dtype:
         raise ValueError(f"weight {tuple(weight.shape)} {weight.dtype} does not "

@@ -169,6 +169,7 @@ def cap_bucket_scan(sorted_p: torch.Tensor, caps: torch.Tensor,
     if sorted_p.device.type == "cpu" and caps.device.type == "cpu":
         return cap_bucket_scan_plain(sorted_p, caps)
     _build.require_cuda(sorted_p, caps)
+    _build.refuse_grad("cap_bucket_scan (K4)", sorted_p, caps)
     if not sorted_p.is_contiguous():
         raise ValueError("sorted_p must be contiguous")
     sp3 = sorted_p if sorted_p.dim() == 3 else sorted_p[None]

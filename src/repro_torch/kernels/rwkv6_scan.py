@@ -114,6 +114,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return wkv6_plain(r, k, v, w, u, state0, state_out)
     states = [t for t in (state0, state_out) if t is not None]
     _build.require_cuda(r, k, v, w, u, *states)
+    _build.refuse_grad("wkv6 (K6)", r, k, v, w, u, *states)
     bsz, h, s, kd = r.shape
     if (any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, kd)
             or any(t.shape != (bsz, h, kd, kd) for t in states)):

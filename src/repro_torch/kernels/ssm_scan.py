@@ -102,6 +102,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         return ssm_scan_plain(u, dt, a, b, c, h0, h_out)
     states = [t for t in (h0, h_out) if t is not None]
     _build.require_cuda(u, dt, a, b, c, *states)
+    _build.refuse_grad("ssm_scan (K5)", u, dt, a, b, c, *states)
     bsz, s, di = u.shape
     n = a.shape[-1]
     if (dt.shape != u.shape or a.shape != (di, n) or b.shape != (bsz, s, n)

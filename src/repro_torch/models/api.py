@@ -4,7 +4,9 @@ JAX package, dense, moe (granite-moe), mla_moe (deepseek-v3), rwkv, hybrid
 
 The multimodal stubs' inputs (``frames=`` for encdec, ``vision=`` for vlm)
 go only to the family that takes them, as the reference's ``api.prefill``
-passes them.
+passes them. Training: ``loss_fn`` over a batch of ``tokens`` and ``labels``
+(plus ``frames`` or ``vision``), ``make_batch``, and the parameter counts,
+from an init on the ``meta`` device (``abstract_params``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dense, hymba, mla, moe, rwkv, vlm, whisper
+from repro_torch.models.common import leaves
 
 _FAMILY_MODULES: dict[str, ModuleType] = {"dense": dense, "moe": moe, "mla_moe": mla,
                                           "rwkv": rwkv, "hybrid": hymba,
@@ -32,6 +35,60 @@ def family_module(cfg: ModelConfig) -> ModuleType:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return family_module(cfg).init_params(gen, cfg)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose tensors land on the ``meta`` device: shapes and
+    dtypes without storage or draws."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors: every leaf's shape and dtype,
+    no storage."""
+    return init_params(_MetaGenerator(), cfg)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, plain: bool = False):
+    """(loss, metrics) of the family's training loss; ``plain=True`` runs the
+    plain versions of the kernels."""
+    return family_module(cfg).loss_fn(params, batch, cfg, plain=plain)
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int,
+               gen: torch.Generator | None = None) -> dict:
+    """A synthetic training batch for the family, drawn from ``gen`` (seed 0
+    on the CPU when None) on its device: ``tokens`` and ``labels`` int64
+    (B, S), and f32 ``frames`` (encdec) or ``vision`` (vlm)."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    dev = gen.device
+    out = {name: torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+           for name in ("tokens", "labels")}
+    stub = {"encdec": ("frames", cfg.n_frames), "vlm": ("vision", cfg.n_vision_tokens)}
+    if cfg.family in stub:
+        name, n = stub[cfg.family]
+        out[name] = torch.randn((batch, n, cfg.d_model), generator=gen, device=dev)
+    return out
+
+
+def count_params(params) -> int:
+    return sum(t.numel() for t in leaves(params))
+
+
+def count_params_abstract(cfg: ModelConfig) -> int:
+    return count_params(abstract_params(cfg))
+
+
+def active_params_abstract(cfg: ModelConfig) -> int:
+    """Active parameters per token (MoE: top_k + shared experts only)."""
+    total = count_params_abstract(cfg)
+    if not cfg.is_moe:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_expert
+    return total - (cfg.n_layers - cfg.first_k_dense) * (cfg.n_experts - cfg.top_k) * per_expert
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

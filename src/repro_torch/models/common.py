@@ -1,6 +1,8 @@
 """Building blocks of the model families: init helpers, LayerNorm and the
 per-head GroupNorm (RWKV), RoPE, the QKV projection, the GLU MLP block,
-the plain two-layer MLP (whisper) and the LM head.
+the plain two-layer MLP (whisper), the LM head, and the training pieces:
+the cross-entropy, per-layer rematerialisation, a stack split into its
+layers, and the chunk-checkpointed scan.
 
 Parameters are plain dicts of tensors. RMSNorm, attention and decode
 attention are the Hopper kernels, called from ``repro_torch.kernels.ops``;
@@ -15,6 +17,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -72,6 +75,15 @@ def normal_stack(gen: torch.Generator, shape: tuple[int, ...], scale: float,
 def layer(layers: dict, i: int) -> dict:
     """Layer ``i`` of weights stacked on axis 0."""
     return {name: w[i] for name, w in layers.items()}
+
+
+def unstack(layers: dict) -> list[dict]:
+    """Every layer's weights of a stack on axis 0, each stacked tensor split
+    once with ``unbind``. The training loss walks a stack this way: indexing
+    a layer out of it (:func:`layer`) once per layer would make each
+    ``select``'s backward write a zero tensor as large as the whole stack."""
+    names = list(layers)
+    return [dict(zip(names, row)) for row in zip(*(layers[n].unbind(0) for n in names))]
 
 
 def leaves(tree) -> list[torch.Tensor]:
@@ -178,3 +190,57 @@ def lm_logits(x, embed, out_head=None):
     """Project hidden states to vocabulary (tied embeddings by default)."""
     w = embed.T if out_head is None else out_head
     return x @ w
+
+
+# --------------------------------------------------------------------------- #
+# training: loss, rematerialisation, chunked scan
+# --------------------------------------------------------------------------- #
+def cross_entropy(logits, labels, mask=None):
+    """logits: (..., V) any float dtype; labels int (...,). Mean of the f32
+    negative log-likelihood over ``mask`` (all positions when None)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept: the per-layer ``jax.checkpoint`` of the JAX package's losses."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def remat_first(fn: Callable, *args):
+    """The first output of ``fn(*args)`` under :func:`remat`: the loss's
+    use of a layer that also returns what the prefill keeps (its keys,
+    values or states)."""
+    return remat(lambda *a: fn(*a)[0], *args)
+
+
+def _scan(step: Callable, carry, xs):
+    ys = []
+    for t in range(xs[0].shape[0]):
+        carry, y = step(carry, tuple(x[t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def chunked_scan(step: Callable, init, xs, chunk: int = 64):
+    """``carry, y_t = step(carry, x_t)`` over the leading (time) axis of the
+    tensors ``xs``; returns (final carry, ys stacked on axis 0).
+
+    The backward keeps the carry only at chunk boundaries and recomputes
+    within a chunk (:func:`remat` per chunk), as the JAX package's
+    ``chunked_scan`` does for long recurrences; a plain loop when the time
+    axis is at most ``chunk`` or not a multiple of it."""
+    length = xs[0].shape[0]
+    if chunk <= 1 or length % chunk or length <= chunk:
+        return _scan(step, init, xs)
+    carry, ys = init, []
+    for t in range(0, length, chunk):
+        carry, y = remat(lambda c, *xc: _scan(step, c, xc), carry,
+                         *(x[t:t + chunk] for x in xs))
+        ys.append(y)
+    return carry, torch.cat(ys)

@@ -2,7 +2,9 @@
 
 GQA/MQA attention with RoPE (optional QKV bias for qwen), SwiGLU/GeGLU MLP,
 RMSNorm, tied embeddings optional. Layer weights are stacked on axis 0, as in
-the JAX package, and the stack is walked with a Python loop.
+the JAX package, and the stack is walked with a Python loop. The training
+loss shares the prefill's layer and splits the stack once
+(``common.unstack``).
 
 The serving functions follow the JAX package exactly, including what its
 engine relies on: the cache's ``len`` is one position shared by all rows,
@@ -67,6 +69,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# training loss
+# --------------------------------------------------------------------------- #
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """Mean next-token cross-entropy over every position; each layer
+    rematerialised in the backward. batch: ``tokens`` and ``labels`` (B, S).
+    Returns (loss, {"loss": loss})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for lp in cm.unstack(params["layers"]):
+        x = cm.remat_first(_prefill_layer, x, lp, cfg, positions, plain)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    logits = cm.lm_logits(x, params["embed"], params.get("out_head"))
+    loss = cm.cross_entropy(logits, labels)
+    return loss, {"loss": loss}
+
+
+# --------------------------------------------------------------------------- #
 # serving: prefill + decode
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -93,6 +113,19 @@ def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
                       if k != "embed" or "out_head" not in params})
 
 
+def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
+    """One pre-norm block over the full sequence: (x after it, its keys, its
+    values). The prefill and the training loss share it."""
+    b, s, _ = x.shape
+    h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
+    q, k, v = cm.qkv(h, lp, cfg)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
+    x = x + attn.reshape(b, s, -1) @ lp["wo"]
+    return cm.mlp_residual(x, lp, cfg, plain), k, v
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward that also populates the KV cache.
 
@@ -107,16 +140,8 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     ks = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     vs = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     for i in range(cfg.n_layers):
-        lp = cm.layer(params["layers"], i)
-        h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
-        q, k, v = cm.qkv(h, lp, cfg)
-        q = cm.apply_rope(q, positions, cfg.rope_theta)
-        k = cm.apply_rope(k, positions, cfg.rope_theta)
-        attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
-        x = x + attn.reshape(b, s, -1) @ lp["wo"]
-        x = cm.mlp_residual(x, lp, cfg, plain)
-        ks[i] = k
-        vs[i] = v
+        x, ks[i], vs[i] = _prefill_layer(x, cm.layer(params["layers"], i), cfg, positions,
+                                         plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x[:, -1:], params["embed"], params.get("out_head"))
     cache = {"k": ks, "v": vs,

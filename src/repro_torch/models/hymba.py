@@ -192,6 +192,40 @@ def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
     return cm.leaves(params)
 
 
+def _full_layer(x, lp, cfg: ModelConfig, positions, is_global: bool, plain: bool):
+    """One hybrid layer over the full sequence from a zero state: (x after
+    it, its keys, its values, conv state, ssm state). The prefill and the
+    training loss share it."""
+    b, s, _ = x.shape
+    h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
+    q, k, v = cm.qkv(h, lp, cfg)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    attn = ops.flash_attention(q, k, v, causal=True,
+                               window=0 if is_global else cfg.window, plain=plain)
+    attn_out = attn.reshape(b, s, -1) @ lp["wo"]
+    ssm_out, conv_state, ssm_state = mamba_branch(h, lp, cfg, plain)
+    x = x + _fuse(attn_out, ssm_out, lp, cfg, plain)
+    return cm.mlp_residual(x, lp, cfg, plain), k, v, conv_state, ssm_state
+
+
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """Mean next-token cross-entropy; each layer rematerialised in the
+    backward. On the card the selective scan (K5) has no backward yet: under
+    autograd its wrapper raises ``NotImplementedError`` (``plain=True`` runs
+    the plain version).
+    Returns (loss, {"loss": loss})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for i, lp in enumerate(params["layers"]):
+        x = cm.remat_first(_full_layer, x, lp, cfg, positions, i in cfg.global_layers,
+                           plain)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    loss = cm.cross_entropy(cm.lm_logits(x, params["embed"]), labels)
+    return loss, {"loss": loss}
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward that also builds the cache. tokens: (B, S) int64.
     Returns (cache, logits_last) — logits for the final position, (B, 1, V)."""
@@ -202,16 +236,7 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     layers = []
     for i, lp in enumerate(params["layers"]):
         is_global = i in cfg.global_layers
-        h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
-        q, k, v = cm.qkv(h, lp, cfg)
-        q = cm.apply_rope(q, positions, cfg.rope_theta)
-        k = cm.apply_rope(k, positions, cfg.rope_theta)
-        attn = ops.flash_attention(q, k, v, causal=True,
-                                   window=0 if is_global else cfg.window, plain=plain)
-        attn_out = attn.reshape(b, s, -1) @ lp["wo"]
-        ssm_out, conv_state, ssm_state = mamba_branch(h, lp, cfg, plain)
-        x = x + _fuse(attn_out, ssm_out, lp, cfg, plain)
-        x = cm.mlp_residual(x, lp, cfg, plain)
+        x, k, v, conv_state, ssm_state = _full_layer(x, lp, cfg, positions, is_global, plain)
         keep = s if is_global else min(cfg.window, s)
         layers.append({"k": k[:, -keep:], "v": v[:, -keep:],
                        "conv": conv_state, "ssm": ssm_state})

@@ -13,8 +13,9 @@ and ``final_norm``.
 
 Layer stack: the first ``first_k_dense`` layers have a dense GLU FFN (width
 d_ff), the rest the MoE FFN (``moe.moe_ffn``, the dense dispatch) with its
-shared expert. The MTP module's parameters are made, as the reference
-makes them; it is a training term and serving never runs it.
+shared expert. The MTP module (one dense-FFN MLA layer predicting token
+t + 2 from the last hidden state and token t + 1's embedding) is a training
+term: the loss runs it, serving never does.
 
 The decode step writes the latents at ``len`` in place (clamped to the last
 slot, as the reference's ``dynamic_update_slice``) instead of building new
@@ -32,6 +33,7 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import common as cm
 from repro_torch.models import moe
 
+MTP_LOSS_WEIGHT = 0.3
 
 # --------------------------------------------------------------------------- #
 # parameters
@@ -174,12 +176,14 @@ def mla_decode_attention(x, lp, cfg: ModelConfig, ckv_cache, krope_cache, pos,
 # --------------------------------------------------------------------------- #
 # layers and serving
 # --------------------------------------------------------------------------- #
-def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
+def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool, aux: bool = False):
     """One layer of the prefill: (x after the layer, its latent, its shared
-    rotated key)."""
+    rotated key, its MoE aux loss or None); the training loss asks for the
+    aux loss."""
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     attn, (ckv, krope) = mla_attention(h, lp, cfg, positions, plain)
-    return _ffn_residual(x + attn, lp, cfg, plain), ckv, krope
+    x, aux_loss = _ffn_residual(x + attn, lp, cfg, plain, aux)
+    return x, ckv, krope, aux_loss
 
 
 def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
@@ -189,16 +193,17 @@ def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
     pos, write_at, _ = at
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     attn = mla_decode_attention(h, lp, cfg, *caches, pos, write_at, plain)
-    return _ffn_residual(x + attn, lp, cfg, plain)
+    return _ffn_residual(x + attn, lp, cfg, plain)[0]
 
 
-def _ffn_residual(x, lp, cfg: ModelConfig, plain: bool):
-    """x + the dense GLU or, in a layer with a router, the MoE FFN of the
-    RMS-normed x (the norm is K1)."""
+def _ffn_residual(x, lp, cfg: ModelConfig, plain: bool, aux: bool = False):
+    """(x + the dense GLU or, in a layer with a router, the MoE FFN of the
+    RMS-normed x, the MoE layer's aux loss or None); the norm is K1."""
     h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
     if "router" in lp:
-        return x + moe.moe_ffn(h, lp, cfg)
-    return x + cm.glu_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act)
+        y, aux_loss = moe.moe_ffn(h, lp, cfg, aux=aux)
+        return x + y, aux_loss
+    return x + cm.glu_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act), None
 
 
 decode_at = moe.decode_at
@@ -210,6 +215,47 @@ def layers(params, cfg: ModelConfig) -> list[dict]:
     return ([cm.layer(params["dense_layers"], i) for i in range(cfg.first_k_dense)]
             + [cm.layer(params["moe_layers"], i)
                for i in range(cfg.n_layers - cfg.first_k_dense)])
+
+
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """The cross-entropy, plus ``router_aux_coef`` times the MoE layers' mean
+    load-balance loss, plus ``MTP_LOSS_WEIGHT`` times the MTP head's
+    cross-entropy on tokens shifted one further (its last two positions
+    masked); each layer rematerialised in the backward, the MTP layer not,
+    as in the reference. Returns (loss, {"loss", "ce", "aux"[, "ce_mtp"]})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    embed = params["embed"]
+    x = embed[tokens]
+    positions = torch.arange(s, device=tokens.device)
+    aux_sum = 0.0
+    for lp in cm.unstack(params["dense_layers"]) + cm.unstack(params["moe_layers"]):
+        x, _, _, aux = cm.remat(_prefill_layer, x, lp, cfg, positions, plain, True)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    hidden = x
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    ce = cm.cross_entropy(cm.lm_logits(x, embed), labels)
+    aux = cfg.router_aux_coef * aux_sum / max(cfg.n_layers - cfg.first_k_dense, 1)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth > 0:
+        mtp = params["mtp"]
+        # token t+1's embedding at position t (shifted left, wrapping)
+        emb_next = embed[torch.roll(tokens, -1, dims=1)]
+        mtp_in = torch.cat([ops.rmsnorm(hidden, mtp["norm_h"], cfg.norm_eps, plain=plain),
+                            ops.rmsnorm(emb_next, mtp["norm_e"], cfg.norm_eps, plain=plain)],
+                           dim=-1) @ mtp["proj"]
+        h_mtp = _prefill_layer(mtp_in, mtp["layer"], cfg, positions, plain)[0]
+        h_mtp = ops.rmsnorm(h_mtp, params["final_norm"], cfg.norm_eps, plain=plain)
+        mask = torch.ones((b, s), dtype=torch.bool, device=tokens.device)
+        mask[:, -2:] = False
+        ce_mtp = cm.cross_entropy(cm.lm_logits(h_mtp, embed), torch.roll(labels, -1, dims=1),
+                                  mask)
+        loss = loss + MTP_LOSS_WEIGHT * ce_mtp
+        metrics["ce_mtp"] = ce_mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -245,7 +291,7 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     ckv = torch.empty((cfg.n_layers, b, s, cfg.kv_lora_rank), dtype=x.dtype, device=dev)
     krope = torch.empty((cfg.n_layers, b, s, cfg.qk_rope_dim), dtype=x.dtype, device=dev)
     for i, lp in enumerate(layers(params, cfg)):
-        x, ckv[i], krope[i] = _prefill_layer(x, lp, cfg, positions, plain)
+        x, ckv[i], krope[i], _ = _prefill_layer(x, lp, cfg, positions, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x[:, -1:], params["embed"])
     cache = {"ckv": ckv, "krope": krope,

@@ -15,8 +15,9 @@ Experts are zero-padded to a multiple of the expert-parallel width
 (``padded_experts``); padded experts get ``-inf`` router logits.
 
 The load-balance auxiliary loss of the reference's ``router_topk`` is a
-training term; serving never reads it, so it is not computed here (the JAX
-package's compiled serve step drops it as dead code).
+training term: it is computed only when the loss asks for it (``aux=True``),
+so the serving path, whose compiled step the JAX package strips of it as
+dead code, runs none of it.
 
 The decode step is capturable into a CUDA graph: no host read of a device
 value and no shape that depends on the data (the combine weights are
@@ -27,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -78,9 +80,11 @@ def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1,
 # --------------------------------------------------------------------------- #
 # routing and the dense dispatch
 # --------------------------------------------------------------------------- #
-def router_topk(x: torch.Tensor, w_router: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (gates (..., k) f32, ids (..., k) int64).
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: ModelConfig,
+                aux: bool = False) -> tuple:
+    """Returns (gates (..., k) f32, ids (..., k) int64, aux loss), as the
+    reference's; the switch-style load-balance loss over the real experts
+    is computed with ``aux`` only, else None.
 
     ``jax.lax.top_k`` puts the lower index first among equal logits;
     ``torch.topk`` does not, so the top k are taken from a stable
@@ -93,16 +97,23 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor,
         logits = logits.masked_fill(pad_mask, float("-inf"))
     top_logits, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
     top_logits, ids = top_logits[..., :cfg.top_k], ids[..., :cfg.top_k]
-    return torch.softmax(top_logits, dim=-1), ids
+    gates = torch.softmax(top_logits, dim=-1)
+    if not aux:
+        return gates, ids, None
+    me = torch.softmax(logits, dim=-1).reshape(-1, e_pad).mean(dim=0)
+    assign = F.one_hot(ids, e_pad).float().sum(dim=-2)
+    ce = assign.reshape(-1, e_pad).mean(dim=0) / cfg.top_k
+    return gates, ids, cfg.n_experts * (me * ce).sum()
 
 
-def moe_ffn_dense(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """All-experts compute, gate-masked. x: (B, S, D). Exact oracle.
+def moe_ffn_dense(x: torch.Tensor, p: dict, cfg: ModelConfig, aux: bool = False):
+    """All-experts compute, gate-masked. x: (B, S, D). Exact oracle. Returns
+    (output, aux loss or None), as :func:`router_topk` says.
 
     The expert products are batched over experts, (E, B*S, D) @ (E, D, F),
     so each expert's weights are read in place."""
     b, s, d = x.shape
-    gates, ids = router_topk(x, p["router"], cfg)
+    gates, ids, aux_loss = router_topk(x, p["router"], cfg, aux)
     e_pad = p["router"].shape[-1]
     combine = torch.zeros((b, s, e_pad), dtype=torch.float32, device=x.device)
     combine.scatter_(-1, ids, gates)                             # (B,S,E)
@@ -111,23 +122,27 @@ def moe_ffn_dense(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     u = torch.bmm(xe, p["we_up"])
     y = torch.bmm(cm.act_fn(cfg.act)(h) * u, p["we_down"])       # (E,N,D)
     out = torch.einsum("end,ne->nd", y.float(), combine.reshape(b * s, e_pad))
-    return out.reshape(b, s, d).to(x.dtype)
+    return out.reshape(b, s, d).to(x.dtype), aux_loss
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, ep_size: int = 1) -> torch.Tensor:
-    """Routed experts + optional shared experts."""
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, ep_size: int = 1,
+            aux: bool = False):
+    """Routed experts + optional shared experts: (output, aux loss or
+    None), as :func:`moe_ffn_dense`."""
     if ep_size > 1:
         raise NotImplementedError("the expert-parallel dispatch is not ported")
-    out = moe_ffn_dense(x, p, cfg)
+    out, aux_loss = moe_ffn_dense(x, p, cfg, aux)
     if cfg.n_shared_experts:
         out = out + cm.glu_mlp(x, p["ws_gate"], p["ws_up"], p["ws_down"], cfg.act)
-    return out
+    return out, aux_loss
 
 
-def _moe_residual(x, lp, cfg: ModelConfig, plain: bool):
-    """x + MoE FFN of the RMS-normed x (the norm is K1)."""
+def _moe_residual(x, lp, cfg: ModelConfig, plain: bool, aux: bool = False):
+    """(x + MoE FFN of the RMS-normed x, aux loss or None); the norm is
+    K1."""
     h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
-    return x + moe_ffn(h, lp, cfg)
+    y, aux_loss = moe_ffn(h, lp, cfg, aux=aux)
+    return x + y, aux_loss
 
 
 # =========================================================================== #
@@ -148,8 +163,9 @@ cache_rows = _dense.cache_rows
 decode_params = _dense.decode_params
 
 
-def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
-    """One layer of the prefill: (x after the layer, its keys, its values)."""
+def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool, aux: bool = False):
+    """One layer of the prefill: (x after the layer, its keys, its values,
+    its aux loss or None); the training loss asks for the aux loss."""
     b, s, _ = x.shape
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     q, k, v = cm.qkv(h, lp, cfg)
@@ -157,7 +173,8 @@ def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
     x = x + attn.reshape(b, s, -1) @ lp["wo"]
-    return _moe_residual(x, lp, cfg, plain), k, v
+    x, aux_loss = _moe_residual(x, lp, cfg, plain, aux)
+    return x, k, v, aux_loss
 
 
 def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
@@ -176,7 +193,7 @@ def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
     v_cache.index_copy_(1, write_at, v)
     attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
     x = x + attn.reshape(b, 1, -1) @ lp["wo"]
-    return _moe_residual(x, lp, cfg, plain)
+    return _moe_residual(x, lp, cfg, plain)[0]
 
 
 def decode_at(pos: torch.Tensor, cache_size: int) -> tuple:
@@ -192,6 +209,24 @@ def layers(params, cfg: ModelConfig) -> list[dict]:
     return [cm.layer(params["layers"], i) for i in range(cfg.n_layers)]
 
 
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """The cross-entropy plus ``router_aux_coef`` times the layers' mean
+    load-balance loss; each layer rematerialised in the backward. Returns
+    (loss, {"loss", "ce", "aux"})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux_sum = 0.0
+    for lp in cm.unstack(params["layers"]):
+        x, _, _, aux = cm.remat(_prefill_layer, x, lp, cfg, positions, plain, True)
+        aux_sum = aux_sum + aux
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    ce = cm.cross_entropy(cm.lm_logits(x, params["embed"], params.get("out_head")), labels)
+    aux = cfg.router_aux_coef * aux_sum / cfg.n_layers
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     """Full-sequence forward that also populates the KV cache, as
     ``dense.prefill`` with the MoE FFN. Returns (cache, logits_last)."""
@@ -203,7 +238,7 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     ks = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     vs = torch.empty(cache_shape, dtype=x.dtype, device=dev)
     for i, lp in enumerate(layers(params, cfg)):
-        x, ks[i], vs[i] = _prefill_layer(x, lp, cfg, positions, plain)
+        x, ks[i], vs[i], _ = _prefill_layer(x, lp, cfg, positions, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x[:, -1:], params["embed"], params.get("out_head"))
     cache = {"k": ks, "v": vs,

@@ -154,6 +154,25 @@ def _block(x, lp, cfg: ModelConfig, tm_shift, cm_shift, wkv_state, state_out,
 
 
 # --------------------------------------------------------------------------- #
+# training loss
+# --------------------------------------------------------------------------- #
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """Mean next-token cross-entropy from zero states; each layer
+    rematerialised in the backward. On the card the WKV recurrence (K6) has
+    no backward yet: under autograd its wrapper raises
+    ``NotImplementedError`` (``plain=True`` runs the plain version). Returns
+    (loss, {"loss": loss})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = cm.layernorm(params["embed"][tokens], params["ln0_w"], params["ln0_b"])
+    zeros = x.new_zeros((x.shape[0], 1, cfg.d_model))
+    for lp in cm.unstack(params["layers"]):
+        x = cm.remat_first(_block, x, lp, cfg, zeros, zeros, None, None, plain)
+    x = cm.layernorm(x, params["final_ln_w"], params["final_ln_b"])
+    loss = cm.cross_entropy(x @ params["head"], labels)
+    return loss, {"loss": loss}
+
+
+# --------------------------------------------------------------------------- #
 # serving
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

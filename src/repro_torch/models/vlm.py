@@ -126,6 +126,12 @@ def _cross_block(x, lp, cfg: ModelConfig, attend, plain: bool):
     return x + gate_m * mlp
 
 
+def _attend_vision(xk, xv, plain: bool):
+    """The cross block's ``attend`` over the whole prompt: K2 with no mask,
+    Sq the prompt, Sk the vision tokens."""
+    return lambda q: ops.flash_attention(q, xk, xv, causal=False, plain=plain)
+
+
 def _vision_kv(vision, lp, cfg: ModelConfig):
     """Project vision embeddings with this cross layer's wk/wv."""
     b, nv, _ = vision.shape
@@ -133,6 +139,30 @@ def _vision_kv(vision, lp, cfg: ModelConfig):
     k = (vision @ lp["wk"]).reshape(b, nv, cfg.n_kv_heads, hd)
     v = (vision @ lp["wv"]).reshape(b, nv, cfg.n_kv_heads, hd)
     return k, v
+
+
+# --------------------------------------------------------------------------- #
+# training loss
+# --------------------------------------------------------------------------- #
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """Mean next-token cross-entropy over ``batch["vision"]`` (B, Nv, D),
+    cast to the model dtype; each self and each cross block rematerialised
+    in the backward, the vision K/V projections not, as in the reference.
+    Returns (loss, {"loss": loss})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    vision = batch["vision"].to(cm.param_dtype(cfg))
+    x = params["embed"][tokens]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    groups = zip((cm.unstack(g) for g in cm.unstack(params["self_layers"])),
+                 cm.unstack(params["cross_layers"]))
+    for self_layers, cross in groups:
+        for lp in self_layers:
+            x = cm.remat_first(_self_prefill, x, lp, cfg, positions, plain)
+        xk, xv = _vision_kv(vision, cross, cfg)
+        x = cm.remat(_cross_block, x, cross, cfg, _attend_vision(xk, xv, plain), plain)
+    x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
+    loss = cm.cross_entropy(x @ params["out_head"], labels)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------- #
@@ -194,8 +224,7 @@ def prefill(params, tokens, cfg: ModelConfig, vision=None, plain: bool = False):
         lp = cm.layer(params["cross_layers"], g)
         xk, xv = _vision_kv(vision, lp, cfg)
         xks[g], xvs[g] = xk, xv
-        x = _cross_block(x, lp, cfg, lambda q: ops.flash_attention(
-            q, xk, xv, causal=False, plain=plain), plain)
+        x = _cross_block(x, lp, cfg, _attend_vision(xk, xv, plain), plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = x[:, -1:] @ params["out_head"]
     cache = {"k": ks, "v": vs, "xk": xks, "xv": xvs,

@@ -125,12 +125,42 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, plain: bool = False):
     dt = cm.param_dtype(cfg)
     b, f, d = frames.shape
     x = frames.to(dt) + sinusoidal(torch.arange(f, device=frames.device), d).to(dt)
-    for i in range(cfg.n_enc_layers):
-        lp = cm.layer(params["enc_layers"], i)
+    for lp in cm.unstack(params["enc_layers"]):
         h = cm.layernorm(x, lp["ln1_w"], lp["ln1_b"])
         attn, _ = _mha(h, h, lp, cfg, causal=False, plain=plain)
         x = _mlp_residual(x + attn, lp)
     return cm.layernorm(x, params["enc_ln_w"], params["enc_ln_b"])
+
+
+# --------------------------------------------------------------------------- #
+# decoder over a whole prompt (prefill and training)
+# --------------------------------------------------------------------------- #
+def _dec_layer(x, lp, enc_out, cfg: ModelConfig, plain: bool):
+    """One decoder layer: (x after it, its self (k, v), its cross (k, v))."""
+    h = cm.layernorm(x, lp["ln1_w"], lp["ln1_b"])
+    attn, self_kv = _mha(h, h, lp, cfg, causal=True, plain=plain)
+    x = x + attn
+    h = cm.layernorm(x, lp["ln_x_w"], lp["ln_x_b"])
+    attn, cross_kv = _mha(h, enc_out, lp, cfg, "x_", causal=False, plain=plain)
+    return _mlp_residual(x + attn, lp), self_kv, cross_kv
+
+
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+    """Mean next-token cross-entropy of the decoder over the encoded
+    ``batch["frames"]`` (B, F, D); each decoder layer rematerialised in the
+    backward, the encoder not, as in the reference. Returns (loss,
+    {"loss": loss})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    enc_out = encode(params, batch["frames"], cfg, plain)
+    s = tokens.shape[1]
+    dt = cm.param_dtype(cfg)
+    x = params["embed"][tokens] + sinusoidal(torch.arange(s, device=tokens.device),
+                                             cfg.d_model).to(dt)
+    for lp in cm.unstack(params["dec_layers"]):
+        x = cm.remat_first(_dec_layer, x, lp, enc_out, cfg, plain)
+    x = cm.layernorm(x, params["dec_ln_w"], params["dec_ln_b"])
+    loss = cm.cross_entropy(cm.lm_logits(x, params["embed"]), labels)
+    return loss, {"loss": loss}
 
 
 # --------------------------------------------------------------------------- #
@@ -183,13 +213,8 @@ def prefill(params, tokens, cfg: ModelConfig, frames=None, plain: bool = False):
     xks = torch.empty((nd, b, enc_out.shape[1], cfg.n_heads, hd), dtype=dt, device=dev)
     xvs = torch.empty_like(xks)
     for i in range(nd):
-        lp = cm.layer(params["dec_layers"], i)
-        h = cm.layernorm(x, lp["ln1_w"], lp["ln1_b"])
-        attn, (ks[i], vs[i]) = _mha(h, h, lp, cfg, causal=True, plain=plain)
-        x = x + attn
-        h = cm.layernorm(x, lp["ln_x_w"], lp["ln_x_b"])
-        attn, (xks[i], xvs[i]) = _mha(h, enc_out, lp, cfg, "x_", causal=False, plain=plain)
-        x = _mlp_residual(x + attn, lp)
+        x, (ks[i], vs[i]), (xks[i], xvs[i]) = _dec_layer(
+            x, cm.layer(params["dec_layers"], i), enc_out, cfg, plain)
     x = cm.layernorm(x, params["dec_ln_w"], params["dec_ln_b"])
     logits = cm.lm_logits(x[:, -1:], params["embed"])
     cache = {"k": ks, "v": vs, "xk": xks, "xv": xvs,

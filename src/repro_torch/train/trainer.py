@@ -1,0 +1,188 @@
+"""Training loop with first-class execution-idle telemetry + fault tolerance,
+as the JAX package's ``train/trainer.py``.
+
+The trainer is where the paper's technique integrates with training:
+every step reports busy/idle phases to a :class:`RuntimeSampler`; an optional
+:class:`ExecutionIdleController` (Algorithm 1) watches those samples and
+downscales the (simulated) device clocks during sustained input-pipeline or
+checkpoint stalls — a training-side guard against PCIe/NIC-preceded
+execution-idle (§4.5).
+
+A step runs eagerly on the device: the loss forward (K1 and K2 inside their
+autograd Functions on the card), the backward, the global-norm clip and the
+optimizer update. ``float(loss)`` is the step's synchronisation point, as in
+the reference, so the step time is the host's clock around all of it.
+
+Fault tolerance:
+* step-atomic checkpoints every ``checkpoint_every`` steps (train.checkpoint),
+* automatic resume from LATEST,
+* straggler detection: a per-step deadline (k x running median); steps
+  breaching it are counted (one process: the skip is recorded only).
+
+One process, one device: a ``dist`` with a mesh is refused by name, and
+``TrainerConfig.grad_compression`` is kept and, as in the reference, never
+read.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.controller import ExecutionIdleController
+from repro_torch.core.power_model import SimulatedDevice, get_platform
+from repro_torch.device import resolve_device
+from repro_torch.distributed.context import LOCAL, DistContext, require_local
+from repro_torch.models import api
+from repro_torch.telemetry.sampler import RuntimeSampler
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.data import SyntheticDataset
+from repro_torch.train.tree import leaves, unflatten
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    checkpoint_every: int = 50
+    checkpoint_dir: str | None = None
+    straggler_deadline_factor: float = 3.0
+    grad_compression: str | None = None     # None | "int8"
+    lr: float = 3e-4
+    telemetry: bool = True
+    #: utilization the power model sees during a step (roofline-informed)
+    step_compute_util: float = 0.85
+    step_hbm_util: float = 0.55
+
+
+@dataclasses.dataclass
+class TrainReport:
+    steps_run: int
+    final_loss: float
+    losses: list[float]
+    straggler_events: int
+    resumed_from: int | None
+    telemetry_rows: int
+    wall_s: float
+    #: each step's time on the host clock (s), the straggler rule's input
+    step_s: list[float] = dataclasses.field(default_factory=list)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, dist: DistContext = LOCAL):
+    """Returns (params, opt_state, batch) -> (params, opt_state, metrics)."""
+    require_local(dist, "make_train_step")
+
+    def step_fn(params, opt_state, batch):
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        loss, metrics = api.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        params, opt_state, stats = optimizer.step(params, unflatten(params, grads),
+                                                  opt_state)
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, **stats)
+
+    return step_fn
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
+                 dist: DistContext = LOCAL, global_batch: int = 8,
+                 seq_len: int = 128, platform: str = "h100",
+                 controller: bool = False, seed: int = 0,
+                 device: torch.device | str = "cuda"):
+        require_local(dist, "Trainer")
+        self.cfg = cfg
+        self.tc = tc
+        self.dist = dist
+        self.torch_device = resolve_device(device)
+        self.optimizer = opt_mod.for_arch(cfg.name, lr=tc.lr)
+        self.dataset = SyntheticDataset(cfg, global_batch, seq_len, seed=seed)
+        self.step_fn = make_train_step(cfg, self.optimizer, dist)
+        self.device = SimulatedDevice(get_platform(platform))
+        self.sampler = RuntimeSampler(self.device, job_id=1)
+        self.controller = (ExecutionIdleController(self.device)
+                           if controller else None)
+        gen = torch.Generator(device=self.torch_device).manual_seed(seed)
+        self.params = api.init_params(gen, cfg)
+        self.opt_state = self.optimizer.init(self.params)
+
+    # ------------------------------------------------------------------ #
+    def _telemetry_tick(self, busy_s: float, idle_s: float) -> None:
+        if not self.tc.telemetry:
+            return
+        s = self.sampler
+        if busy_s > 0:
+            s.busy(busy_s, compute_util=self.tc.step_compute_util,
+                   hbm_util=self.tc.step_hbm_util)
+        if idle_s > 0:
+            s.idle(idle_s, pcie_gbs=0.2, cpu_util=0.4)  # input-pipeline wait
+        if self.controller is not None:
+            frame = s.frame()
+            if len(frame):
+                row = frame.row(len(frame) - 1)
+                self.controller.step(s.now, {
+                    "sm": float(row["sm"]) / 100.0,
+                    "dram": float(row["dram"]) / 100.0,
+                    "pcie_rx": float(row["pcie_rx"]),
+                })
+
+    def run(self) -> TrainReport:
+        tc = self.tc
+        resumed_from = None
+        start_step = 0
+        if tc.checkpoint_dir and ckpt.latest_step(tc.checkpoint_dir) is not None:
+            self.params, self.opt_state, start_step = ckpt.restore(
+                tc.checkpoint_dir, self.params, self.opt_state)
+            resumed_from = start_step
+
+        self.sampler.load_program()
+        losses: list[float] = []
+        step_times: list[float] = []
+        stragglers = 0
+        t0 = time.monotonic()
+
+        for step in range(start_step, tc.steps):
+            fetch_t0 = time.monotonic()
+            batch = self.dataset.device_batch_at(step, self.torch_device)
+            fetch_s = time.monotonic() - fetch_t0
+
+            step_t0 = time.monotonic()
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch)
+            loss = float(metrics["loss"])
+            step_s = time.monotonic() - step_t0
+            losses.append(loss)
+            if not np.isfinite(loss):
+                raise FloatingPointError(f"non-finite loss at step {step}")
+
+            # straggler mitigation: deadline = k x running median
+            step_times.append(step_s)
+            if len(step_times) >= 5:
+                median = float(np.median(step_times[-20:]))
+                if step_s > tc.straggler_deadline_factor * median:
+                    stragglers += 1
+
+            self._telemetry_tick(busy_s=step_s, idle_s=fetch_s)
+
+            if tc.checkpoint_dir and (step + 1) % tc.checkpoint_every == 0:
+                ck_t0 = time.monotonic()
+                ckpt.save(tc.checkpoint_dir, step + 1, self.params, self.opt_state)
+                self._telemetry_tick(busy_s=0.0,
+                                     idle_s=time.monotonic() - ck_t0)
+
+        self.sampler.unload_program()
+        return TrainReport(
+            steps_run=tc.steps - start_step,
+            final_loss=losses[-1] if losses else float("nan"),
+            losses=losses,
+            straggler_events=stragglers,
+            resumed_from=resumed_from,
+            telemetry_rows=len(self.sampler.frame()),
+            wall_s=time.monotonic() - t0,
+            step_s=step_times,
+        )

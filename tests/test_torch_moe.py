@@ -75,9 +75,10 @@ def test_router_topk_matches_jax(ep_size):
         {k: (v.shape, torch.float32) for k, v in p.items()}
     x = _x(tcfg)
     jg, jids, _ = jmoe.router_topk(jnp.asarray(x), jnp.asarray(p["router"]), jcfg)
-    tg, tids = moe.router_topk(torch.from_numpy(x), torch.from_numpy(p["router"]), tcfg)
+    tg, tids, taux = moe.router_topk(torch.from_numpy(x), torch.from_numpy(p["router"]), tcfg)
     assert np.array_equal(tids.numpy(), np.asarray(jids))
     assert tids.max() < tcfg.n_experts
+    assert taux is None                   # the aux loss only when asked for
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
     assert tg.dtype == torch.float32
 
@@ -92,7 +93,7 @@ def test_router_topk_ties_keep_the_lower_index(top_k):
     router = np.repeat(col, 6, axis=1)                        # 4 real + 2 padded
     x = _x(tcfg, seed=3)
     jg, jids, _ = jmoe.router_topk(jnp.asarray(x), jnp.asarray(router), jcfg)
-    tg, tids = moe.router_topk(torch.from_numpy(x), torch.from_numpy(router), tcfg)
+    tg, tids, _ = moe.router_topk(torch.from_numpy(x), torch.from_numpy(router), tcfg)
     assert np.array_equal(np.asarray(jids), np.broadcast_to(np.arange(top_k), jids.shape))
     assert np.array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL)
@@ -106,10 +107,10 @@ def test_moe_ffn_matches_jax(shared, ep_size):
     jp = {k: jnp.asarray(v) for k, v in p.items()}
     tp = {k: torch.from_numpy(v) for k, v in p.items()}
     jdense, _ = jmoe.moe_ffn_dense(jnp.asarray(x), jp, jcfg)
-    tdense = moe.moe_ffn_dense(torch.from_numpy(x), tp, tcfg)
+    tdense, _ = moe.moe_ffn_dense(torch.from_numpy(x), tp, tcfg)
     np.testing.assert_allclose(tdense.numpy(), np.asarray(jdense), **TOL)
     jout, _ = jmoe.moe_ffn(jnp.asarray(x), jp, jcfg)
-    tout = moe.moe_ffn(torch.from_numpy(x), tp, tcfg)
+    tout, _ = moe.moe_ffn(torch.from_numpy(x), tp, tcfg)
     assert tout.shape == x.shape and tout.dtype == torch.float32
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     if shared:
@@ -128,7 +129,7 @@ def test_moe_ffn_keeps_the_reference_dtypes_in_bf16():
     assert layers["router"].dtype == torch.float32
     assert layers["we_gate"].dtype == layers["wq"].dtype == torch.bfloat16
     x = torch.randn((1, 3, tcfg.d_model), generator=torch.Generator().manual_seed(0))
-    out = moe.moe_ffn(x.bfloat16(), {k: v[0] for k, v in layers.items()}, tcfg)
+    out, _ = moe.moe_ffn(x.bfloat16(), {k: v[0] for k, v in layers.items()}, tcfg)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
 
 
