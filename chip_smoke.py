@@ -30,7 +30,12 @@ paths:
   carried across two calls, large dt, extreme decays, each called twice for
   the same bits) and times them at the decode step's shape and the
   32-token prefill (K5 also at the 2,048-token one) under each plan, beside
-  an in-place read and write of the same state; then, for
+  an in-place read and write of the same state; holds their backward
+  kernels (K5′ ``ssm_scan_bwd``, K6′ ``wkv6_bwd``) against the plain reverse
+  recurrences at the training shapes, S = 1, an odd S, with and without
+  the initial state and the final state's gradient, large dt and extreme
+  decays, each called twice for the same bits, and times them at the
+  training shapes beside their bounds; then, for
   hymba-1.5b and rwkv6-3b at full width, compares kernel-path and
   plain-path logits (each beside its chaos floor: the plain path against
   itself with attention, or the WKV recurrence, in float64) and serves each
@@ -74,10 +79,11 @@ paths:
   their plain versions (outputs and every input gradient, bf16 and f32,
   qwen1.5-0.5b's shapes, K2 also without the causal mask at whisper's and
   the VLM's cross-attention shapes and with a window), timed beside them;
-  each family whose loss trains on the card (dense, moe, mla_moe, encdec,
-  vlm) kernel path against plain path in f32, loss and every gradient,
-  at F32_DEPTH's depth (deepseek-v3's routed experts cut to 64); hymba's
-  and RWKV-6's kernel-path losses raising by name; then qwen1.5-0.5b at
+  every family's loss (dense, moe, mla_moe, encdec, vlm, hybrid, rwkv)
+  kernel path against plain path in f32, loss and every gradient, at
+  F32_DEPTH's depth (deepseek-v3's routed experts cut to 64); every
+  training-path wrapper refusing a CUDA tensor that requires grad, by the
+  Function's name or as having no backward; then qwen1.5-0.5b at
   full width through ``repro_torch.launch.train``'s ``Trainer`` (bf16,
   AdamW, batch 8 x 128, 20 steps, the controller on, a checkpoint every
   10 steps): step 0 against the plain path beside its chaos floor leaf by
@@ -85,7 +91,15 @@ paths:
   K2 launches per step as the remat implies, a fresh trainer over the
   finished run resuming byte for byte and a restart from step 10
   reproducing steps 11-20, with the step's median time, tokens/s, idle
-  share, peak memory, FLOP rate, bound and the checkpoints' times;
+  share, peak memory, FLOP rate, bound and the checkpoints' times; then
+  hymba-1.5b (2 x 2,048 tokens, 10 steps), rwkv6-3b (8 x 128, 10 steps) and
+  whisper-tiny (8 x 128 over 1,500 frames, 20 steps) the same way without
+  checkpoints, each step 0 against the plain path beside its chaos floors
+  (hymba over the first 256 tokens a row; rwkv6-3b, chaotic in bf16, by its
+  loss over its first 4 layers and its backward kernel inside the whole
+  model), every loss finite, launches per step exact (K5 and K6 twice a layer
+  with the remat, their backward kernels once), with the same step
+  measurements;
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -170,6 +184,12 @@ BF16_TOL = 2e-2                    # kernel vs plain, bf16 (tests/test_kernels.p
 F32_TOL = 2e-5                     # kernel vs plain, f32
 SSM_TOL = 2e-3                     # K5 vs plain (tests/test_kernels.py:128)
 WKV_TOL = 1e-3                     # K6 vs plain (tests/test_kernels.py:95,110)
+#: K5's and K6's backward kernels vs their plain backwards, per element: 3x
+#: and 8x the worst readings of their first runs (3.34e-4, K5′'s dc under
+#: large dt; 1.26e-4, K6′'s du at the training shape, a sum over 1,024 rows
+#: and steps; NVIDIA H100 80GB HBM3)
+SSM_BWD_TOL = 1e-3
+WKV_BWD_TOL = 1e-3
 LOGITS_BF16_TOL = 5e-2             # normwise, 32-40 layers of bf16 rounding
 LOGITS_F32_TOL = 1e-4              # normwise, two f32 layers
 #: no float64 or int64 rate in the H100 table; the float32 rate (outside the
@@ -190,6 +210,9 @@ REPLACES = {
     "downscale_replay": "src/repro/whatif/backend.py:428",
     "ssm_scan": "src/repro/kernels/ssm_scan.py:24",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:30",
+    # no TPU kernel: the reference differentiates its lax.scan with XLA
+    "ssm_scan_bwd": "src/repro/models/hymba.py:113",
+    "wkv6_bwd": "src/repro/models/rwkv.py:160",
 }
 #: K2's cases at Sq != Sk or without the causal mask: (Sq, Sk, H, KV, d,
 #: causal, window)
@@ -868,6 +891,129 @@ def time_recurrent_kernels(dev) -> dict[str, dict]:
                      bound=bound_ms(nbytes(pr, pk, pv, pw, pu6, pr) + 40 * 64 * 64 * 4,
                                     7 * pr.numel() * 64, F32_OPS_PER_S)),
         plans=plans)
+    return out
+
+
+def ssm_bwd_args(g, dev, bsz, s, state, dstate, big_dt=False, di=3200, n=16):
+    """K5's backward inputs: :func:`ssm_args`'s (at I = ``di``, N = ``n``),
+    h0 (``state``), dy normal and dh_out (``dstate``); None where not
+    given."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    dt = F.softplus(rnd(bsz, s, di)) * (100.0 if big_dt else 1.0)
+    return (rnd(bsz, s, di), dt, -torch.exp(0.5 * rnd(di, n)), rnd(bsz, s, n),
+            rnd(bsz, s, n), rnd(bsz, di, n) if state else None, rnd(bsz, s, di),
+            rnd(bsz, di, n) if dstate else None)
+
+
+def wkv_bwd_args(g, dev, bsz, s, state, dstate, extreme=False, h=40, kd=64):
+    """K6's backward inputs, head-major views of the model's (B, S, H, K)
+    layout as :func:`wkv_args` draws them (at H = ``h``, K = ``kd``),
+    state0 (``state``), dy normal and dstate_out (``dstate``); None where
+    not given."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v, dy = (rnd(bsz, s, h, kd).transpose(1, 2) for _ in range(4))
+    if extreme:
+        w = torch.where(rnd(bsz, s, h, kd) > 0, 0.999, 1e-4).transpose(1, 2)
+    else:
+        w = (0.4 + 0.55 * torch.sigmoid(rnd(bsz, s, h, kd))).transpose(1, 2)
+    return (r, k, v, w, 0.1 * rnd(h, kd), rnd(bsz, h, kd, kd) if state else None, dy,
+            rnd(bsz, h, kd, kd) if dstate else None)
+
+
+#: K5's backward cases: (B, S, h0, dh_out, large dt, I, N); the first is
+#: hymba-1.5b's training shape (2 x 2,048 tokens)
+SSM_BWD_CASES = ((2, 2048, False, False, False, 3200, 16), (1, 1, True, True, False, 3200, 16),
+                 (2, 37, True, False, False, 3200, 16), (2, 37, False, True, False, 3200, 16),
+                 (2, 40, True, True, True, 3200, 16), (1, 33, True, True, False, 100, 8))
+#: K6's backward cases: (B, S, state0, dstate_out, extreme decays, H, K); the
+#: first is rwkv6-3b's training shape (8 x 128 tokens)
+WKV_BWD_CASES = ((8, 128, False, False, False, 40, 64), (1, 1, True, True, False, 40, 64),
+                 (2, 37, True, False, False, 40, 64), (2, 37, False, True, False, 40, 64),
+                 (1, 64, True, True, True, 40, 64), (2, 19, True, True, False, 3, 16),
+                 (2, 19, False, True, False, 3, 32))
+
+
+def check_recurrent_backward(dev) -> dict[str, float]:
+    """K5's and K6's backward kernels against their plain backwards (the
+    reverse recurrences in PyTorch ops, on the card) per element, each call
+    twice for the same bits: the training shapes, S = 1, an odd S, with and
+    without the initial state and the final state's gradient, large dt
+    (exp(dt a) -> 0) and decays at 1e-4 and 0.999, and the other compiled
+    N and K. Returns the max abs error at each training shape."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.kernels import ssm_scan as k5
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    errs = {}
+    for name, tol, kernel, plain, cases, args_of in (
+            ("ssm_scan_bwd", SSM_BWD_TOL, k5.ssm_scan_backward, k5.ssm_scan_backward_plain,
+             SSM_BWD_CASES, lambda bsz, s, st, ds, edge, a, b: ssm_bwd_args(
+                 g, dev, bsz, s, st, ds, edge, di=a, n=b)),
+            ("wkv6_bwd", WKV_BWD_TOL, k6.wkv6_backward, k6.wkv6_backward_plain,
+             WKV_BWD_CASES, lambda bsz, s, st, ds, edge, a, b: wkv_bwd_args(
+                 g, dev, bsz, s, st, ds, edge, h=a, kd=b))):
+        for i, case in enumerate(cases):
+            args = args_of(*case)
+            got, again = kernel(*args), kernel(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name} {case}: two calls differ")
+            worst = max(check_close(f"{name} {case} {j}", x, w, tol)
+                        for j, (x, w) in enumerate(zip(got, plain(*args))))
+            if i == 0:
+                errs[name] = worst
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_recurrent_backward(dev) -> dict[str, dict]:
+    """K5's and K6's backward kernels alone at the training shapes (hymba-1.5b
+    2 x 2,048 tokens, rwkv6-3b 8 x 128), from a zero initial state and with
+    no final-state gradient, as the losses call them; the plain backward
+    beside each (eager: its Python loop over the steps). Bounds from this
+    run's bytes (each input read once, each output written once; not the
+    kernels' state scratch) and operations at the float32 rate: K5′ 26 per
+    (row, step, channel, state entry), the 6 that recompute the state and
+    the reverse step's 20; K6′ 15 per (row, head, step, k, v), 2 and 13. No
+    single PyTorch call computes either gradient."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.kernels import ssm_scan as k5
+
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    out = {}
+    for name, kernel, plain, args, ops_per, plan in (
+            ("ssm_scan_bwd", k5.ssm_scan_backward, k5.ssm_scan_backward_plain,
+             ssm_bwd_args(g, dev, 2, 2048, False, False), 26,
+             f"one thread a state entry, {k5.BWD_BLOCK_THREADS} a block, the state kept "
+             f"every {k5.BWD_CHUNK} steps"),
+            ("wkv6_bwd", k6.wkv6_backward, k6.wkv6_backward_plain,
+             wkv_bwd_args(g, dev, 8, 128, False, False), 15,
+             f"a block of 4 K threads a (row, head), every state in a scratch, "
+             f"{k6.BWD_TILE} steps a tile")):
+        grads = kernel(*args)
+        work = args[0].numel() * (args[2].shape[-1] if name == "ssm_scan_bwd"
+                                  else args[0].shape[-1])
+        plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+        out[name] = dict(
+            shape=", ".join(f"{tuple(t.shape)}" for t in args if t is not None) + " f32",
+            kernel=timed(lambda: kernel(*args), 10),
+            plain={"ms": plain_ms, "call_ms": plain_ms}, library=None,
+            bound=bound_ms(nbytes(*args, *grads), ops_per * work, F32_OPS_PER_S), plan=plan)
+        del grads
     return out
 
 
@@ -3671,7 +3817,7 @@ TRAIN_ATTN_CASES = ((8, 128, 128, 16, 16, 64, True, 0), (8, 128, 1500, 6, 6, 64,
 #: the families whose loss trains on the card, checked kernel path against
 #: plain path in f32 at F32_DEPTH's depth (two layers elsewhere)
 TRAIN_F32_MODELS = ("qwen1.5-0.5b", "granite-moe-3b-a800m", "deepseek-v3-671b",
-                    "whisper-tiny", "llama-3.2-vision-90b")
+                    "whisper-tiny", "llama-3.2-vision-90b", "hymba-1.5b", "rwkv6-3b")
 #: cuts memory forces on that check beyond F32_DEPTH: deepseek-v3's MoE layer
 #: holds 11.3 B routed-expert parameters, 90 GB with their f32 gradients
 TRAIN_F32_CUTS = {"deepseek-v3-671b": dict(n_experts=64)}
@@ -3701,6 +3847,42 @@ TRAIN_BF16_GRAD_TOL = 4.944e-2
 TRAIN_BF16_LOSS_TOL = 2.1e-5
 #: losses of steps 11-20 restarted from the step-10 checkpoint, relative
 RESUME_RTOL = 1e-3
+#: the families trained after qwen, through ``Trainer`` at full width without
+#: checkpoints (a save of hymba's 26 GB or rwkv's 50 GB of state would take
+#: ~35 / ~65 s at qwen's 8.5-10.3 s for 7.4 GB): batch x tokens, steps, and the
+#: tokens of each row step 0's check holds (hymba's plain path walks its scan
+#: step by step in Python: at 2,048 tokens ~1.6 M eager ops, at 256 ~0.2 M).
+#: hymba-1.5b at the length its serve run prefills, past the 1,024-token
+#: window in 29 of 32 layers; rwkv6-3b and whisper-tiny at the reference
+#: launcher's example (src/repro/launch/train.py:4-5), whisper with the
+#: dataset's 1,500 random frames a row
+#: rwkv6-3b's random-weight bf16 model is chaotic: a rounding flip in a group
+#: norm of the WKV output grows through the layers, so two correct
+#: computations' step-0 gradients fall 0.46 (f64 WKV) to 1.7 (the kernel path)
+#: apart normwise at 32 layers and 0.03 to 0.15 at 4, though K6 is nearer
+#: float64 than the plain version on the model's own inputs
+#: (:func:`wkv_on_model_inputs`; NVIDIA H100 80GB HBM3, 700 W). No gate on
+#: those gradients tells a right kernel from a wrong one, as none on its serve
+#: logits does. Its step 0 is held instead by the loss over the trainer's first
+#: ``step0_layers`` layers (at 32 a time-reversed WKV moves the loss less than
+#: the floor's five times) and by the backward kernel inside the full model
+#: (:func:`backward_in_model`); the full kernel path is read, not gated
+TRAIN_MODELS = {"hymba-1.5b": dict(batch=2, seq=2048, steps=10, step0_tokens=256),
+                "rwkv6-3b": dict(batch=8, seq=128, steps=10, step0_tokens=128, step0_layers=4),
+                "whisper-tiny": dict(batch=8, seq=128, steps=20, step0_tokens=128)}
+#: step 0's gates for those runs, from the chaos floor measured in the same
+#: call, as qwen's were set from its readings: the kernel path's worst leaf
+#: within this many times the floor's worst leaf (where the sequence mixer
+#: runs in f32 on both paths, kernel and floor differ by rounding flips of
+#: the same size, leaf by leaf at random), the loss within this many times
+#: its floor; and at least qwen's TRAIN_BF16_GRAD_TOL and TRAIN_BF16_LOSS_TOL.
+#: A floor can come out far below the kernel path's own rounding: the loss's
+#: is one draw, and K2's Function keeps its bf16 output O for the backward's
+#: rowsum(dO * O), a rounding the plain path's autograd does not make, which
+#: in a shallow model (whisper-tiny's 4 + 4 layers) few roundings elsewhere
+#: hide
+STEP0_GRAD_FLOORS = 2.0
+STEP0_LOSS_FLOORS = 5.0
 
 
 def loss_and_grads(params, batch, cfg, plain: bool) -> tuple:
@@ -3848,100 +4030,395 @@ def train_family_f32(name: str, dev) -> dict:
 
 
 def train_refusals(dev) -> dict:
-    """hymba's and RWKV-6's kernel-path losses under autograd raise the
-    named ``NotImplementedError`` (K5 and K6 have no backward yet)."""
+    """Every training-path kernel wrapper given a CUDA tensor that requires
+    grad, in grad mode, raises instead of cutting the gradient: K1, K2, K5
+    and K6 naming the Function that runs them with a backward
+    (``RuntimeError``), K3 and the two backward kernels saying they have
+    none (``NotImplementedError``)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import api
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.kernels import ssm_scan as k5
 
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).requires_grad_(True)
+
+    q = rnd(1, 2, 16, 64)
+    ssm_in = (rnd(1, 3, 8), torch.rand((1, 3, 8), device=dev),
+              -torch.rand((8, 16), device=dev), rnd(1, 3, 16), rnd(1, 3, 16))
+    wkv_in = (q, q, q, torch.rand((1, 2, 16, 64), device=dev), rnd(2, 64))
+    cases = (("rmsnorm", RuntimeError, "RMSNormFunction", lambda: rms.rmsnorm(q, rnd(64))),
+             ("flash_attention", RuntimeError, "FlashAttentionFunction",
+              lambda: fa.flash_attention(q, q, q)),
+             ("ssm_scan", RuntimeError, "SsmScanFunction", lambda: k5.ssm_scan(*ssm_in)),
+             ("wkv6", RuntimeError, "Wkv6Function", lambda: k6.wkv6(*wkv_in)),
+             ("decode_attention", NotImplementedError, "decode_attention",
+              lambda: da.decode_attention(q[:, :, 0], q, q, 8)),
+             ("ssm_scan_bwd", NotImplementedError, "ssm_scan_backward",
+              lambda: k5.ssm_scan_backward(*ssm_in, None, rnd(1, 3, 8), None)),
+             ("wkv6_bwd", NotImplementedError, "wkv6_backward",
+              lambda: k6.wkv6_backward(*wkv_in, None, q, None)))
     out = {}
-    for name, kernel in (("hymba-1.5b", "K5"), ("rwkv6-3b", "K6")):
-        cfg = dataclasses.replace(get_config(name), dtype="float32", n_layers=2)
-        params = api.init_params(torch.Generator(device=dev).manual_seed(6), cfg)
-        batch = api.make_batch(cfg, 1, 16, torch.Generator(device=dev).manual_seed(7))
+    for name, error, names, call in cases:
         try:
-            loss_and_grads(params, batch, cfg, plain=False)
-        except NotImplementedError as e:
-            if kernel not in str(e):
-                raise AssertionError(f"{name}: the error does not name {kernel}: {e}")
-            out[name] = str(e)
+            call()
+        except error as e:
+            if names not in str(e):
+                raise AssertionError(f"{name}: the error does not name {names}: {e}")
+            out[name] = f"{type(e).__name__}: {e}"
         else:
-            raise AssertionError(f"{name}: the kernel-path loss trained on the card")
-        del params
-    torch.cuda.empty_cache()
-    log(f"train refusals (kernel-path loss under autograd): {out}")
+            raise AssertionError(f"{name}: a CUDA tensor that requires grad was accepted")
+    log(f"train refusals (a wrapper given a CUDA tensor that requires grad): {out}")
     return out
+
+
+def attention_pairs(seq: int, keys: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head scores: all of them, the causal half, or
+    the ones within ``window`` as well."""
+    if not causal:
+        return seq * keys
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
 
 
 def train_flops(cfg, batch: int, seq: int) -> dict:
     """Model FLOPs of one training step with per-layer remat: the layers'
-    matrix products (2 a parameter a token) and causal attention (QKᵀ and
-    PV over the half of the scores the mask keeps) run forward, again in
-    the backward's recompute, and twice in the backward; the tied head
-    forward and twice in the backward."""
+    matrix products (2 a parameter a token) and attention (QKᵀ and PV over
+    the pairs its mask keeps) run forward, again in the backward's
+    recompute, and twice in the backward; the head forward and twice in the
+    backward. hymba adds its Mamba projections and a window on all but its
+    global layers; rwkv6 has no attention; whisper's encoder (1,500 frames,
+    no mask, not rematerialised) runs forward and twice in the backward, its
+    decoder adds cross-attention over the frames. ``recurrence_ops``: the
+    selective scan's and the WKV recurrence's float32 work on the CUDA cores,
+    per state entry and step the forward's (K5 8, K6 7) twice (the forward
+    and the recompute) and the backward kernel's (K5′ 26, K6′ 15)."""
     hd = cfg.resolved_head_dim
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     tokens = batch * seq
-    layer_params = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * f
+    attn_proj = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+    score = 2 * 2 * batch * cfg.n_heads * hd           # QKᵀ and PV, a pair
+    recurrence = 0
+    if cfg.family == "rwkv":
+        ml, dl = cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
+        layer_params = 6 * d * d + 2 * d * f + 10 * d * ml + 2 * d * dl
+        attn = 0
+        recurrence = (2 * 7 + 15) * tokens * d * cfg.rwkv_head_size * L
+    elif cfg.family == "hybrid":
+        di, n = cfg.d_inner, cfg.ssm_state
+        rank = math.ceil(d / 16)
+        layer_params = (attn_proj + 3 * d * f + 2 * d * di + di * (rank + 2 * n) + rank * di
+                        + di * d + cfg.conv_kernel * di)
+        attn = score * sum(attention_pairs(seq, seq, True, 0 if i in cfg.global_layers
+                                           else cfg.window) for i in range(L))
+        recurrence = (2 * 8 + 26) * tokens * di * n * L
+    elif cfg.family == "encdec":
+        frames = batch * cfg.n_frames
+        enc = 2 * frames * cfg.n_enc_layers * (attn_proj + 2 * d * f) + \
+            score * cfg.n_enc_layers * attention_pairs(cfg.n_frames, cfg.n_frames, False, 0)
+        # self-attention, the cross-attention's q and o, the MLP a token;
+        # the cross-attention's k and v a frame, in every layer's recompute too
+        layer_params = attn_proj + attn_proj // 2 + 2 * d * f
+        attn = score * L * attention_pairs(seq, seq, True, 0) + \
+            score * L * attention_pairs(seq, cfg.n_frames, False, 0) + \
+            2 * frames * L * (attn_proj // 2)
+    else:
+        layer_params = attn_proj + 3 * d * f
+        attn = score * seq * seq / 2 * L
     layers = 2 * tokens * L * layer_params
-    attn = 2 * 2 * batch * cfg.n_heads * hd * seq * seq / 2 * L
     head = 2 * tokens * d * cfg.vocab_size
-    return {"flops": 4 * (layers + attn) + 3 * head, "layer_matmul_params": L * layer_params,
-            "recompute_flops": layers + attn, "tokens": tokens}
+    flops = 4 * (layers + attn) + 3 * head + (3 * enc if cfg.family == "encdec" else 0)
+    return {"flops": flops, "layer_matmul_params": L * layer_params,
+            "recompute_flops": layers + attn, "tokens": tokens,
+            "recurrence_ops": recurrence}
 
 
-def step0_check(trainer, cfg, dev) -> dict:
-    """Step 0's bf16 loss and gradients, kernel path against plain path, on
-    the trainer's parameters and batch, beside the chaos floor: the plain
-    path against itself with attention in float64 (as the bf16 logit checks
-    measure theirs), leaf by leaf. The loss gate is shown to see a wrong
-    forward: the plain path with its attention unmasked (causal=False) must
-    fail it."""
+def ssm_scan_f64(u, dt, a, b, c, h0=None, h_out=None):
+    """The plain selective scan in float64, cast back to float32: a second
+    correct computation of the same function, for the chaos floor."""
+    from repro_torch.kernels import ref
+    y, h = ref.ssm_scan_reference(u.double(), dt.double(), a.double(), b.double(),
+                                  c.double(), None if h0 is None else h0.double())
+    return y.float(), (h.float() if h_out is None else h_out.copy_(h))
+
+
+def wkv6_reversed(r, k, v, w, u, state0=None, state_out=None):
+    """The plain WKV recurrence in float32 with each y summed over k in the
+    reverse order: a second correct computation in the kernel's precision,
+    for the chaos floor."""
     import torch
-    from repro_torch.kernels import flash_attention
+    b, h, s, kd = r.shape
+    st = (torch.zeros((b, h, kd, kd), dtype=torch.float32, device=r.device)
+          if state0 is None else state0.float())
+    ys = []
+    for t in range(s):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        ys.append((r[:, :, t, :, None] * (st + u[None, :, :, None] * kv)).flip(2).sum(2))
+        st = w[:, :, t, :, None] * st + kv
+    y = torch.stack(ys, dim=2)
+    return y, (st if state_out is None else state_out.copy_(st))
+
+
+def floor_mixers(cfg) -> dict[str, list]:
+    """Second correct computations of the plain path's sequence mixers, by
+    name, each a list of (module, attribute, replacement): all in float64
+    (attention for dense, hybrid and encdec, the selective scan for hybrid,
+    the WKV recurrence for rwkv); for rwkv also the WKV recurrence in float32
+    summed in another order. Its y feeds a group norm over each head, where
+    a sum near 0 that rounds to the other sign flips the head's output: the
+    flips grow with the rounding's size, so a float64 sum, nearer exact than
+    either float32 one, sees fewer than a reordering in the kernel's
+    precision (rwkv6-3b's step 0, 4 layers: 2.6e-2 against the kernel path's
+    0.13; NVIDIA H100 80GB HBM3)."""
+    from repro_torch.kernels import flash_attention, rwkv6_scan, ssm_scan
+    if cfg.family == "rwkv":
+        return {"f64 WKV": [(rwkv6_scan, "wkv6_plain", wkv6_f64)],
+                "f32 WKV reordered": [(rwkv6_scan, "wkv6_plain", wkv6_reversed)]}
+    out = [(flash_attention, "flash_attention_plain", mha_f64)]
+    if cfg.family == "hybrid":
+        out.append((ssm_scan, "ssm_scan_plain", ssm_scan_f64))
+    return {"f64 mixers": out}
+
+
+def wrong_forward(cfg) -> tuple[list, str]:
+    """A plain path that computes a wrong forward, which step 0's loss gate
+    must see: attention unmasked (causal=False), or, for RWKV-6, the WKV
+    recurrence run from the last token to the first (each y sees the
+    future: RWKV's unmasked attention)."""
+    import torch
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    if cfg.family == "rwkv":
+        saved = rwkv6_scan.wkv6_plain
+
+        def reversed_wkv(r, k, v, w, u, state0=None, state_out=None):
+            y, state = saved(*(t.flip(2) for t in (r, k, v, w)), u, state0, state_out)
+            return y.flip(2), state
+
+        return [(rwkv6_scan, "wkv6_plain", reversed_wkv)], "time-reversed WKV"
+    saved = flash_attention.flash_attention_plain
+    return [(flash_attention, "flash_attention_plain",
+             lambda q, k, v, causal=True, window=0: saved(q, k, v, causal=False,
+                                                          window=window))], "unmasked attention"
+
+
+def patched_call(patches: list, fn):
+    """``fn()`` with each (module, attribute, value) of ``patches`` set,
+    restored after."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, value in patches:
+        setattr(mod, attr, value)
+    try:
+        return fn()
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def first_layers(params: dict, n: int) -> dict:
+    """``params`` with only its first ``n`` layers: a hybrid's list cut, a
+    stack's leading axis sliced (views of the same weights)."""
+    layers = params["layers"]
+    cut = layers[:n] if isinstance(layers, list) else {k: v[:n] for k, v in layers.items()}
+    return dict(params, layers=cut)
+
+
+def step0_readings(params, batch, cfg) -> dict:
+    """Step 0's bf16 loss and gradients, kernel path against plain path, and
+    the chaos floors (:func:`floor_mixers`) and a wrong forward
+    (:func:`wrong_forward`) against the plain path, leaf by leaf."""
+    import torch
     from repro_torch.models import api
     from repro_torch.train.tree import flatten
 
-    batch = trainer.dataset.device_batch_at(0, dev)
-    paths = [path for path, _ in flatten(trainer.params)]
-    kloss, _, kgrads = loss_and_grads(trainer.params, batch, cfg, plain=False)
-    ploss, _, pgrads = loss_and_grads(trainer.params, batch, cfg, plain=True)
-    saved = flash_attention.flash_attention_plain
-    flash_attention.flash_attention_plain = mha_f64
-    try:
-        floss, _, fgrads = loss_and_grads(trainer.params, batch, cfg, plain=True)
-    finally:
-        flash_attention.flash_attention_plain = saved
-    flash_attention.flash_attention_plain = (
-        lambda q, k, v, causal=True, window=0: saved(q, k, v, causal=False, window=window))
-    try:
-        with torch.no_grad():
-            uloss = api.loss_fn(trainer.params, batch, cfg, plain=True)[0].item()
-    finally:
-        flash_attention.flash_attention_plain = saved
+    paths = [path for path, _ in flatten(params)]
+    kloss, _, kgrads = loss_and_grads(params, batch, cfg, plain=False)
+    ploss, _, pgrads = loss_and_grads(params, batch, cfg, plain=True)
     err = grad_errors(kgrads, pgrads, paths, ZERO_GRAD_LEAVES)
-    floor = grad_errors(fgrads, pgrads, paths, ZERO_GRAD_LEAVES)
-    at = err["worst_path"]
-    out = {"loss": kloss, "plain_loss": ploss, "loss_rel_err": abs(kloss - ploss) / abs(ploss),
-           "floor_loss_rel_err": abs(floss - ploss) / abs(ploss),
-           "unmasked_loss_rel_err": abs(uloss - ploss) / abs(ploss),
-           "grads": err, "floor_grads": floor, "floor_at_worst_leaf": floor["leaves"][at],
-           "loss_tol": TRAIN_BF16_LOSS_TOL, "grad_tol": TRAIN_BF16_GRAD_TOL,
-           "left_out": [p for p in paths if p.endswith(ZERO_GRAD_LEAVES)]}
+    del kgrads
+    floors = {}
+    for name, patches in floor_mixers(cfg).items():
+        floss, _, fgrads = patched_call(patches, lambda: loss_and_grads(
+            params, batch, cfg, plain=True))
+        floors[name] = (abs(floss - ploss) / abs(ploss),
+                        grad_errors(fgrads, pgrads, paths, ZERO_GRAD_LEAVES))
+        del fgrads
+    del pgrads
+    # the floor: the second computation farthest from the plain path
+    floor_name = max(floors, key=lambda n: floors[n][1]["worst_leaf"])
+    floor = floors[floor_name][1]
+    patches, wrong = wrong_forward(cfg)
+
+    def wrong_loss():
+        with torch.no_grad():
+            return api.loss_fn(params, batch, cfg, plain=True)[0].item()
+
+    uloss = patched_call(patches, wrong_loss)
+    return {"loss": kloss, "plain_loss": ploss, "loss_rel_err": abs(kloss - ploss) / abs(ploss),
+            "floor_loss_rel_err": max(loss for loss, _ in floors.values()),
+            "floor": floor_name, "floors": {n: {"loss_rel_err": loss, "whole": f["whole"],
+                                                "worst_leaf": f["worst_leaf"]}
+                                            for n, (loss, f) in floors.items()},
+            "wrong_forward": wrong,
+            "wrong_loss_rel_err": abs(uloss - ploss) / abs(ploss), "grads": err,
+            "floor_grads": floor, "floor_at_worst_leaf": floor["leaves"][err["worst_path"]],
+            "left_out": [p for p in paths if p.endswith(ZERO_GRAD_LEAVES)]}
+
+
+def step0_line(r: dict, label: str) -> str:
+    err, floor, at = r["grads"], r["floor_grads"], r["grads"]["worst_path"]
     top = sorted(err["leaves"], key=err["leaves"].get, reverse=True)[:6]
-    log(f"train {cfg.name} step 0 bf16, kernel vs plain: loss {kloss:.6f} vs {ploss:.6f} "
-        f"(rel {out['loss_rel_err']:.3e}, tol {TRAIN_BF16_LOSS_TOL}; chaos floor "
-        f"{out['floor_loss_rel_err']:.3e}; unmasked attention {out['unmasked_loss_rel_err']:.3e}), "
-        f"gradients worst leaf {err['worst_leaf']:.3e} at {at} (tol {TRAIN_BF16_GRAD_TOL}; "
-        f"chaos floor there {out['floor_at_worst_leaf']:.3e}), whole {err['whole']:.3e} (floor "
-        f"{floor['whole']:.3e}); left out {out['left_out']}; leaves kernel / floor "
-        + ", ".join(f"{p} {err['leaves'][p]:.3e} / {floor['leaves'][p]:.3e}" for p in top))
-    if not (out["loss_rel_err"] <= TRAIN_BF16_LOSS_TOL
-            and err["worst_leaf"] <= TRAIN_BF16_GRAD_TOL):
-        raise AssertionError(f"train step 0 bf16 kernel vs plain: {out}")
-    if not out["unmasked_loss_rel_err"] > TRAIN_BF16_LOSS_TOL:
-        raise AssertionError(f"train step 0: the loss gate {TRAIN_BF16_LOSS_TOL} passes an "
-                             f"unmasked attention ({out['unmasked_loss_rel_err']:.3e})")
+    return (f"{label}, kernel vs plain: loss {r['loss']:.6f} vs {r['plain_loss']:.6f} (rel "
+            f"{r['loss_rel_err']:.3e}, tol {r.get('loss_tol', float('nan')):.3e}; chaos floor "
+            f"{r['floor_loss_rel_err']:.3e}; {r['wrong_forward']} {r['wrong_loss_rel_err']:.3e}), "
+            f"gradients worst leaf {err['worst_leaf']:.3e} at {at} (tol "
+            f"{r.get('grad_tol', float('nan')):.3e}; chaos floor there "
+            f"{r['floor_at_worst_leaf']:.3e}, its worst leaf {floor['worst_leaf']:.3e}), whole "
+            f"{err['whole']:.3e} (floor {floor['whole']:.3e}); floors {json.dumps(r['floors'])}, "
+            f"the farthest {r['floor']}; left out {r['left_out']}; leaves "
+            f"kernel / floor " + ", ".join(f"{p} {err['leaves'][p]:.3e} / "
+                                           f"{floor['leaves'][p]:.3e}" for p in top))
+
+
+def wkv_on_model_inputs(params, batch, cfg) -> dict:
+    """K6's forward on the WKV inputs of the model's first layer (the
+    trainer's weights and batch, bf16), against the recurrence in float64,
+    beside the plain version's and the reordered one's (:func:`wkv6_reversed`):
+    normwise error of y, and how many outputs of the head group norm, in
+    bf16 as the model rounds them, differ from float64's."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.models import api
+    from repro_torch.models import common as cm
+
+    seen = []
+    kernel = rwkv6_scan.wkv6
+
+    def grab(r, k, v, w, u, state0=None, state_out=None):
+        seen.append(tuple(t.detach().clone() for t in (r, k, v, w, u)))
+        return kernel(r, k, v, w, u, state0, state_out)
+
+    one = dataclasses.replace(cfg, n_layers=1)
+    with torch.no_grad():
+        patched_call([(rwkv6_scan, "wkv6", grab)],
+                     lambda: api.loss_fn(first_layers(params, 1), batch, one))
+    r, k, v, w, u = seen[0]
+    y64, _ = rwkv6_scan.wkv6_plain(*(t.double() for t in (r, k, v, w, u)))
+    b, h, s, kd = r.shape
+
+    def normed(y):
+        ones = torch.ones(h * kd, dtype=torch.bfloat16, device=y.device)
+        return cm.groupnorm_heads(y.transpose(1, 2).reshape(b, s, h * kd).to(torch.bfloat16),
+                                  ones, torch.zeros_like(ones), h)
+
+    n64 = normed(y64.float())
+    out = {}
+    for name, fn in (("kernel", kernel), ("plain", rwkv6_scan.wkv6_plain),
+                     ("reordered", wkv6_reversed)):
+        y = fn(r, k, v, w, u)[0]
+        out[name] = {"y_rel_err": float((y.double() - y64).norm() / y64.norm()),
+                     "group_norm_flips": int((normed(y) != n64).sum())}
+    log(f"train {cfg.name} K6 on its first layer's inputs ({tuple(r.shape)}), against float64: "
+        + "; ".join(f"{n} y {x['y_rel_err']:.3e} normwise, {x['group_norm_flips']} of "
+                    f"{n64.numel()} bf16 group-norm outputs differ" for n, x in out.items()))
+    return out
+
+
+def backward_in_model(params, batch, cfg) -> dict:
+    """The recurrence's backward kernel inside the whole model in bf16: the
+    loss's gradients with the forward kernel swapped for its plain version
+    (so both paths run one forward), the backward the kernel, against
+    autograd through the plain path; beside its floor, the same with the
+    plain reverse recurrence for the backward, and a wrong backward (the
+    kernel's dk, or dB, zeroed), which the gate must see."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan, ssm_scan
+    from repro_torch.train.tree import flatten
+
+    mod, fwd, bwd, plain_fwd, plain_bwd = (
+        (rwkv6_scan, "wkv6", "wkv6_backward", rwkv6_scan.wkv6_plain,
+         rwkv6_scan.wkv6_backward_plain) if cfg.family == "rwkv" else
+        (ssm_scan, "ssm_scan", "ssm_scan_backward", ssm_scan.ssm_scan_plain,
+         ssm_scan.ssm_scan_backward_plain))
+    kernel_bwd = getattr(mod, bwd)
+
+    def zeroed(*args):
+        grads = list(kernel_bwd(*args))
+        grads[1 if cfg.family == "rwkv" else 3] = torch.zeros_like(grads[1])
+        return tuple(grads)
+
+    paths = [path for path, _ in flatten(params)]
+    _, _, pgrads = loss_and_grads(params, batch, cfg, plain=True)
+    out = {}
+    for name, patches in (("kernel", []), ("floor", [(mod, bwd, plain_bwd)]),
+                          ("wrong", [(mod, bwd, zeroed)])):
+        _, _, grads = patched_call([(mod, fwd, plain_fwd)] + patches,
+                                   lambda: loss_and_grads(params, batch, cfg, plain=False))
+        out[name] = grad_errors(grads, pgrads, paths)
+        del grads
+    out["tol"] = STEP0_GRAD_FLOORS * out["floor"]["worst_leaf"]
+    log(f"train {cfg.name} step 0 bf16 backward kernel in the model (forward plain on both "
+        f"paths): gradients worst leaf {out['kernel']['worst_leaf']:.3e} at "
+        f"{out['kernel']['worst_path']}, whole {out['kernel']['whole']:.3e} (tol {out['tol']:.3e}; "
+        f"floor, the plain reverse recurrence: worst {out['floor']['worst_leaf']:.3e}, whole "
+        f"{out['floor']['whole']:.3e}; a {'dk' if cfg.family == 'rwkv' else 'dB'}-zeroed "
+        f"backward: worst {out['wrong']['worst_leaf']:.3e})")
+    if not out["kernel"]["worst_leaf"] <= out["tol"] < out["wrong"]["worst_leaf"]:
+        raise AssertionError(f"train {cfg.name} backward kernel in the model: {out}")
+    return out
+
+
+def step0_check(trainer, cfg, dev, tokens: int | None = None,
+                layers: int | None = None) -> dict:
+    """Step 0's bf16 loss and gradients, kernel path against plain path, on
+    the trainer's parameters and batch (its first ``tokens`` tokens a row
+    and its first ``layers`` layers when given; then the full depth is also
+    read, not gated), beside the chaos floor: the plain path against itself
+    with its sequence mixers computed another correct way
+    (:func:`floor_mixers`: in float64, as the bf16 logit checks measure
+    theirs; the farthest of them), leaf by leaf. The loss gate is shown to see
+    a wrong forward (:func:`wrong_forward`): it must fail it. qwen's gates are
+    the constants set from its readings; the other runs' are set from the
+    floor measured here (STEP0_GRAD_FLOORS, STEP0_LOSS_FLOORS)."""
+    batch = trainer.dataset.device_batch_at(0, dev)
+    if tokens is not None:
+        batch = {k: v[:, :tokens] if k in ("tokens", "labels") else v for k, v in batch.items()}
+    shape = tuple(batch["tokens"].shape)
+    full = in_model = None
+    if layers is not None:     # chaotic: the full kernel path read, not gated
+        full = step0_readings(trainer.params, batch, cfg)
+        log(step0_line(full, f"train {cfg.name} step 0 bf16 ({shape} tokens, all "
+                             f"{cfg.n_layers} layers; not gated: chaotic)"))
+        in_model = backward_in_model(trainer.params, batch, cfg)
+        in_model["wkv_on_model_inputs"] = wkv_on_model_inputs(trainer.params, batch, cfg)
+        out = step0_readings(first_layers(trainer.params, layers), batch,
+                             dataclasses.replace(cfg, n_layers=layers))
+    else:
+        out = step0_readings(trainer.params, batch, cfg)
+    if cfg.name == TRAIN_ARCH:
+        out["loss_tol"], out["grad_tol"] = TRAIN_BF16_LOSS_TOL, TRAIN_BF16_GRAD_TOL
+    else:
+        out["loss_tol"] = max(STEP0_LOSS_FLOORS * out["floor_loss_rel_err"],
+                              TRAIN_BF16_LOSS_TOL)
+        out["grad_tol"] = (float("inf") if layers is not None else
+                           max(STEP0_GRAD_FLOORS * out["floor_grads"]["worst_leaf"],
+                               TRAIN_BF16_GRAD_TOL))
+    out.update(tokens=shape[1], layers=layers or cfg.n_layers, full_depth=full,
+               backward_in_model=in_model)
+    log(step0_line(out, f"train {cfg.name} step 0 bf16 ({shape} tokens"
+                        + (f", the first {layers} layers; gradients not gated: chaotic)"
+                           if layers else ")")))
+    if not (out["loss_rel_err"] <= out["loss_tol"]
+            and out["grads"]["worst_leaf"] <= out["grad_tol"]):
+        raise AssertionError(f"train {cfg.name} step 0 bf16 kernel vs plain: {out}")
+    if not out["wrong_loss_rel_err"] > out["loss_tol"]:
+        raise AssertionError(f"train {cfg.name} step 0: the loss gate {out['loss_tol']} passes "
+                             f"a wrong forward, {out['wrong_forward']} "
+                             f"({out['wrong_loss_rel_err']:.3e})")
     return out
 
 
@@ -3971,6 +4448,120 @@ def step_parts(trainer, batches) -> dict:
     return parts
 
 
+def train_launches(cfg, steps: int) -> dict[str, int]:
+    """Each kernel's launches in ``steps`` training steps of ``cfg``'s family
+    with per-layer remat: a kernel of a rematerialised layer runs in the
+    forward and again in the backward's recompute, a backward kernel once;
+    whisper's encoder is not rematerialised. K1 per RMSNorm (dense 2 a
+    layer, hybrid 4, + the final norm, forward only), K2 per attention
+    (whisper's decoder self and cross), K5/K6 and their backwards per layer."""
+    from repro_torch import kernels
+    n = cfg.n_layers
+    per_step = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    if cfg.family in ("dense", "hybrid"):
+        norms = 4 if cfg.family == "hybrid" else 2
+        per_step.update(rmsnorm=2 * norms * n + 1, flash_attention=2 * n)
+    if cfg.family == "hybrid":
+        per_step.update(ssm_scan=2 * n, ssm_scan_bwd=n)
+    if cfg.family == "rwkv":
+        per_step.update(wkv6=2 * n, wkv6_bwd=n)
+    if cfg.family == "encdec":
+        per_step["flash_attention"] = cfg.n_enc_layers + 2 * 2 * n
+    return {k: steps * v for k, v in per_step.items()}
+
+
+def train_model(name: str, dev) -> dict:
+    """One of :data:`TRAIN_MODELS` at full width through
+    ``repro_torch.launch.train``'s ``Trainer`` (bf16, ``for_arch``'s
+    optimizer, the controller on, no checkpoints): step 0 held to the plain
+    path beside its chaos floor, the run's losses finite, its launches
+    exact (:func:`train_launches`), its step timed (host clock, CUDA events by
+    part), profiled and bounded (:func:`train_flops`: the bf16 FLOPs at 989
+    TFLOP/s, the recurrences' float32 work at 67 TFLOP/s, the optimizer's 30 B
+    a parameter at 3.35 TB/s; the largest of the three)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg, run = get_config(name), TRAIN_MODELS[name]
+    batch, seq, steps = run["batch"], run["seq"], run["steps"]
+    tc = launch_train.TrainerConfig(steps=steps, checkpoint_dir=None, lr=TRAIN_RUN["lr"])
+    trainer = launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq,
+                                   controller=True, device=dev)
+    n_params = count_params(trainer.params)
+    result = {"step0": step0_check(trainer, cfg, dev, run["step0_tokens"],
+                                   run.get("step0_layers"))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    report = trainer.run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    wgmma = kernels.flash_attention.WGMMA_LAUNCHES
+    peak = torch.cuda.max_memory_allocated(dev)
+    summary = launch_train.summarize(trainer, report)
+    want = train_launches(cfg, steps)
+    if launches != want or wgmma != launches["flash_attention"]:
+        raise AssertionError(f"train {name} launches {launches} (tensor cores {wgmma}) != {want}")
+    if not (report.steps_run == steps and all(map(math.isfinite, report.losses))):
+        raise AssertionError(f"train {name} run: {report}")
+    per_step = {k: n // steps for k, n in launches.items() if n}
+    log(f"train {name} full width ({n_params / 1e9:.3f} B parameters, bf16, batch {batch} x "
+        f"{seq}, for_arch's AdamW lr {TRAIN_RUN['lr']}, "
+        f"controller on, no checkpoints): {steps} steps, losses "
+        f"{[round(x, 4) for x in report.losses]}; launches {launches} = {steps} x {per_step}, "
+        f"all {wgmma} K2 launches on the tensor cores; peak {peak / 2**30:.2f} GiB; summary "
+        f"{json.dumps(summary)}")
+
+    step_s = sorted(report.step_s[2:])
+    mid = len(step_s) // 2
+    median_ms = 1e3 * (step_s[mid] if len(step_s) % 2 else (step_s[mid - 1] + step_s[mid]) / 2)
+    batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
+    it = itertools.cycle(batches)
+
+    def one_step():
+        trainer.params, trainer.opt_state, _ = trainer.step_fn(
+            trainer.params, trainer.opt_state, next(it))
+
+    prof = profile_steps(one_step, steps=3)
+    parts = step_parts(trainer, batches)
+    flops = train_flops(cfg, batch, seq)
+    opt_bytes = 30 * n_params
+    bound = max((flops["flops"] / BF16_FLOPS_PER_S * 1e3, "operations (bf16)"),
+                (flops["recurrence_ops"] / F32_OPS_PER_S * 1e3, "operations (f32)"),
+                (opt_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    idle = 1 - prof["card_active_ms_per_step"] / median_ms
+    result["run"] = {
+        "losses": report.losses, "launches": launches, "wgmma": wgmma,
+        "median_step_ms": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
+        "peak_gib": peak / 2**30, "card_idle_share": idle, "profile": prof, "parts": parts,
+        "flops": flops, "flop_rate_tflops": flops["flops"] / median_ms / 1e9,
+        "mfu": flops["flops"] / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+        "optimizer_bytes": opt_bytes, "bound_ms": bound[0], "bound_by": bound[1],
+        "summary": summary, "params": n_params}
+    log(f"train step {name}: median {median_ms:.3f} ms over steps 3-{steps} (host clock "
+        f"around the step and float(loss)), {result['run']['tokens_per_s']:.0f} tokens/s; "
+        f"card active {prof['card_active_ms_per_step']:.3f} ms a step (busy "
+        f"{prof['card_busy_ms_per_step']:.3f}, {prof['device_ops_per_step']:.0f} device ops), "
+        f"idle share {idle:.3f}; parts (CUDA events) {parts}; peak {peak / 2**30:.2f} GiB; "
+        f"model FLOPs {flops['flops'] / 1e12:.3f} T a step ({flops['recompute_flops'] / 1e12:.3f} "
+        f"T of it the remat recompute) = {result['run']['flop_rate_tflops']:.1f} TFLOP/s, "
+        f"{result['run']['mfu']:.3f} of 989; recurrence {flops['recurrence_ops'] / 1e9:.1f} "
+        f"GFLOP f32; bound {bound[0]:.3f} ms by {bound[1]} (bf16 FLOPs "
+        f"{flops['flops'] / BF16_FLOPS_PER_S * 1e3:.3f} ms, f32 "
+        f"{flops['recurrence_ops'] / F32_OPS_PER_S * 1e3:.3f} ms, the optimizer's 30 B a "
+        f"parameter {opt_bytes / 1e9:.2f} GB {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+        f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
+        f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
+    del trainer, batches, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def train(dev) -> dict:
     """Training on the card: K1's and K2's Functions alone, the f32 family
     checks and the refusals; then qwen1.5-0.5b at full width through
@@ -3990,6 +4581,7 @@ def train(dev) -> dict:
     result = {"functions": check_train_functions(dev)}
     result["f32"] = {name: train_family_f32(name, dev) for name in TRAIN_F32_MODELS}
     result["refusals"] = train_refusals(dev)
+    result["models"] = {}
 
     cfg = get_config(TRAIN_ARCH)
     batch, seq = TRAIN_BATCH
@@ -4121,6 +4713,8 @@ def train(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+    for name in TRAIN_MODELS:
+        result["models"][name] = train_model(name, dev)
     log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
     return result
 
@@ -4165,10 +4759,16 @@ def main() -> int:
     log(f"recurrent kernels vs plain (f32 per element, |err| <= tol * (1 + |plain|), "
         f"tol {SSM_TOL} for ssm_scan, {WKV_TOL} for wkv6): max abs err at the decode "
         f"step's shape {{'ssm_scan': {errs['ssm_scan']}, 'wkv6': {errs['wkv6']}}}")
+    bwd = check_recurrent_backward(dev)
+    errs.update(bwd)
+    log(f"recurrent backward kernels vs plain backwards (f32 per element, |err| <= tol * "
+        f"(1 + |plain|), tol {SSM_BWD_TOL} for ssm_scan_bwd, {WKV_BWD_TOL} for wkv6_bwd; "
+        f"every case twice, the same bits): max abs err at the training shapes {bwd}")
     for name, used in LIMIT_USED.items():
         log(f"  {name}: {used:.4f} of the limit at the worst element")
     times = time_kernels(dev)
     times.update(time_recurrent_kernels(dev))
+    times.update(time_recurrent_backward(dev))
     log_times(times)
 
     # full width, bf16, random weights drawn on the card; each model is
@@ -4198,9 +4798,15 @@ def main() -> int:
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
-    wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs) + tresult["run"]["wgmma"]
+    train_runs = [tresult["run"]] + [m["run"] for m in tresult["models"].values()]
+    wgmma_launches = sum(r["flash_wgmma_launches"] for r in runs) + sum(
+        r["wgmma"] for r in train_runs)
+    train_launches_sum = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    for r in train_runs:
+        for name, n in r["launches"].items():
+            train_launches_sum[name] += n
     for counts in [r["launches"] for r in runs] + [r["spill"]["launches"] for r in runs] + [
-            presult["launches"], tresult["run"]["launches"], wresult["launches"],
+            presult["launches"], train_launches_sum, wresult["launches"],
             wresult["search"]["launches"],
             wresult["host_paths"]["launches"], lresult["launches"]]:
         for name, n in counts.items():
@@ -4240,8 +4846,9 @@ def main() -> int:
             row["launches_tensor_cores"] = wgmma_launches
         if lresult["launches"].get(name):
             row["launches_live"] = lresult["launches"][name]
-        if tresult["run"]["launches"].get(name):
-            row["launches_train"] = tresult["run"]["launches"][name]
+        if train_launches_sum[name]:
+            row["launches_train"] = train_launches_sum[name]
+        if name in tresult["functions"]["times"]:
             row["train"] = tresult["functions"]["times"][name]
         rows.append(row)
     assert set(kernels.KERNEL_MODULES) == {r["name"] for r in rows}

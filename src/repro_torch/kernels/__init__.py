@@ -3,13 +3,17 @@ its plain PyTorch version.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version. Each kernel module counts its launches in
-a plain integer ``LAUNCHES``; prefill attention also counts, in
-``WGMMA_LAUNCHES``, the launches that took its tensor-core kernel.
+a plain integer ``LAUNCHES``, and the selective scan's and the WKV
+recurrence's backward kernels theirs in ``BWD_LAUNCHES``; prefill attention
+also counts, in ``WGMMA_LAUNCHES``, the launches that took its tensor-core
+kernel.
 
 The serving path runs RMSNorm, prefill attention and decode attention, and,
 for hymba and RWKV-6, the Mamba selective scan and the WKV recurrence; the
 what-if replay (:mod:`repro_torch.whatif.backend`) runs the cap-bucket scan
-and the Algorithm-1 cooldown chain.
+and the Algorithm-1 cooldown chain. Training runs RMSNorm, prefill attention,
+the selective scan and the WKV recurrence inside autograd Functions
+(:mod:`repro_torch.kernels.ops`), the last two with their backward kernels.
 
 A wrapper called while a CUDA graph is captured records its kernel into the
 graph and launches nothing, and a replay launches the graph's kernels
@@ -38,18 +42,29 @@ KERNEL_MODULES = {
     "downscale_replay": downscale_replay,
     "ssm_scan": ssm_scan,
     "wkv6": rwkv6_scan,
+    "ssm_scan_bwd": ssm_scan,
+    "wkv6_bwd": rwkv6_scan,
 }
+#: the counter of each kernel whose module counts it elsewhere than in ``LAUNCHES``
+COUNTERS = {"ssm_scan_bwd": "BWD_LAUNCHES", "wkv6_bwd": "BWD_LAUNCHES"}
 #: the key of ``flash_attention.WGMMA_LAUNCHES`` in a graph's launch record
 WGMMA = "flash_attention_wgmma"
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.LAUNCHES for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, COUNTERS.get(name, "LAUNCHES"))
+            for name, mod in KERNEL_MODULES.items()}
+
+
+def _add(name: str, n: int) -> None:
+    attr = COUNTERS.get(name, "LAUNCHES")
+    mod = KERNEL_MODULES[name]
+    setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.LAUNCHES = 0
+    for name, n in launch_counts().items():
+        _add(name, -n)
     flash_attention.WGMMA_LAUNCHES = 0
 
 
@@ -64,7 +79,7 @@ def count_replay(launches: dict[str, int], times: int = 1) -> None:
         if name == WGMMA:
             flash_attention.WGMMA_LAUNCHES += n * times
         else:
-            KERNEL_MODULES[name].LAUNCHES += n * times
+            _add(name, n * times)
 
 
 @contextlib.contextmanager

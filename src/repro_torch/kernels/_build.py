@@ -57,6 +57,8 @@ SIGNATURES = {
                        _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
+    "repro_ssm_scan_bwd": [_P] * 15 + [_I, _I, _I, _I, _P],
+    "repro_wkv6_bwd": [_P] * 16 + [_I, _I, _I, _I, _P],
 }
 #: element type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -181,13 +183,14 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor, function: str | None = None
     """Raise if grad mode is on and a tensor requires grad. A launch writes
     its result through a raw pointer, so the result would carry no gradient
     and cut every gradient upstream of it without a word. ``function`` names
-    the ``torch.autograd.Function`` that runs the kernel with a backward
-    (a ``RuntimeError`` then); without one the kernel has no backward yet
-    (``NotImplementedError``)."""
+    the ``torch.autograd.Function`` that runs the kernel with its backward
+    (a ``RuntimeError`` then: K1, K2, K5, K6); without one the kernel has no
+    backward (``NotImplementedError``: decode attention, the what-if kernels
+    and the backward kernels themselves, which nothing differentiates)."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
         return
     if function is not None:
         raise RuntimeError(f"{kernel}: the kernel's result carries no gradient; under "
                            f"autograd call it through {function}")
-    raise NotImplementedError(f"{kernel} has no backward yet: its kernel cannot run "
-                              f"under autograd (pass plain=True for the plain version)")
+    raise NotImplementedError(f"{kernel} has no backward: its kernel cannot run under "
+                              f"autograd (its plain version can)")

@@ -7,13 +7,17 @@ only take views: no transpose copy of q, k, v, r, w or the KV cache. ``plain=Tru
 runs the plain PyTorch version on any device; it exists so the kernels can be
 held against it on the card, and the serving path never sets it.
 
-Under autograd (grad mode on and an input that requires grad) RMSNorm and
-prefill attention run inside :class:`RMSNormFunction` and
-:class:`FlashAttentionFunction`: the forward is the kernel wrapper (the
-plain version on a CPU tensor), the backward the analytic gradient in
-PyTorch ops. Only the training loss reaches them; inference, whose inputs
-require no grad, calls the wrappers as before. The other kernels have no
-backward yet: their wrappers refuse a CUDA tensor that requires grad.
+Under autograd (grad mode on and an input that requires grad) RMSNorm,
+prefill attention, the selective scan and the WKV recurrence run inside
+:class:`RMSNormFunction`, :class:`FlashAttentionFunction`,
+:class:`SsmScanFunction` and :class:`Wkv6Function`: the forward is the
+kernel wrapper (the plain version on a CPU tensor); the backward is the
+analytic gradient in PyTorch ops for the first two and a backward kernel
+for the recurrences (their plain backwards on a CPU tensor). Only the
+training loss reaches them; inference, whose inputs require no grad, calls
+the wrappers as before. Decode attention, the cap-bucket scan and the
+cooldown chain have no backward: their wrappers refuse a CUDA tensor that
+requires grad.
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.ref import NEG_INF, acc_dtype, attention_mask
 
 
-def _grad_wanted(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def _grad_wanted(*tensors: torch.Tensor | None) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 class RMSNormFunction(torch.autograd.Function):
@@ -124,6 +128,63 @@ class FlashAttentionFunction(torch.autograd.Function):
                 dv.to(v.dtype, memory_format=torch.contiguous_format), None, None)
 
 
+class SsmScanFunction(torch.autograd.Function):
+    """K5 with its gradient, in the Mamba branch's (B, S, I) layout.
+    Forward: the kernel wrapper; it saves its inputs and the initial state
+    (None: zeros). Backward: the backward kernel
+    (:func:`repro_torch.kernels.ssm_scan.ssm_scan_backward`, the plain
+    reverse recurrence on a CPU tensor) from the gradients of y and of the
+    final state (None where the loss does not use it: zeros)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, a, b, c, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, a, b, c, h0)
+        return _ssm.ssm_scan(u, dt, a, b, c, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_out):
+        u, dt, a, b, c, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(u)
+        du, ddt, da, db, dc, dh0 = _ssm.ssm_scan_backward(u, dt, a, b, c, h0, dy, dh_out)
+        return du, ddt, da, db, dc, None if h0 is None else dh0
+
+
+class Wkv6Function(torch.autograd.Function):
+    """K6 with its gradient, in the model's (B, S, H, K) layout. Forward:
+    the kernel wrapper on head-major views; it saves its inputs and the
+    initial state (None: zeros). Backward: the backward kernel
+    (:func:`repro_torch.kernels.rwkv6_scan.wkv6_backward`, the plain
+    reverse recurrence on a CPU tensor) from the gradients of y and of the
+    final state (None where the loss does not use it: zeros)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        y, state = _wkv.wkv6(*(t.transpose(1, 2) for t in (r, k, v, w)), u, state0)
+        return y.transpose(1, 2), state
+
+    @staticmethod
+    def backward(ctx, dy, dstate_out):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        r, k, v, w, dy = (t.transpose(1, 2) for t in (r, k, v, w, dy))
+        dr, dk, dv, dw, du, dstate0 = _wkv.wkv6_backward(r, k, v, w, u, state0, dy,
+                                                         dstate_out)
+        return (*(t.transpose(1, 2) for t in (dr, dk, dv, dw)), du,
+                None if state0 is None else dstate0)
+
+
+def _refuse_in_place(name: str, out: torch.Tensor | None) -> None:
+    if out is not None:
+        raise RuntimeError(f"{name}: the final state cannot be written in place under "
+                           "autograd (a decode step's carried state); call it without "
+                           "the output state, or without grad")
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
             plain: bool = False) -> torch.Tensor:
     if plain:
@@ -158,7 +219,11 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
              h_out: torch.Tensor | None = None,
              plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """u/dt: (B,S,I); a: (I,N); b/c: (B,S,N); h0/h_out: (B,I,N). Returns
-    (y (B,S,I) f32 without the D-skip, final state)."""
+    (y (B,S,I) f32 without the D-skip, final state). Under autograd
+    through :class:`SsmScanFunction`, which takes no ``h_out``."""
+    if not plain and _grad_wanted(u, dt, a, b, c, h0):
+        _refuse_in_place("ssm_scan", h_out)
+        return SsmScanFunction.apply(u, dt, a, b, c, h0)
     fn = _ssm.ssm_scan_plain if plain else _ssm.ssm_scan
     return fn(u, dt, a, b, c, h0, h_out)
 
@@ -168,7 +233,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          state_out: torch.Tensor | None = None,
          plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B,S,H,K); u: (H,K); state0/state_out: (B,H,K,K). Returns
-    (y (B,S,H,K) f32, final state)."""
+    (y (B,S,H,K) f32, final state). Under autograd through
+    :class:`Wkv6Function`, which takes no ``state_out``."""
+    if not plain and _grad_wanted(r, k, v, w, u, state0):
+        _refuse_in_place("wkv6", state_out)
+        return Wkv6Function.apply(r, k, v, w, u, state0)
     fn = _wkv.wkv6_plain if plain else _wkv.wkv6
     y, state = fn(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   w.transpose(1, 2), u, state0, state_out)

@@ -11,6 +11,11 @@ itself.
 On the card a (batch row, head) is split by column slice over
 ``slices`` blocks, and a thread owns a quad of columns over ``rows`` rows of
 its slice; :func:`launch_plan` picks both from the shape.
+
+:func:`wkv6_backward` is the recurrence's gradient: the CUDA kernel
+``csrc/wkv6_bwd.cu`` on the card, :func:`wkv6_backward_plain` on the CPU. It
+replaces no TPU kernel (the JAX package differentiates its ``lax.scan``);
+``kernels.ops.Wkv6Function`` runs the two under autograd.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from repro_torch.kernels import _build, ref
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
+#: launches of the backward's CUDA kernel in this process
+BWD_LAUNCHES = 0
 
 #: head sizes the kernel is compiled for
 HEAD_SIZES = (16, 32, 64)
@@ -39,6 +46,9 @@ BLOCK_THREADS = 128
 TILE_STEPS = 32
 #: shared memory a block may take without opting in
 SMEM_LIMIT = 48 * 1024
+#: steps the backward stages at once (``csrc/wkv6_bwd.cu::kWkvBwdTile``); its
+#: block is 4 K threads, one a (state row, fourth of the columns)
+BWD_TILE = 8
 
 
 def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
@@ -114,7 +124,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return wkv6_plain(r, k, v, w, u, state0, state_out)
     states = [t for t in (state0, state_out) if t is not None]
     _build.require_cuda(r, k, v, w, u, *states)
-    _build.refuse_grad("wkv6 (K6)", r, k, v, w, u, *states)
+    _build.refuse_grad("wkv6 (K6)", r, k, v, w, u, *states,
+                       function="repro_torch.kernels.ops.Wkv6Function")
     bsz, h, s, kd = r.shape
     if (any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, kd)
             or any(t.shape != (bsz, h, kd, kd) for t in states)):
@@ -148,3 +159,66 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _build.check(err, "wkv6")
     LAUNCHES += 1
     return y, state_out
+
+
+def wkv6_backward_plain(r, k, v, w, u, state0, dy, dstate_out):
+    return ref.wkv6_backward_reference(r, k, v, w, u, state0, dy, dstate_out)
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, state0: torch.Tensor | None, dy: torch.Tensor,
+                  dstate_out: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6` at its inputs (``state0`` None: zeros)
+    given ``dy`` (B, H, S, K), the gradient of y, and ``dstate_out``
+    (B, H, K, K) or None (zeros), that of the final state. All float32,
+    r, k, v, w and dy read through their strides as the forward reads
+    them. Returns (dr, dk, dv, dw, du, dstate0); on the card dr, dk, dv and
+    dw are head-major views of memory laid out as (B, S, H, K), like the
+    forward's y.
+
+    On the card the kernel recomputes every step's state from ``state0``
+    into a scratch of B H S K K floats, and writes du as one partial a batch
+    row; the sum over those is taken here, in a fixed order."""
+    global BWD_LAUNCHES
+    if r.device.type == "cpu":
+        return wkv6_backward_plain(r, k, v, w, u, state0, dy, dstate_out)
+    states = [t for t in (state0, dstate_out) if t is not None]
+    _build.require_cuda(r, k, v, w, u, dy, *states)
+    _build.refuse_grad("wkv6_backward (K6')", r, k, v, w, u, dy, *states)
+    bsz, h, s, kd = r.shape
+    if (any(t.shape != r.shape for t in (k, v, w, dy)) or u.shape != (h, kd)
+            or any(t.shape != (bsz, h, kd, kd) for t in states)):
+        raise ValueError(f"shapes r {tuple(r.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} w {tuple(w.shape)} u {tuple(u.shape)} dy "
+                         f"{tuple(dy.shape)} states {[tuple(t.shape) for t in states]} "
+                         "do not match")
+    if any(t.dtype != torch.float32 for t in (r, k, v, w, u, dy, *states)):
+        raise ValueError("the WKV recurrence's backward takes float32 tensors")
+    if kd not in HEAD_SIZES:
+        raise ValueError(f"head size {kd} not in {HEAD_SIZES}")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("the head-size axis of r, k, v, w must be contiguous")
+    if max(h, s) >= 2**31 // 4 or bsz >= 2**16:
+        raise ValueError(f"unsupported shape {tuple(r.shape)}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    u = u.contiguous()
+    state0, dstate_out = (None if t is None else t.contiguous() for t in (state0, dstate_out))
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty((bsz, s, h, kd), **f32).transpose(1, 2) for _ in range(4))
+    dstate0 = torch.empty((bsz, h, kd, kd), **f32)
+    if bsz * h == 0:
+        return dr, dk, dv, dw, torch.zeros((h, kd), **f32), dstate0
+    du_part = torch.empty((bsz, h, kd), **f32)
+    scratch = torch.empty((bsz, h, s, kd, kd), **f32)
+    strides = (ctypes.c_int64 * 18)(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                    *w.stride()[:3], *dy.stride()[:3], *dr.stride()[:3])
+    err = _build.library().repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if state0 is None else state0.data_ptr(), dy.data_ptr(),
+        None if dstate_out is None else dstate_out.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), dstate0.data_ptr(),
+        scratch.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd, _build.stream_ptr(r))
+    _build.check(err, "wkv6_backward")
+    BWD_LAUNCHES += 1
+    return dr, dk, dv, dw, du_part.sum(dim=0), dstate0

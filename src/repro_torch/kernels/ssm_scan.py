@@ -9,6 +9,11 @@ strides. ``h_out`` receives the final state and may be ``h0`` itself.
 On the card a thread owns ``group`` consecutive state entries of one (batch
 row, channel), so ``N / group`` lanes hold a channel; :func:`launch_plan`
 picks the group from the shape.
+
+:func:`ssm_scan_backward` is the scan's gradient: the CUDA kernel
+``csrc/ssm_scan_bwd.cu`` on the card, :func:`ssm_scan_backward_plain` on
+the CPU. It replaces no TPU kernel (the JAX package differentiates its
+``lax.scan``); ``kernels.ops.SsmScanFunction`` runs the two under autograd.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from repro_torch.kernels import _build, ref
 
 #: launches of the CUDA kernel in this process
 LAUNCHES = 0
+#: launches of the backward's CUDA kernel in this process
+BWD_LAUNCHES = 0
 
 #: SSM state sizes the kernel is compiled for
 STATE_SIZES = (8, 16)
@@ -37,6 +44,11 @@ BLOCK_THREADS = 128
 TILE_STEPS = 32
 #: shared memory a block may take without opting in
 SMEM_LIMIT = 48 * 1024
+#: threads a block of the backward, one a state entry
+#: (``csrc/ssm_scan_bwd.cu::kSsmBwdThreads``)
+BWD_BLOCK_THREADS = 256
+#: steps between the states the backward keeps (``csrc/ssm_scan_bwd.cu::kChunk``)
+BWD_CHUNK = 16
 
 
 def ssm_scan_plain(u, dt, a, b, c, h0=None, h_out=None):
@@ -102,7 +114,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         return ssm_scan_plain(u, dt, a, b, c, h0, h_out)
     states = [t for t in (h0, h_out) if t is not None]
     _build.require_cuda(u, dt, a, b, c, *states)
-    _build.refuse_grad("ssm_scan (K5)", u, dt, a, b, c, *states)
+    _build.refuse_grad("ssm_scan (K5)", u, dt, a, b, c, *states,
+                       function="repro_torch.kernels.ops.SsmScanFunction")
     bsz, s, di = u.shape
     n = a.shape[-1]
     if (dt.shape != u.shape or a.shape != (di, n) or b.shape != (bsz, s, n)
@@ -140,3 +153,66 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     _build.check(err, "ssm_scan")
     LAUNCHES += 1
     return y, h_out
+
+
+def ssm_scan_backward_plain(u, dt, a, b, c, h0, dy, dh_out):
+    return ref.ssm_scan_backward_reference(u, dt, a, b, c, h0, dy, dh_out)
+
+
+def ssm_scan_backward(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, h0: torch.Tensor | None, dy: torch.Tensor,
+                      dh_out: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssm_scan` at its inputs (``h0`` None: zeros)
+    given ``dy`` (B, S, I), the gradient of y, and ``dh_out`` (B, I, N) or
+    None (zeros), that of the final state. All float32, read as the forward
+    reads them. Returns (du, ddt, da, db, dc, dh0).
+
+    On the card the kernel recomputes the states from ``h0`` into a scratch
+    of ``ceil(S / BWD_CHUNK)`` chunk-boundary states, and writes db, dc as one
+    partial a block and da as one a batch row; the sums over those are
+    taken here, in a fixed order."""
+    global BWD_LAUNCHES
+    if u.device.type == "cpu":
+        return ssm_scan_backward_plain(u, dt, a, b, c, h0, dy, dh_out)
+    states = [t for t in (h0, dh_out) if t is not None]
+    _build.require_cuda(u, dt, a, b, c, dy, *states)
+    _build.refuse_grad("ssm_scan_backward (K5')", u, dt, a, b, c, dy, *states)
+    bsz, s, di = u.shape
+    n = a.shape[-1]
+    if (dt.shape != u.shape or dy.shape != u.shape or a.shape != (di, n)
+            or b.shape != (bsz, s, n) or c.shape != b.shape
+            or any(t.shape != (bsz, di, n) for t in states)):
+        raise ValueError(f"shapes u {tuple(u.shape)} dt {tuple(dt.shape)} a "
+                         f"{tuple(a.shape)} b {tuple(b.shape)} c {tuple(c.shape)} dy "
+                         f"{tuple(dy.shape)} states {[tuple(t.shape) for t in states]} "
+                         "do not match")
+    if any(t.dtype != torch.float32 for t in (u, dt, a, b, c, dy, *states)):
+        raise ValueError("the selective scan's backward takes float32 tensors")
+    if n not in STATE_SIZES:
+        raise ValueError(f"state size {n} not in {STATE_SIZES}")
+    if max(bsz, s, di) >= 2**31 or bsz >= 2**16:
+        raise ValueError(f"unsupported shape {tuple(u.shape)}")
+    dy = dy.contiguous()
+    h0, dh_out = (None if t is None else t.contiguous() for t in (h0, dh_out))
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddt = torch.empty((bsz, s, di), **f32), torch.empty((bsz, s, di), **f32)
+    dh0 = torch.empty((bsz, di, n), **f32)
+    if bsz * di == 0:
+        return (du, ddt, torch.zeros((di, n), **f32), torch.zeros((bsz, s, n), **f32),
+                torch.zeros((bsz, s, n), **f32), dh0)
+    blocks = -(-di // (BWD_BLOCK_THREADS // n))
+    da_part = torch.empty((bsz, di, n), **f32)
+    bc_part = torch.empty((2, bsz, blocks, s, n), **f32)
+    scratch = torch.empty((bsz, -(-s // BWD_CHUNK), di, n), **f32)
+    strides = (ctypes.c_int64 * 14)(*u.stride(), *dt.stride(), *b.stride(),
+                                    *c.stride(), *a.stride())
+    err = _build.library().repro_ssm_scan_bwd(
+        u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+        None if dh_out is None else dh_out.data_ptr(), du.data_ptr(), ddt.data_ptr(),
+        da_part.data_ptr(), bc_part.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+        ctypes.addressof(strides), bsz, s, di, n, _build.stream_ptr(u))
+    _build.check(err, "ssm_scan_backward")
+    BWD_LAUNCHES += 1
+    db, dc = bc_part.sum(dim=2)
+    return du, ddt, da_part.sum(dim=0), db, dc, dh0

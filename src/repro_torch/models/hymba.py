@@ -211,10 +211,8 @@ def _full_layer(x, lp, cfg: ModelConfig, positions, is_global: bool, plain: bool
 
 def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
     """Mean next-token cross-entropy; each layer rematerialised in the
-    backward. On the card the selective scan (K5) has no backward yet: under
-    autograd its wrapper raises ``NotImplementedError`` (``plain=True`` runs
-    the plain version).
-    Returns (loss, {"loss": loss})."""
+    backward (so the selective scan runs twice a layer forward, and its
+    backward kernel once). Returns (loss, {"loss": loss})."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)

@@ -158,10 +158,8 @@ def _block(x, lp, cfg: ModelConfig, tm_shift, cm_shift, wkv_state, state_out,
 # --------------------------------------------------------------------------- #
 def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
     """Mean next-token cross-entropy from zero states; each layer
-    rematerialised in the backward. On the card the WKV recurrence (K6) has
-    no backward yet: under autograd its wrapper raises
-    ``NotImplementedError`` (``plain=True`` runs the plain version). Returns
-    (loss, {"loss": loss})."""
+    rematerialised in the backward (so the WKV recurrence runs twice a layer
+    forward, and its backward kernel once). Returns (loss, {"loss": loss})."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = cm.layernorm(params["embed"][tokens], params["ln0_w"], params["ln0_b"])
     zeros = x.new_zeros((x.shape[0], 1, cfg.d_model))

@@ -225,7 +225,8 @@ def test_cpu_tensors_never_launch():
     ops.decode_attention(x, cache, cache, 3)
     assert tk.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
                                   "decode_attention": 0, "cap_bucket_scan": 0,
-                                  "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0}
+                                  "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0,
+                                  "ssm_scan_bwd": 0, "wkv6_bwd": 0}
 
 
 # --------------------------------------------------------------------------- #
@@ -262,7 +263,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     after = tk.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "rmsnorm": 1, "flash_attention": 4, "decode_attention": 8,
-        "cap_bucket_scan": 0, "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0}
+        "cap_bucket_scan": 0, "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0,
+        "ssm_scan_bwd": 0, "wkv6_bwd": 0}
 
 
 @pytest.mark.gpu

@@ -15,8 +15,9 @@ within 1e-5 relative; each gradient leaf against ``jax.grad`` normwise,
 Functions: ``torch.autograd.gradcheck`` in float64 (the plain versions
 compute in f64 for f64 inputs), and f32 gradients against autograd through
 the plain versions within 1e-5, at causal, window, Sq != Sk and GQA
-shapes. The ``gpu`` test holds the wrappers' refusal of a gradient cut on
-the card; it skips here. JAX is imported in a fixture, so that test still
+shapes (K5's and K6's Functions: ``test_torch_recurrent_grads.py``). The
+``gpu`` test holds the wrappers' refusal of a gradient cut on the card and
+the Functions there; it skips here. JAX is imported in a fixture, so that test still
 collects on a machine without it.
 """
 import dataclasses
@@ -163,7 +164,7 @@ def test_loss_and_grads_match_jax(jx, arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "hymba-1.5b", "rwkv6-3b"])
 def test_plain_and_function_paths_agree(jx, arch):
     """``plain=True`` (autograd through the plain versions) and the kernel
     path (the Functions, their forward the plain version on the CPU) give
@@ -323,13 +324,15 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_wrappers_refuse_a_gradient_cut_on_card(cuda):
+def test_wrappers_refuse_a_gradient_cut_on_card(cuda, monkeypatch):
     """Each kernel wrapper given a CUDA tensor that requires grad, in grad
-    mode, raises instead of returning a result with no gradient: K1 and K2
-    naming their Function, K3, K5 and K6 saying they have no backward; in
-    no-grad mode they launch. hymba's and RWKV's kernel-path losses raise
-    by name; the Functions' gradients match autograd through the plain
-    versions in f32."""
+    mode, raises instead of returning a result with no gradient: K1, K2, K5
+    and K6 naming their Function, K3 and the backward kernels saying they
+    have no backward; in no-grad mode they launch. The Functions' gradients
+    match autograd through the plain versions in f32, K5's and K6's backward
+    kernels their plain backwards, and hymba's and RWKV's kernel-path losses
+    give finite gradients that match their plain paths' as closely as two
+    correct computations do."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
@@ -349,13 +352,29 @@ def test_wrappers_refuse_a_gradient_cut_on_card(cuda):
         fa.flash_attention(q, k, k)
     with pytest.raises(NotImplementedError, match="decode_attention"):
         da.decode_attention(q[:, :, 0], k, k, 8)
-    a = -torch.rand((8, 4), generator=g, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
-        ssm.ssm_scan(rnd(1, 3, 8), torch.rand((1, 3, 8), device=cuda), a,
-                     rnd(1, 3, 4), rnd(1, 3, 4))
+    a = -torch.rand((8, 16), generator=g, device=cuda)
+    ssm_args = (rnd(1, 3, 8), torch.rand((1, 3, 8), device=cuda), a, rnd(1, 3, 16),
+                rnd(1, 3, 16))
+    with pytest.raises(RuntimeError, match="SsmScanFunction"):
+        ssm.ssm_scan(*ssm_args)
     r = rnd(1, 2, 3, 64)
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        wkv.wkv6(r, r, r, torch.rand((1, 2, 3, 64), device=cuda), rnd(2, 64))
+    wkv_args = (r, r, r, torch.rand((1, 2, 3, 64), device=cuda), rnd(2, 64))
+    with pytest.raises(RuntimeError, match="Wkv6Function"):
+        wkv.wkv6(*wkv_args)
+    with pytest.raises(NotImplementedError, match="ssm_scan_backward"):
+        ssm.ssm_scan_backward(*ssm_args, None, rnd(1, 3, 8), None)
+    with pytest.raises(NotImplementedError, match="wkv6_backward"):
+        wkv.wkv6_backward(*wkv_args, None, rnd(1, 2, 3, 64), None)
+    with torch.no_grad():
+        for args, fn, bwd in ((ssm_args, ssm.ssm_scan, ssm.ssm_scan_backward),
+                              (wkv_args, wkv.wkv6, wkv.wkv6_backward)):
+            y, state = fn(*args)
+            dy, dstate = torch.randn_like(y), torch.randn_like(state)
+            got = bwd(*args, None, dy, dstate)
+            want = (ssm.ssm_scan_backward_plain if fn is ssm.ssm_scan
+                    else wkv.wkv6_backward_plain)(*args, None, dy, dstate)
+            for grad, plain_grad in zip(got, want):
+                torch.testing.assert_close(grad, plain_grad, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         assert rms.rmsnorm(x, w).grad_fn is None
     out = ops.rmsnorm(x, w)
@@ -370,12 +389,36 @@ def test_wrappers_refuse_a_gradient_cut_on_card(cuda):
                          torch.autograd.grad(ref.square().sum(), (qm, km, vm))):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     from repro_torch.configs import get_config
-    for arch in ("hymba-1.5b", "rwkv6-3b"):
+    from repro_torch.kernels.ref import ssm_scan_reference, wkv6_reference
+
+    def in_f64(reference):  # the plain recurrence in float64, cast back
+        return lambda *args: tuple(t.float() for t in reference(
+            *(None if t is None else t.double() for t in args[:6])))
+
+    for arch, mod, plain_name, reference in (
+            ("hymba-1.5b", ssm, "ssm_scan_plain", ssm_scan_reference),
+            ("rwkv6-3b", wkv, "wkv6_plain", wkv6_reference)):
         # full widths (K2 takes head dims 32-256), two layers
         cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=2)
         params = api.init_params(torch.Generator(device=cuda).manual_seed(1), cfg)
         for p in cm.leaves(params):
             p.requires_grad_(True)
         batch = api.make_batch(cfg, 1, 8, torch.Generator(device=cuda).manual_seed(2))
-        with pytest.raises(NotImplementedError, match="ssm_scan|wkv6"):
-            api.loss_fn(params, batch, cfg)
+        loss, _, grads = port_grads(params, batch, cfg)
+        ploss, _, pgrads = port_grads(params, batch, cfg, plain=True)
+        monkeypatch.setattr(mod, plain_name, in_f64(reference))
+        _, _, fgrads = port_grads(params, batch, cfg, plain=True)
+        monkeypatch.undo()
+        torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+        assert all(torch.isfinite(g).all() for g in grads), arch
+        # the whole gradient, normwise, within twice the plain path's distance
+        # from itself with the recurrence in float64 (its floor: single leaves
+        # of two correct f32 computations fall 2e-4 to 5e-4 apart here), or
+        # within GRAD_TOL
+        norm = torch.stack([p.norm() for p in pgrads]).norm()
+
+        def whole(gs):
+            return float(torch.stack([(g - p).norm() for g, p in zip(gs, pgrads)]).norm() / norm)
+
+        assert whole(grads) <= max(2 * whole(fgrads), GRAD_TOL), (arch, whole(grads),
+                                                                  whole(fgrads))
