@@ -940,6 +940,60 @@ WKV_BWD_CASES = ((8, 128, False, False, False, 40, 64), (1, 1, True, True, False
                  (2, 37, True, False, False, 40, 64), (2, 37, False, True, False, 40, 64),
                  (1, 64, True, True, True, 40, 64), (2, 19, True, True, False, 3, 16),
                  (2, 19, False, True, False, 3, 32))
+#: K5's backward under every plan (``ssm_scan.backward_plan``: each group, each
+#: segment count the length allows), cases as SSM_BWD_CASES': the training
+#: shape; a ragged last channel tile at N = 16 and 8 with S not a multiple of
+#: the chunk, long enough for 4 and 8 segments, large dt at N = 8; S = 1
+SSM_BWD_PLAN_CASES = ((2, 2048, False, False, False, 3200, 16),
+                      (2, 301, True, True, False, 100, 16),
+                      (1, 177, True, True, True, 100, 8), (1, 1, True, True, False, 3200, 8))
+
+
+#: cases run on inputs off the 16-byte grid (the wrappers copy them onto it):
+#: one each of SSM_BWD_CASES and WKV_BWD_CASES, and K5's at an I that is no
+#: multiple of 4 (the wrapper pads it with channels of zeros)
+BWD_OFFSET_CASES = {"ssm_scan_bwd": ((2, 37, True, True, False, 3200, 16),
+                                     (1, 33, True, True, False, 98, 8)),
+                    "wkv6_bwd": ((2, 37, True, True, False, 40, 64),)}
+
+
+def offset_copy(t):
+    """``t``'s values, contiguous, 4 bytes off the 16-byte grid (None stays
+    None): inputs that the backward wrappers copy onto the grid."""
+    if t is None:
+        return None
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ssm_bwd_plans(bsz: int, s: int, di: int, n: int) -> list:
+    """Every plan of K5's backward at (``bsz``, ``s``, ``di``, ``n``): each
+    group with each segment count the length allows."""
+    from repro_torch.kernels import ssm_scan as k5
+    plans = []
+    for grp in k5.GROUPS:
+        for seg in k5.BWD_SEGMENTS:
+            try:
+                plans.append(k5.backward_plan(bsz, s, di, n, group=grp, segments=seg))
+            except ValueError:
+                pass
+    return plans
+
+
+def bwd_plan_str(plan) -> str:
+    """A backward plan's numbers, as the kernel takes them."""
+    if hasattr(plan, "segments"):
+        return (f"group={plan.group}, lanes={plan.lanes}, channels={plan.channels}, "
+                f"chunk={plan.chunk}, segments={plan.segments}, seg_chunks={plan.seg_chunks}, "
+                f"blocks={plan.blocks}, smem={plan.smem_bytes}, "
+                f"scratch={plan.scratch_bytes}, bc_part={plan.bc_part_bytes}")
+    from repro_torch.kernels import rwkv6_scan as k6
+    return (f"slices={plan.slices}, threads={plan.threads}, chunk={k6.BWD_CHUNK}, "
+            f"round={k6.BWD_ROUND}, blocks={plan.blocks}, smem={plan.smem_bytes}, "
+            f"scratch={plan.scratch_bytes}")
 
 
 def check_recurrent_backward(dev) -> dict[str, float]:
@@ -948,13 +1002,23 @@ def check_recurrent_backward(dev) -> dict[str, float]:
     twice for the same bits: the training shapes, S = 1, an odd S, with and
     without the initial state and the final state's gradient, large dt
     (exp(dt a) -> 0) and decays at 1e-4 and 0.999, and the other compiled
-    N and K. Returns the max abs error at each training shape."""
+    N and K, cases off the 16-byte grid (BWD_OFFSET_CASES); then K5's at
+    every plan (SSM_BWD_PLAN_CASES). Returns the max abs error at each
+    training shape."""
     import torch
     from repro_torch.kernels import rwkv6_scan as k6
     from repro_torch.kernels import ssm_scan as k5
 
     g = torch.Generator(device=dev).manual_seed(13)
     errs = {}
+
+    def held(name, tol, kernel, args, want, label):
+        got, again = kernel(*args), kernel(*args)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name} {label}: two calls differ")
+        return max(check_close(f"{name} {label} {j}", x, w, tol)
+                   for j, (x, w) in enumerate(zip(got, want)))
+
     for name, tol, kernel, plain, cases, args_of in (
             ("ssm_scan_bwd", SSM_BWD_TOL, k5.ssm_scan_backward, k5.ssm_scan_backward_plain,
              SSM_BWD_CASES, lambda bsz, s, st, ds, edge, a, b: ssm_bwd_args(
@@ -964,13 +1028,19 @@ def check_recurrent_backward(dev) -> dict[str, float]:
                  g, dev, bsz, s, st, ds, edge, h=a, kd=b))):
         for i, case in enumerate(cases):
             args = args_of(*case)
-            got, again = kernel(*args), kernel(*args)
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"{name} {case}: two calls differ")
-            worst = max(check_close(f"{name} {case} {j}", x, w, tol)
-                        for j, (x, w) in enumerate(zip(got, plain(*args))))
+            worst = held(name, tol, kernel, args, plain(*args), case)
             if i == 0:
                 errs[name] = worst
+        for case in BWD_OFFSET_CASES[name]:
+            args = [offset_copy(x) for x in args_of(*case)]
+            held(name, tol, kernel, args, plain(*args), f"{case} off the grid")
+    for bsz, s, st, ds, edge, di, n in SSM_BWD_PLAN_CASES:
+        args = ssm_bwd_args(g, dev, bsz, s, st, ds, edge, di=di, n=n)
+        want = k5.ssm_scan_backward_plain(*args)
+        for plan in ssm_bwd_plans(bsz, s, di, n):
+            held("ssm_scan_bwd", SSM_BWD_TOL, lambda *x, p=plan: k5.ssm_scan_backward(
+                *x, plan=p), args, want, f"{(bsz, s, di, n)} group {plan.group} segments "
+                f"{plan.segments}")
     torch.cuda.synchronize()
     return errs
 
@@ -978,13 +1048,14 @@ def check_recurrent_backward(dev) -> dict[str, float]:
 def time_recurrent_backward(dev) -> dict[str, dict]:
     """K5's and K6's backward kernels alone at the training shapes (hymba-1.5b
     2 x 2,048 tokens, rwkv6-3b 8 x 128), from a zero initial state and with
-    no final-state gradient, as the losses call them; the plain backward
-    beside each (eager: its Python loop over the steps). Bounds from this
-    run's bytes (each input read once, each output written once; not the
-    kernels' state scratch) and operations at the float32 rate: K5′ 26 per
-    (row, step, channel, state entry), the 6 that recompute the state and
-    the reverse step's 20; K6′ 15 per (row, head, step, k, v), 2 and 13. No
-    single PyTorch call computes either gradient."""
+    no final-state gradient, as the losses call them; K5's also under every
+    other plan ("plans"); the plain backward beside each (eager: its Python
+    loop over the steps). Bounds from this run's bytes (each input read
+    once, each output written once; not the kernels' state scratch) and
+    operations at the float32 rate: K5′ 26 per (row, step, channel, state
+    entry), the 6 that recompute the state and the reverse step's 20; K6′ 15
+    per (row, head, step, k, v), 2 and 13. No single PyTorch call computes
+    either gradient."""
     import torch
     from repro_torch.kernels import rwkv6_scan as k6
     from repro_torch.kernels import ssm_scan as k5
@@ -995,15 +1066,14 @@ def time_recurrent_backward(dev) -> dict[str, dict]:
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
     out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, kernel, plain, args, ops_per, plan in (
             ("ssm_scan_bwd", k5.ssm_scan_backward, k5.ssm_scan_backward_plain,
              ssm_bwd_args(g, dev, 2, 2048, False, False), 26,
-             f"one thread a state entry, {k5.BWD_BLOCK_THREADS} a block, the state kept "
-             f"every {k5.BWD_CHUNK} steps"),
+             k5.backward_plan(2, 2048, 3200, 16, sms=sms)),
             ("wkv6_bwd", k6.wkv6_backward, k6.wkv6_backward_plain,
              wkv_bwd_args(g, dev, 8, 128, False, False), 15,
-             f"a block of 4 K threads a (row, head), every state in a scratch, "
-             f"{k6.BWD_TILE} steps a tile")):
+             k6.backward_plan(8, 40, 128, 64))):
         grads = kernel(*args)
         work = args[0].numel() * (args[2].shape[-1] if name == "ssm_scan_bwd"
                                   else args[0].shape[-1])
@@ -1012,7 +1082,14 @@ def time_recurrent_backward(dev) -> dict[str, dict]:
             shape=", ".join(f"{tuple(t.shape)}" for t in args if t is not None) + " f32",
             kernel=timed(lambda: kernel(*args), 10),
             plain={"ms": plain_ms, "call_ms": plain_ms}, library=None,
-            bound=bound_ms(nbytes(*args, *grads), ops_per * work, F32_OPS_PER_S), plan=plan)
+            bound=bound_ms(nbytes(*args, *grads), ops_per * work, F32_OPS_PER_S),
+            plan=bwd_plan_str(plan))
+        if name == "ssm_scan_bwd":
+            out[name]["plans"] = {"train": {
+                f"group={p.group}, segments={p.segments}": dict(
+                    plan=bwd_plan_str(p),
+                    ms=graph_ms(lambda p=p: kernel(*args, plan=p), 10))
+                for p in ssm_bwd_plans(2, 2048, 3200, 16)}}
         del grads
     return out
 

@@ -38,6 +38,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---- thread-block clusters: the barrier in two halves ---------------------
+// arrive releases this thread's earlier writes (shared memory included) to
+// the cluster; wait returns once every thread of every block of the cluster
+// has arrived, and acquires their writes. Work between the two overlaps the
+// barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // 2^x by the special-function unit (about 2 ulp; 0 for -inf)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

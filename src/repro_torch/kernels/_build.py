@@ -57,8 +57,8 @@ SIGNATURES = {
                        _I, _P],
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
-    "repro_ssm_scan_bwd": [_P] * 15 + [_I, _I, _I, _I, _P],
-    "repro_wkv6_bwd": [_P] * 16 + [_I, _I, _I, _I, _P],
+    "repro_ssm_scan_bwd": [_P] * 16 + [_I] * 8 + [_P],
+    "repro_wkv6_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 #: element type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -170,6 +170,38 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous and on the 16-byte grid, else a contiguous
+    copy (a fresh allocation is): for kernels that read it as float4s."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def on_grid(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its last axis is contiguous, its other strides are multiples
+    of 16 bytes and it starts on the 16-byte grid, else a contiguous copy:
+    for kernels that copy its rows 16 bytes at a time through its strides
+    (the copy is on the grid when a row is a multiple of 16 bytes long)."""
+    row = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(x % row == 0 for x in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the CUDA device ``t`` lies on (launch plans size grids to
+    whole waves of them)."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

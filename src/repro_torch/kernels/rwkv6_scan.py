@@ -15,7 +15,9 @@ its slice; :func:`launch_plan` picks both from the shape.
 :func:`wkv6_backward` is the recurrence's gradient: the CUDA kernel
 ``csrc/wkv6_bwd.cu`` on the card, :func:`wkv6_backward_plain` on the CPU. It
 replaces no TPU kernel (the JAX package differentiates its ``lax.scan``);
-``kernels.ops.Wkv6Function`` runs the two under autograd.
+``kernels.ops.Wkv6Function`` runs the two under autograd. Its launch plan is
+:func:`backward_plan`: column slices of 16 over a cluster, the state kept
+every 16 steps.
 """
 from __future__ import annotations
 
@@ -46,9 +48,14 @@ BLOCK_THREADS = 128
 TILE_STEPS = 32
 #: shared memory a block may take without opting in
 SMEM_LIMIT = 48 * 1024
-#: steps the backward stages at once (``csrc/wkv6_bwd.cu::kWkvBwdTile``); its
-#: block is 4 K threads, one a (state row, fourth of the columns)
-BWD_TILE = 8
+#: columns a block of the backward holds (``csrc/wkv6_bwd.cu::kWkvBwdCols``):
+#: a (row, head) is K / 16 blocks, one thread-block cluster, and a block is
+#: 4 K threads, one a (state row, quad of columns)
+BWD_COLS = 16
+#: steps between the states the backward keeps (``kWkvBwdChunk``), and the
+#: steps whose sums it takes at once (``kWkvBwdRound``)
+BWD_CHUNK = 16
+BWD_ROUND = 8
 
 
 def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
@@ -165,6 +172,58 @@ def wkv6_backward_plain(r, k, v, w, u, state0, dy, dstate_out):
     return ref.wkv6_backward_reference(r, k, v, w, u, state0, dy, dstate_out)
 
 
+@dataclasses.dataclass(frozen=True)
+class WkvBwdPlan:
+    """One launch of the backward for B = ``bsz`` rows of ``h`` heads of
+    size ``kd`` over ``s`` steps: each (row, head) split into ``slices`` =
+    K / :data:`BWD_COLS` blocks (a thread-block cluster), a block of
+    ``threads`` = 4 K, the state kept every :data:`BWD_CHUNK` steps, the sums
+    taken every :data:`BWD_ROUND`. The kernel takes it as given."""
+    bsz: int
+    h: int
+    s: int
+    kd: int
+
+    @property
+    def slices(self) -> int:
+        return self.kd // BWD_COLS
+
+    @property
+    def threads(self) -> int:
+        return 4 * self.kd
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.s // BWD_CHUNK)
+
+    @property
+    def blocks(self) -> int:
+        return self.bsz * self.h * self.slices
+
+    @property
+    def smem_bytes(self) -> int:
+        """Two staging buffers (r, k, w and the slice's v, dy for each step
+        of a chunk), the rows' partials (4 quads of K + 2 float4 a step of a
+        round), the dv terms (K x 16 + 16 a step), two buffers of slice sums
+        (3 K a step), dy . v of a chunk, u: ``csrc/wkv6_bwd.cu::WkvBwdBlock``."""
+        kd, cw, t, r = self.kd, BWD_COLS, BWD_CHUNK, BWD_ROUND
+        return 4 * (2 * t * (3 * kd + 2 * cw) + r * 4 * 4 * (kd + 2) + r * (kd * cw + 16)
+                    + 2 * r * 3 * kd + t + kd)
+
+    @property
+    def scratch_bytes(self) -> int:
+        """The state entering each chunk: (B, H, chunks, K, K) floats."""
+        return 4 * self.bsz * self.h * self.chunks * self.kd * self.kd
+
+
+def backward_plan(bsz: int, h: int, s: int, kd: int) -> WkvBwdPlan:
+    """The backward's plan for B = ``bsz`` rows of ``h`` heads of size ``kd``
+    over ``s`` steps."""
+    if kd not in HEAD_SIZES:
+        raise ValueError(f"head size {kd} not in {HEAD_SIZES}")
+    return WkvBwdPlan(bsz, h, s, kd)
+
+
 def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                   u: torch.Tensor, state0: torch.Tensor | None, dy: torch.Tensor,
                   dstate_out: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
@@ -176,9 +235,12 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     dw are head-major views of memory laid out as (B, S, H, K), like the
     forward's y.
 
-    On the card the kernel recomputes every step's state from ``state0``
-    into a scratch of B H S K K floats, and writes du as one partial a batch
-    row; the sum over those is taken here, in a fixed order."""
+    On the card the kernel keeps the state entering every
+    :data:`BWD_CHUNK`-step chunk in a scratch of
+    :attr:`WkvBwdPlan.scratch_bytes`, and writes du as one partial a (batch
+    row, column slice); the sum over those is taken here, in a fixed order.
+    It copies r, k, v, w and dy 16 bytes at a time: an input off the 16-byte
+    grid is copied onto it first."""
     global BWD_LAUNCHES
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, v, w, u, state0, dy, dstate_out)
@@ -198,19 +260,25 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
         raise ValueError(f"head size {kd} not in {HEAD_SIZES}")
     if any(t.stride(-1) != 1 for t in (r, k, v, w)):
         raise ValueError("the head-size axis of r, k, v, w must be contiguous")
-    if max(h, s) >= 2**31 // 4 or bsz >= 2**16:
-        raise ValueError(f"unsupported shape {tuple(r.shape)}")
-    if dy.stride(-1) != 1:
-        dy = dy.contiguous()
+    r, k, v, w, dy = (_build.on_grid(t) for t in (r, k, v, w, dy))
+    if max(h, s) >= 2**31 // 4 or bsz >= 2**16 or any(
+            (s - 1) * abs(x.stride(2)) + kd >= 2**31 for x in (r, k, v, w, dy)):
+        raise ValueError(f"unsupported shape {tuple(r.shape)}: a (row, head)'s offsets must "
+                         "fit in 32 bits")
     u = u.contiguous()
-    state0, dstate_out = (None if t is None else t.contiguous() for t in (state0, dstate_out))
+    # the kernel reads the states as float4s
+    state0, dstate_out = (None if t is None else _build.aligned(t)
+                          for t in (state0, dstate_out))
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv, dw = (torch.empty((bsz, s, h, kd), **f32).transpose(1, 2) for _ in range(4))
+    if bsz * h == 0 or s == 0:
+        return (dr, dk, dv, dw, torch.zeros((h, kd), **f32),
+                torch.zeros((bsz, h, kd, kd), **f32) if dstate_out is None
+                else dstate_out.clone())
     dstate0 = torch.empty((bsz, h, kd, kd), **f32)
-    if bsz * h == 0:
-        return dr, dk, dv, dw, torch.zeros((h, kd), **f32), dstate0
-    du_part = torch.empty((bsz, h, kd), **f32)
-    scratch = torch.empty((bsz, h, s, kd, kd), **f32)
+    plan = backward_plan(bsz, h, s, kd)
+    du_part = torch.empty((bsz, plan.slices, h, kd), **f32)
+    scratch = torch.empty((bsz, h, plan.chunks, kd, kd), **f32)
     strides = (ctypes.c_int64 * 18)(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                     *w.stride()[:3], *dy.stride()[:3], *dr.stride()[:3])
     err = _build.library().repro_wkv6_bwd(
@@ -218,7 +286,8 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
         None if state0 is None else state0.data_ptr(), dy.data_ptr(),
         None if dstate_out is None else dstate_out.data_ptr(), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), dstate0.data_ptr(),
-        scratch.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd, _build.stream_ptr(r))
+        scratch.data_ptr(), ctypes.addressof(strides), bsz, h, s, kd, plan.smem_bytes,
+        _build.stream_ptr(r))
     _build.check(err, "wkv6_backward")
     BWD_LAUNCHES += 1
-    return dr, dk, dv, dw, du_part.sum(dim=0), dstate0
+    return dr, dk, dv, dw, du_part.sum(dim=(0, 1)), dstate0

@@ -98,7 +98,7 @@ def test_resolve_backend():
 
 #: the scripts at the root of the repository that drive the port on the card
 SCRIPTS = ("chip_smoke.py", "attention_sweep.py", "recurrent_decode.py",
-           "cap_scan_buckets.py")
+           "cap_scan_buckets.py", "recurrent_backward.py")
 
 
 @pytest.mark.parametrize("script", SCRIPTS)
