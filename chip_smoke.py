@@ -165,6 +165,7 @@ last line. Exits 2 without a CUDA device or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -1177,7 +1178,10 @@ def decode_step_times(engine, serve_ms: float) -> dict:
     """The engine's decode step as a CUDA-graph replay and eagerly, on the
     same parameters and cache: each step's time (:func:`step_ms`) beside the
     card's busy time (:func:`profile_steps`) and the idle share between
-    them; the serve run's mean decode phase beside them."""
+    them; the serve run's mean decode phase beside them. The profiler can
+    lose every record of a profile (a harness flake, as in
+    :func:`after_read_ms`): a profile that saw no device time is taken
+    again, up to 3 in all, each retry logged."""
     import torch
     from repro_torch.models import api
 
@@ -1188,9 +1192,13 @@ def decode_step_times(engine, serve_ms: float) -> dict:
     result = {}
     for label, fn in steps.items():
         ms = step_ms(fn)
-        prof = profile_steps(fn)
-        busy = prof["card_busy_ms_per_step"]
-        if busy <= 0:
+        for attempt in range(1, 4):
+            prof = profile_steps(fn)
+            busy = prof["card_busy_ms_per_step"]
+            if busy > 0:
+                break
+            log(f"{label} decode step: profile {attempt} of 3 saw no device time")
+        else:
             raise AssertionError(f"{label} decode step: the profiler saw no device time")
         result[label] = {"step_ms": ms, "card_idle_share": 1.0 - busy / ms,
                          "card_idle_share_active": 1.0 - prof["card_active_ms_per_step"] / ms,
@@ -1570,8 +1578,8 @@ def routed(fn):
     seen = []
     orig = moe.router_topk
 
-    def record(x, w, cfg, aux=False):
-        out = orig(x, w, cfg, aux)
+    def record(*args, **kw):
+        out = orig(*args, **kw)
         seen.append(out[1])
         return out
 
@@ -2857,6 +2865,7 @@ def whatif(dev) -> dict:
         log(f"what-if dense grid ({len(dense)} configs): torch on the card == numpy "
             f"oracle (time and count fields exact; worst relative error per float "
             f"field, rtol = atol = {WHATIF_RTOL}: {json.dumps(worst_dense)})")
+        dist_check = whatif_dist(dev, store, dense, kw)
 
         grid = grid_10k()
         n_ir = sum(ir_supported(p, ir_config_for(grid)) for p in grid)
@@ -2936,6 +2945,7 @@ def whatif(dev) -> dict:
         "peak_memory_gib": peak_gib,
         "launches": launches, "configs_by_path": by_path,
         "pareto_flags": pareto, "search": searched, "host_paths": hosted,
+        "dist": dist_check,
     }
     log("what-if " + json.dumps(result))
     log(f"what-if 10^4 grid: {result['configs_per_s_card']:.1f} configs/s on the card "
@@ -2945,6 +2955,35 @@ def whatif(dev) -> dict:
         f"{result['configs_per_s_host_numpy_sample']:.1f} configs/s on the host "
         f"(numpy backend, this machine's CPU, the {len(idx)}-config sample)")
     return result, krows
+
+
+def whatif_dist(dev, store, dense, kw) -> dict:
+    """``evaluate`` on the dense grid with ``dist=config_mesh(1)`` (an NCCL
+    group of one rank) against the same call without it, under
+    :func:`compare_outcomes`' contract; K4's and K7's launches counted from 0."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.whatif import evaluate
+    from repro_torch.whatif.backend import config_mesh
+
+    plain = evaluate(dense, store, **kw)
+    with world_of_one(dev):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = evaluate(dense, store, dist=config_mesh(1), **kw)
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    worst = compare_outcomes(plain, out, "dense grid, config_mesh(1)")
+    if launches["cap_bucket_scan"] <= 0 or launches["downscale_replay"] <= 0:
+        raise AssertionError(f"evaluate over config_mesh(1) did not launch K4 and K7: "
+                             f"{launches}")
+    log(f"distributed what-if: evaluate(dense grid, {len(dense)} configs, "
+        f"dist=config_mesh(1)) over NCCL == evaluate without dist (time and count fields "
+        f"exact; worst relative error per float field: {json.dumps(worst)}); {dist_s:.3f} s; "
+        f"launches {launches}")
+    return {"launches": launches, "s": dist_s, "worst_limit_share": worst["limit_share"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -3302,7 +3341,7 @@ def host_paths(root: Path, store, dense, front, kw) -> dict:
 #: the reference benchmark's live deployment (benchmarks/live_bench.py:59-69),
 #: 10^4 streams, 120,000 rows a shard
 LIVE_DEPLOYMENT = dict(n_streams=10_000, window_s=60, dt_s=5.0)
-LIVE_WINDOWS = 3                   # one tick each, then a backlog of 3 in one tick
+LIVE_WINDOWS = 2                   # one tick each, then a backlog of 2 in one tick
 LIVE_EVALS = 24
 #: the live searches replay at the producers' sample interval and keep every
 #: job: at the default dt_s = 1 the run-level IR refuses 5-second samples (the
@@ -3462,8 +3501,8 @@ def profile_tick(dev, prod, ctrl) -> tuple[dict, object]:
 
 
 def live_fleet(dev, root: Path) -> dict:
-    """The reference benchmark's live deployment on the card: 3 windows of
-    10^4 streams, one tick each, then a 3-window backlog in one tick, each
+    """The reference benchmark's live deployment on the card: 2 windows of
+    10^4 streams, one tick each, then a 2-window backlog in one tick, each
     tick held to the NumPy-backend controller's; then one more window's tick
     under torch.profiler."""
     import torch
@@ -3944,9 +3983,9 @@ RESUME_RTOL = 1e-3
 #: ``step0_layers`` layers (at 32 a time-reversed WKV moves the loss less than
 #: the floor's five times) and by the backward kernel inside the full model
 #: (:func:`backward_in_model`); the full kernel path is read, not gated
-TRAIN_MODELS = {"hymba-1.5b": dict(batch=2, seq=2048, steps=10, step0_tokens=256),
-                "rwkv6-3b": dict(batch=8, seq=128, steps=10, step0_tokens=128, step0_layers=4),
-                "whisper-tiny": dict(batch=8, seq=128, steps=20, step0_tokens=128)}
+TRAIN_MODELS = {"hymba-1.5b": dict(batch=2, seq=2048, steps=6, step0_tokens=256),
+                "rwkv6-3b": dict(batch=8, seq=128, steps=6, step0_tokens=128, step0_layers=4),
+                "whisper-tiny": dict(batch=8, seq=128, steps=10, step0_tokens=128)}
 #: step 0's gates for those runs, from the chaos floor measured in the same
 #: call, as qwen's were set from its readings: the kernel path's worst leaf
 #: within this many times the floor's worst leaf (where the sequence mixer
@@ -4639,6 +4678,137 @@ def train_model(name: str, dev) -> dict:
     return result
 
 
+#: steps of the sharded train step on a mesh of one rank (the LOCAL run's first)
+DIST_STEPS = 5
+#: what one card leaves unchecked of distribution (tests/test_torch_distributed.py
+#: holds each on gloo groups of 2 and 4 CPU processes)
+DIST_UNCHECKED = ("collectives across two or more ranks on NCCL", "a model axis above 1",
+                  "the expert-parallel all-to-alls and capacity drops across ranks",
+                  "the 16 x 16 and 2 x 16 x 16 meshes")
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """An NCCL process group of this process alone, started from a FileStore in
+    a temporary directory (no network: NCCL bootstraps on the loopback device),
+    destroyed on the way out."""
+    import os
+    import shutil
+    import torch.distributed as tdist
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    d = tempfile.mkdtemp(prefix="repro_nccl_")
+    tdist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                             device_id=dev)
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
+    """The sharded train step on a 1 x 1 (data, model) mesh over an NCCL group
+    of one rank: (a) ``Trainer`` with that mesh's ``DistContext`` (same seed,
+    batch and settings as the LOCAL run, no checkpoints) for DIST_STEPS steps,
+    its losses the LOCAL run's first ones bit for bit and its K1/K2 launches
+    DIST_STEPS x the LOCAL per-step counts; (b) the LOCAL run's checkpoint at
+    ``ckpt_dir`` restored onto the mesh by ``param_shardings`` and
+    ``opt_shardings``, every leaf byte for byte; (c) ``compressed_psum`` over the
+    world of one exactly ``dequantize(quantize(g + e))`` with the error buffer
+    exactly the rest. ``local``: the LOCAL run's ``losses``, ``per_step``
+    launches and ``step_s``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed.compression import (compressed_psum, dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.distributed.context import DistContext, make_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import train_shardings
+    from repro_torch.train.tree import flatten
+
+    t_step = time.perf_counter()
+    batch, seq = TRAIN_BATCH
+    out = {}
+    with world_of_one(dev):
+        dist = DistContext(mesh=make_mesh((1, 1), ("data", "model")))
+        tc = launch_train.TrainerConfig(steps=DIST_STEPS, checkpoint_dir=None,
+                                        lr=TRAIN_RUN["lr"])
+        trainer = launch_train.Trainer(cfg, tc, dist=dist, global_batch=batch, seq_len=seq,
+                                       controller=True, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        report = trainer.run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {k: DIST_STEPS * local["per_step"].get(k, 0) for k in launches}
+        if report.losses != local["losses"][:DIST_STEPS]:
+            raise AssertionError(f"distributed losses {report.losses} != LOCAL "
+                                 f"{local['losses'][:DIST_STEPS]}")
+        if launches != want:
+            raise AssertionError(f"distributed launches {launches} != {want}")
+        med = float(np.median(report.step_s)) * 1e3
+        local_med = float(np.median(local["step_s"][:DIST_STEPS])) * 1e3
+        out["train"] = {"losses": report.losses, "launches": launches,
+                        "step_s": report.step_s, "median_ms": med,
+                        "local_median_ms_first5": local_med}
+        log(f"distributed train {cfg.name} on a 1 x 1 (data, model) mesh over NCCL (world "
+            f"of one): {DIST_STEPS} steps, losses {report.losses} == the LOCAL run's first "
+            f"{DIST_STEPS} bit for bit; launches {launches} = {DIST_STEPS} x LOCAL per step; "
+            f"step median {med:.3f} ms (host clock, 5 steps), LOCAL's first 5 "
+            f"{local_med:.3f} ms; steps {[round(x * 1e3, 3) for x in report.step_s]} ms")
+        optimizer = trainer.optimizer
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sh = train_shardings(cfg, optimizer, dist)
+        like_p = api.abstract_params(cfg)
+        like_o = optimizer.init(like_p)
+        t0 = time.perf_counter()
+        got_p, got_o, step = ckpt.restore(ckpt_dir, like_p, like_o, dist=dist,
+                                          param_shardings=sh["params"],
+                                          opt_shardings=sh["opt_state"],
+                                          step=TRAIN_RUN["checkpoint_every"])
+        restore_s = time.perf_counter() - t0
+        got = flatten({"params": got_p, "opt_state": got_o})
+        with np.load(Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz") as z:
+            bad = [k for i, (k, leaf) in enumerate(got)
+                   if not torch.equal(leaf.full_tensor().to(torch.float32
+                                      if z[f"a{i}"].dtype == np.float32 else leaf.dtype),
+                                      torch.from_numpy(z[f"a{i}"]).to(dev))]
+        if bad:
+            raise AssertionError(f"distributed restore: {len(bad)} leaves differ: {bad[:5]}")
+        out["restore"] = {"step": step, "leaves": len(got), "s": restore_s}
+        log(f"distributed restore: the LOCAL run's step-{step} checkpoint onto the mesh by "
+            f"param_shardings and opt_shardings, all {len(got)} leaves equal byte for byte "
+            f"({restore_s:.2f} s)")
+        del got_p, got_o, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev).manual_seed(5)
+        g = torch.randn((3, 1000), generator=gen, device=dev) * 1e-3
+        e = torch.randn((3, 1000), generator=gen, device=dev) * 1e-6
+        summed, err = compressed_psum({"g": g}, dist.mesh.get_group("data"), {"g": e})
+        q, scale, shape = quantize_int8(g + e)
+        exact = dequantize_int8(q, scale, shape)
+        if not (torch.equal(summed["g"], exact) and torch.equal(err["g"], g + e - exact)):
+            raise AssertionError("distributed compressed_psum over a world of one is not "
+                                 "dequantize(quantize(g + e))")
+        log("distributed compressed_psum over the world of one: the sum is exactly "
+            "dequantize(quantize(g + e)) and the error buffer exactly g + e less it "
+            f"(3 x 1000 f32, {q.shape[0]} blocks of 256)")
+    out["s"] = time.perf_counter() - t_step
+    log(f"distributed: what one card leaves unchecked, held on gloo groups of 2 and 4 CPU "
+        f"processes by tests/test_torch_distributed.py instead: {'; '.join(DIST_UNCHECKED)}")
+    log(f"distributed step: {out['s']:.1f} s")
+    return out
+
+
 def train(dev) -> dict:
     """Training on the card: K1's and K2's Functions alone, the f32 family
     checks and the refusals; then qwen1.5-0.5b at full width through
@@ -4785,6 +4955,11 @@ def train(dev) -> dict:
             f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
             f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
         del trainer, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["dist"] = distributed_step(
+            cfg, dev, {"losses": report.losses, "per_step": per_step, "step_s": report.step_s},
+            root / "run")
     finally:
         ckpt.save, ckpt.restore = originals
         shutil.rmtree(root, ignore_errors=True)
@@ -4829,6 +5004,7 @@ def main() -> int:
         elif "registers" in line or "spill" in line or "wgmma" in line:
             log("  ptxas " + line.strip().removeprefix("ptxas info    : "))
 
+    t_phase = time.perf_counter()
     errs = check_kernels(dev)
     log(f"kernels vs plain (bf16 per element, |err| <= {BF16_TOL} * (1 + |plain|)): "
         f"max abs err at the main shapes {errs}")
@@ -4847,16 +5023,23 @@ def main() -> int:
     times.update(time_recurrent_kernels(dev))
     times.update(time_recurrent_backward(dev))
     log_times(times)
+    log(f"kernel checks and timings phase: {time.perf_counter() - t_phase:.1f} s")
 
     # full width, bf16, random weights drawn on the card; each model is
     # freed before the next is made
+    t_phase = time.perf_counter()
     runs = [serve_model(name, dev) for name in SERVE_MAX_SEQ]
     for name in DENSE_LOGIT_MODELS:
         dense_logits(name, dev)
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     presult = pool(dev)
+    log(f"pool phase: {time.perf_counter() - t_phase:.1f} s")
     tresult = train(dev)
 
+    t_phase = time.perf_counter()
     wresult, wtimes = whatif(dev)
+    log(f"what-if phase: {time.perf_counter() - t_phase:.1f} s")
     lresult = live(dev)
     log_times(wtimes)
     k7 = wtimes["downscale_replay"]
@@ -4883,8 +5066,8 @@ def main() -> int:
         for name, n in r["launches"].items():
             train_launches_sum[name] += n
     for counts in [r["launches"] for r in runs] + [r["spill"]["launches"] for r in runs] + [
-            presult["launches"], train_launches_sum, wresult["launches"],
-            wresult["search"]["launches"],
+            presult["launches"], train_launches_sum, tresult["dist"]["train"]["launches"],
+            wresult["launches"], wresult["search"]["launches"], wresult["dist"]["launches"],
             wresult["host_paths"]["launches"], lresult["launches"]]:
         for name, n in counts.items():
             launches[name] += n

@@ -1,1 +1,1 @@
-"""Distribution: the single-process context only, for now."""
+"""Distribution on torch.distributed: the mesh context, the sharding rules and the compressed cross-pod reduction."""

@@ -7,6 +7,12 @@ go only to the family that takes them, as the reference's ``api.prefill``
 passes them. Training: ``loss_fn`` over a batch of ``tokens`` and ``labels``
 (plus ``frames`` or ``vision``), ``make_batch``, and the parameter counts,
 from an init on the ``meta`` device (``abstract_params``).
+
+The distribution arguments go, as the reference's ``api`` passes them, only
+to the families that take them: ``ep_size`` (the experts padded to a
+multiple of the expert-parallel width) to ``init_params`` of moe and
+mla_moe, and ``dist`` (keyword-only here, beside ``plain``) to their
+``loss_fn``, ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from types import ModuleType
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import LOCAL, DistContext
 from repro_torch.models import dense, hymba, mla, moe, rwkv, vlm, whisper
 from repro_torch.models.common import leaves
 
@@ -33,8 +40,15 @@ def family_module(cfg: ModelConfig) -> ModuleType:
             f"{sorted(_FAMILY_MODULES)}") from None
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    return family_module(cfg).init_params(gen, cfg)
+def _accepts(fn, name: str) -> bool:
+    return name in inspect.signature(fn).parameters
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1) -> dict:
+    fn = family_module(cfg).init_params
+    if _accepts(fn, "ep_size"):
+        return fn(gen, cfg, ep_size=ep_size)
+    return fn(gen, cfg)
 
 
 class _MetaGenerator(torch.Generator):
@@ -46,16 +60,22 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
-def abstract_params(cfg: ModelConfig) -> dict:
+def abstract_params(cfg: ModelConfig, ep_size: int = 1) -> dict:
     """The parameter tree as ``meta`` tensors: every leaf's shape and dtype,
     no storage."""
-    return init_params(_MetaGenerator(), cfg)
+    return init_params(_MetaGenerator(), cfg, ep_size)
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig, plain: bool = False):
+def _dist_kw(fn, dist: DistContext) -> dict:
+    return {"dist": dist} if _accepts(fn, "dist") else {}
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, plain: bool = False, *,
+            dist: DistContext = LOCAL):
     """(loss, metrics) of the family's training loss; ``plain=True`` runs the
     plain versions of the kernels."""
-    return family_module(cfg).loss_fn(params, batch, cfg, plain=plain)
+    fn = family_module(cfg).loss_fn
+    return fn(params, batch, cfg, plain=plain, **_dist_kw(fn, dist))
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
@@ -78,8 +98,8 @@ def count_params(params) -> int:
     return sum(t.numel() for t in leaves(params))
 
 
-def count_params_abstract(cfg: ModelConfig) -> int:
-    return count_params(abstract_params(cfg))
+def count_params_abstract(cfg: ModelConfig, ep_size: int = 1) -> int:
+    return count_params(abstract_params(cfg, ep_size))
 
 
 def active_params_abstract(cfg: ModelConfig) -> int:
@@ -109,15 +129,17 @@ def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
 
 
 def prefill(params, tokens, cfg: ModelConfig, plain: bool = False, frames=None,
-            vision=None):
+            vision=None, *, dist: DistContext = LOCAL):
     fn = family_module(cfg).prefill
     stubs = {name: x for name, x in (("frames", frames), ("vision", vision))
-             if name in inspect.signature(fn).parameters}
-    return fn(params, tokens, cfg, plain=plain, **stubs)
+             if _accepts(fn, name)}
+    return fn(params, tokens, cfg, plain=plain, **stubs, **_dist_kw(fn, dist))
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
-    return family_module(cfg).decode_step(params, cache, tokens, cfg, plain=plain)
+def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False, *,
+                dist: DistContext = LOCAL):
+    fn = family_module(cfg).decode_step
+    return fn(params, cache, tokens, cfg, plain=plain, **_dist_kw(fn, dist))
 
 
 def pad_cache(cfg: ModelConfig, cache: dict, max_len: int) -> dict:

@@ -12,8 +12,9 @@ K1 runs every RMSNorm: ``attn_norm``, ``q_norm``, ``kv_norm``, ``mlp_norm``
 and ``final_norm``.
 
 Layer stack: the first ``first_k_dense`` layers have a dense GLU FFN (width
-d_ff), the rest the MoE FFN (``moe.moe_ffn``, the dense dispatch) with its
-shared expert. The MTP module (one dense-FFN MLA layer predicting token
+d_ff), the rest the MoE FFN (``moe.moe_ffn``: the dense dispatch, or the
+expert-parallel one under a ``dist`` whose model axis is wider than 1) with
+its shared expert. The MTP module (one dense-FFN MLA layer predicting token
 t + 2 from the last hidden state and token t + 1's embedding) is a training
 term: the loss runs it, serving never does.
 
@@ -28,6 +29,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import LOCAL, DistContext
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import common as cm
@@ -71,7 +73,7 @@ def _glu_stack(gen: torch.Generator, cfg: ModelConfig, n: int, width: int) -> di
     }
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_params(gen: torch.Generator, cfg: ModelConfig, ep_size: int = 1) -> dict:
     """Random weights on ``gen.device`` in the reference's tree: the dense
     layers' and the MoE layers' stacks, and the MTP module's parameters."""
     dt = cm.param_dtype(cfg)
@@ -85,7 +87,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
                          **_glu_stack(gen, cfg, n_dense, cfg.d_ff)},
         "moe_layers": {**_init_mla_attn(gen, cfg, n_moe),
                        "mlp_norm": torch.ones((n_moe, d), dtype=dt, device=dev),
-                       **moe.init_moe_ffn(gen, cfg, n_layers=n_moe)},
+                       **moe.init_moe_ffn(gen, cfg, ep_size, n_layers=n_moe)},
     }
     if cfg.mtp_depth > 0:
         layer = {**_init_mla_attn(gen, cfg, 1), **_glu_stack(gen, cfg, 1, cfg.d_ff)}
@@ -176,32 +178,35 @@ def mla_decode_attention(x, lp, cfg: ModelConfig, ckv_cache, krope_cache, pos,
 # --------------------------------------------------------------------------- #
 # layers and serving
 # --------------------------------------------------------------------------- #
-def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool, aux: bool = False):
+def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool, aux: bool = False,
+                   dist: DistContext = LOCAL):
     """One layer of the prefill: (x after the layer, its latent, its shared
     rotated key, its MoE aux loss or None); the training loss asks for the
     aux loss."""
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     attn, (ckv, krope) = mla_attention(h, lp, cfg, positions, plain)
-    x, aux_loss = _ffn_residual(x + attn, lp, cfg, plain, aux)
+    x, aux_loss = _ffn_residual(x + attn, lp, cfg, plain, aux, dist)
     return x, ckv, krope, aux_loss
 
 
-def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool):
+def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool,
+                  dist: DistContext = LOCAL):
     """One layer of the decode step. ``caches``: the layer's (latent, shared
     rotated key), written at ``write_at`` in place; ``at``: (pos, write_at,
     cache_len) of the step (:func:`decode_at`). Returns x after the layer."""
     pos, write_at, _ = at
     h = ops.rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plain=plain)
     attn = mla_decode_attention(h, lp, cfg, *caches, pos, write_at, plain)
-    return _ffn_residual(x + attn, lp, cfg, plain)[0]
+    return _ffn_residual(x + attn, lp, cfg, plain, dist=dist)[0]
 
 
-def _ffn_residual(x, lp, cfg: ModelConfig, plain: bool, aux: bool = False):
+def _ffn_residual(x, lp, cfg: ModelConfig, plain: bool, aux: bool = False,
+                  dist: DistContext = LOCAL):
     """(x + the dense GLU or, in a layer with a router, the MoE FFN of the
     RMS-normed x, the MoE layer's aux loss or None); the norm is K1."""
     h = ops.rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plain=plain)
     if "router" in lp:
-        y, aux_loss = moe.moe_ffn(h, lp, cfg, aux=aux)
+        y, aux_loss = moe.moe_ffn(h, lp, cfg, dist, aux=aux)
         return x + y, aux_loss
     return x + cm.glu_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act), None
 
@@ -217,7 +222,8 @@ def layers(params, cfg: ModelConfig) -> list[dict]:
                for i in range(cfg.n_layers - cfg.first_k_dense)])
 
 
-def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False,
+            dist: DistContext = LOCAL):
     """The cross-entropy, plus ``router_aux_coef`` times the MoE layers' mean
     load-balance loss, plus ``MTP_LOSS_WEIGHT`` times the MTP head's
     cross-entropy on tokens shifted one further (its last two positions
@@ -230,7 +236,7 @@ def loss_fn(params, batch, cfg: ModelConfig, plain: bool = False):
     positions = torch.arange(s, device=tokens.device)
     aux_sum = 0.0
     for lp in cm.unstack(params["dense_layers"]) + cm.unstack(params["moe_layers"]):
-        x, _, _, aux = cm.remat(_prefill_layer, x, lp, cfg, positions, plain, True)
+        x, _, _, aux = cm.remat(_prefill_layer, x, lp, cfg, positions, plain, True, dist)
         if aux is not None:
             aux_sum = aux_sum + aux
     hidden = x
@@ -281,7 +287,8 @@ def decode_params(params, cfg: ModelConfig) -> list[torch.Tensor]:
     return cm.leaves({k: w for k, w in params.items() if k != "mtp"})
 
 
-def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
+def prefill(params, tokens, cfg: ModelConfig, plain: bool = False,
+            dist: DistContext = LOCAL):
     """Full-sequence forward in the expanded form that also fills the latent
     cache. tokens: (B, S) int64. Returns (cache, logits_last)."""
     b, s = tokens.shape
@@ -291,7 +298,7 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     ckv = torch.empty((cfg.n_layers, b, s, cfg.kv_lora_rank), dtype=x.dtype, device=dev)
     krope = torch.empty((cfg.n_layers, b, s, cfg.qk_rope_dim), dtype=x.dtype, device=dev)
     for i, lp in enumerate(layers(params, cfg)):
-        x, ckv[i], krope[i], _ = _prefill_layer(x, lp, cfg, positions, plain)
+        x, ckv[i], krope[i], _ = _prefill_layer(x, lp, cfg, positions, plain, dist=dist)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x[:, -1:], params["embed"])
     cache = {"ckv": ckv, "krope": krope,
@@ -299,14 +306,16 @@ def prefill(params, tokens, cfg: ModelConfig, plain: bool = False):
     return cache, logits
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
+def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False,
+                dist: DistContext = LOCAL):
     """One decode step in the absorbed form. tokens: (B, 1) int64. Writes
     the new latents into ``cache`` and advances its ``len``, all in place;
     returns (cache, logits)."""
     x = params["embed"][tokens]
     at = decode_at(cache["len"], cache["ckv"].shape[2])
     for i, lp in enumerate(layers(params, cfg)):
-        x = _decode_layer(x, lp, cfg, (cache["ckv"][i], cache["krope"][i]), at, plain)
+        x = _decode_layer(x, lp, cfg, (cache["ckv"][i], cache["krope"][i]), at, plain,
+                          dist)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = cm.lm_logits(x, params["embed"])
     cache["len"].copy_(at[2])           # last: every layer read the old position

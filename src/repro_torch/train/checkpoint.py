@@ -11,8 +11,15 @@ either package restores in the other. bf16 and f16 are stored as f32 (npz
 has no bf16) and cast back to the target leaf's dtype on restore. A step is
 written to ``.tmp_step_*`` and renamed into place, and ``LATEST`` moves only
 after a complete write, so a crash mid-write leaves the last complete step.
-The reference's mesh and sharding arguments (elastic re-shard) belong to
-distribution and are not ported.
+
+Elastic restore, as the reference's: DTensor state (a train step under a
+mesh) is saved as whole arrays, gathered over its mesh; every rank of the
+mesh calls :func:`save`, the one at the mesh's origin writes, and all leave
+together. :func:`restore` places each loaded array by the target
+placements (``param_shardings``/``opt_shardings`` from
+``sharding.named``), or by the like leaf's own when it is a DTensor, so a
+checkpoint saved on any mesh or on ``LOCAL`` restores on any other, byte
+for byte.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import shutil
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.train.tree import flatten, unflatten
 
@@ -37,13 +45,23 @@ def save(directory: str | pathlib.Path, step: int, params, opt_state,
          extra: dict | None = None) -> pathlib.Path:
     root = pathlib.Path(directory)
     step_dir = root / f"step_{step:08d}"
+    flat = flatten({"params": params, "opt_state": opt_state})
+    mesh = next((leaf.device_mesh for _, leaf in flat if isinstance(leaf, DTensor)), None)
+    origin = mesh is None or not any(mesh.get_coordinate())
+    arrays = {}
+    for i, (_, leaf) in enumerate(flat):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()      # a collective: every rank of the mesh joins
+        if origin:                         # only the origin copies to the host
+            arrays[f"a{i}"] = _host_array(leaf)
+    if not origin:
+        _mesh_barrier(mesh)                # the origin writes; the others wait for it
+        return step_dir
+
     tmp_dir = root / f".tmp_step_{step:08d}"
     if tmp_dir.exists():
         shutil.rmtree(tmp_dir)
     tmp_dir.mkdir(parents=True)
-
-    flat = flatten({"params": params, "opt_state": opt_state})
-    arrays = {f"a{i}": _host_array(leaf) for i, (_, leaf) in enumerate(flat)}
     np.savez(tmp_dir / "arrays.npz", **arrays)
     manifest = {
         "step": step,
@@ -57,7 +75,16 @@ def save(directory: str | pathlib.Path, step: int, params, opt_state,
         shutil.rmtree(step_dir)
     tmp_dir.rename(step_dir)
     (root / "LATEST").write_text(step_dir.name)       # the pointer last
+    if mesh is not None:
+        _mesh_barrier(mesh)
     return step_dir
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` leaves only after all have entered: a barrier
+    over each mesh dim's group in turn."""
+    for name in mesh.mesh_dim_names:
+        torch.distributed.barrier(group=mesh.get_group(name))
 
 
 def latest_step(directory: str | pathlib.Path) -> int | None:
@@ -72,10 +99,15 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
 
 
 def restore(directory: str | pathlib.Path, like_params, like_opt_state,
+            dist=None, param_shardings=None, opt_shardings=None,
             step: int | None = None):
     """Load a checkpoint (the latest when ``step`` is None) into trees shaped
-    as ``like_*``, each leaf cast to the like leaf's dtype on its device.
-    Returns (params, opt_state, step)."""
+    as ``like_*``, each leaf cast to the like leaf's dtype. With both
+    ``*_shardings`` (``sharding.named`` trees) each leaf is placed on
+    its mesh by them (elastic re-shard); otherwise a like leaf that is a
+    DTensor gives its placements, and any other its device. ``dist`` is
+    taken as the reference takes it, and not read: the shardings carry the
+    mesh. Returns (params, opt_state, step)."""
     root = pathlib.Path(directory)
     if step is None:
         step = latest_step(root)
@@ -91,8 +123,22 @@ def restore(directory: str | pathlib.Path, like_params, like_opt_state,
         missing = set(manifest["keys"]) ^ set(keys)
         raise ValueError(f"checkpoint/model structure mismatch: {sorted(missing)[:5]}...")
 
+    shardings = [None] * len(flat)
+    if param_shardings is not None and opt_shardings is not None:
+        shardings = [sh for _, sh in flatten({"params": param_shardings,
+                                              "opt_state": opt_shardings})]
+    out = []
     with np.load(step_dir / "arrays.npz") as z:
-        out = [torch.from_numpy(z[f"a{i}"]).to(device=leaf.device, dtype=leaf.dtype)
-               for i, (_, leaf) in enumerate(flat)]
+        for i, ((_, leaf), sh) in enumerate(zip(flat, shardings)):
+            arr = torch.from_numpy(z[f"a{i}"])
+            if sh is not None:
+                mesh, placements = sh.mesh, sh.placements
+            elif isinstance(leaf, DTensor):
+                mesh, placements = leaf.device_mesh, leaf.placements
+            else:
+                out.append(arr.to(device=leaf.device, dtype=leaf.dtype))
+                continue
+            out.append(distribute_tensor(arr.to(device=mesh.device_type, dtype=leaf.dtype),
+                                         mesh, placements, src_data_rank=None))
     state = unflatten(like, out)
     return state["params"], state["opt_state"], step

@@ -11,13 +11,18 @@ API:
     opt = adamw(lr=...) | adafactor(lr=...)
     state = opt.init(params)
     new_params, new_state, stats = opt.step(params, grads, state)
+    specs = opt.state_specs(param_spec_tree, abstract_params)
 
 Gradients are clipped by their global norm in f32 first. The step updates
 the state's tensors and the parameters in place, under ``torch.no_grad()``:
 the parameters become the master weights cast back to their dtype, as the
 reference's step returns them, and the new trees are the ones passed in
-(``count`` a new 0-d int32 tensor). The reference's ``state_specs``, the
-state's sharding, belongs to distribution and is not ported.
+(``count`` a new 0-d int32 tensor). State trees mirror the parameter tree,
+so the parameters' specs apply leaf-wise (factored statistics drop one dim
+and inherit the compatible prefix of the spec). Under a mesh the trees are
+DTensors placed so, and the same step runs on them: DTensor reduces what a
+norm, a mean or a factored statistic needs over the ranks that share a
+leaf.
 """
 from __future__ import annotations
 
@@ -25,12 +30,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed.context import P
 from repro_torch.train.tree import leaves, map_up_to
 
 
 class Optimizer(NamedTuple):
     init: Callable
     step: Callable
+    state_specs: Callable  # (param_specs, abstract_params) -> state spec tree
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -80,7 +87,11 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         map_up_to(upd, params, grads, state["master"], state["m"], state["v"])
         return params, dict(state, count=count), {"grad_norm": gnorm}
 
-    return Optimizer(init=init, step=step)
+    def state_specs(param_specs, abstract_params):
+        return {"master": param_specs, "m": param_specs, "v": param_specs,
+                "count": P()}
+
+    return Optimizer(init=init, step=step, state_specs=state_specs)
 
 
 # --------------------------------------------------------------------------- #
@@ -128,7 +139,18 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         map_up_to(upd, params, grads, state["master"], state["stats"])
         return params, dict(state, count=count), {"grad_norm": gnorm}
 
-    return Optimizer(init=init, step=step)
+    def state_specs(param_specs, abstract_params):
+        def stats_spec(leaf, spec):
+            axes = tuple(spec) + (None,) * (len(leaf.shape) - len(spec))
+            if _factored(leaf.shape):
+                return {"vr": P(*axes[:-1]), "vc": P(*(axes[:-2] + (axes[-1],)))}
+            return {"v": P(*axes)}
+
+        return {"master": param_specs,
+                "stats": map_up_to(stats_spec, abstract_params, param_specs),
+                "count": P()}
+
+    return Optimizer(init=init, step=step, state_specs=state_specs)
 
 
 def for_arch(arch_name: str, lr: float = 3e-4) -> Optimizer:

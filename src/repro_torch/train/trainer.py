@@ -13,15 +13,26 @@ autograd Functions on the card), the backward, the global-norm clip and the
 optimizer update. ``float(loss)`` is the step's synchronisation point, as in
 the reference, so the step time is the host's clock around all of it.
 
+Under a ``dist`` with a mesh (one process a rank, every rank running the
+same steps), parameters, optimizer state and the batch are DTensors placed
+by ``sharding.param_specs``, the optimizer's ``state_specs`` and
+``sharding.batch_specs``, as the reference's jit shardings place them. The
+step gathers each leaf whole before the forward, as GSPMD's FSDP gathers
+it a layer at a time; the expert stacks are gathered over the batch axes
+only and stay sharded over ``model`` for the expert-parallel dispatch. Each
+rank runs its own batch rows; outside the dispatch the ``model`` axis
+computes the same thing on every rank. The gradients, averaged over the
+batch axes, are placed back as the parameters are, clipped by the global
+norm of the whole tree, and each rank updates its own shard.
+
 Fault tolerance:
 * step-atomic checkpoints every ``checkpoint_every`` steps (train.checkpoint),
 * automatic resume from LATEST,
 * straggler detection: a per-step deadline (k x running median); steps
-  breaching it are counted (one process: the skip is recorded only).
+  breaching it are counted (the skip is recorded only).
 
-One process, one device: a ``dist`` with a mesh is refused by name, and
 ``TrainerConfig.grad_compression`` is kept and, as in the reference, never
-read.
+read (``distributed.compression`` has the reduction).
 """
 from __future__ import annotations
 
@@ -30,18 +41,20 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ExecutionIdleController
 from repro_torch.core.power_model import SimulatedDevice, get_platform
 from repro_torch.device import resolve_device
-from repro_torch.distributed.context import LOCAL, DistContext, require_local
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.context import LOCAL, DistContext
 from repro_torch.models import api
 from repro_torch.telemetry.sampler import RuntimeSampler
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.data import SyntheticDataset
-from repro_torch.train.tree import leaves, unflatten
+from repro_torch.train.tree import leaves, map_up_to, map_with_path, unflatten
 
 
 @dataclasses.dataclass
@@ -71,9 +84,64 @@ class TrainReport:
     step_s: list[float] = dataclasses.field(default_factory=list)
 
 
+def train_shardings(cfg: ModelConfig, optimizer, dist: DistContext) -> dict:
+    """The step's shardings under a mesh: ``params``, ``opt_state`` and
+    ``batch`` trees of ``NamedSharding``, and ``experts``, the parameter
+    tree's expert stacks (True) and the rest (False)."""
+    abstract = api.abstract_params(cfg, ep_size=dist.ep_size)
+    p_specs = shd.param_specs(abstract, dist)
+    return {
+        "params": shd.named(dist, p_specs),
+        "opt_state": shd.named(dist, optimizer.state_specs(p_specs, abstract)),
+        "batch": shd.named(dist, shd.batch_specs(cfg, dist)),
+        "experts": map_with_path(lambda path, _: shd.path_leaf_name(path) in shd.EXPERT_LEAVES,
+                                 abstract),
+    }
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` as a DTensor placed by ``shardings``
+    (``NamedSharding.place``)."""
+    return map_up_to(lambda t, sh: sh.place(t), tree, shardings)
+
+
+def _batch_reduce(dist: DistContext, placements) -> list:
+    """``placements`` with ``Partial("avg")`` on the batch axes."""
+    return [Partial("avg") if name in dist.batch_axes else pl
+            for name, pl in zip(dist.mesh.mesh_dim_names, placements)]
+
+
+def _gather(p: DTensor, dist: DistContext, expert: bool) -> torch.Tensor:
+    """A parameter whole (an expert stack: whole over the batch axes, this
+    rank's experts over ``model``), as a new leaf tensor."""
+    if expert:
+        keep = [Replicate() if name in dist.batch_axes else pl
+                for name, pl in zip(dist.mesh.mesh_dim_names, p.placements)]
+        return p.redistribute(dist.mesh, keep).to_local().detach()
+    return p.full_tensor().detach()
+
+
+def _reduce(g: torch.Tensor, p: DTensor, dist: DistContext, expert: bool) -> DTensor:
+    """A gradient of :func:`_gather`'s leaf, averaged over the batch axes and
+    placed as its parameter."""
+    local = [pl if expert else Replicate() for pl in p.placements]
+    return DTensor.from_local(g, dist.mesh, _batch_reduce(dist, local), run_check=False
+                              ).redistribute(dist.mesh, p.placements)
+
+
+def _batch_mean(x: torch.Tensor, dist: DistContext) -> torch.Tensor:
+    """A per-rank scalar averaged over the batch axes."""
+    replicated = [Replicate()] * dist.mesh.ndim
+    return DTensor.from_local(x.detach().reshape(()), dist.mesh,
+                              _batch_reduce(dist, replicated)).full_tensor()
+
+
 def make_train_step(cfg: ModelConfig, optimizer, dist: DistContext = LOCAL):
-    """Returns (params, opt_state, batch) -> (params, opt_state, metrics)."""
-    require_local(dist, "make_train_step")
+    """Returns (params, opt_state, batch) -> (params, opt_state, metrics).
+    Under a mesh it takes the trees and the global batch as they are or
+    placed (:func:`place`); the metrics are the global batch's."""
+    if dist.enabled:
+        return _sharded_step(cfg, optimizer, dist)
 
     def step_fn(params, opt_state, batch):
         flat = leaves(params)
@@ -89,13 +157,38 @@ def make_train_step(cfg: ModelConfig, optimizer, dist: DistContext = LOCAL):
     return step_fn
 
 
+def _sharded_step(cfg: ModelConfig, optimizer, dist: DistContext):
+    sh = train_shardings(cfg, optimizer, dist)
+
+    def step_fn(params, opt_state, batch):
+        if batch["tokens"].shape[0] % dist.dp_size:
+            raise ValueError(f"a global batch of {batch['tokens'].shape[0]} rows does not "
+                             f"divide over the {dist.dp_size} ranks of the batch axes")
+        params = place(params, sh["params"])
+        opt_state = place(opt_state, sh["opt_state"])
+        rows = {k: sh["batch"][k].place(v).to_local() for k, v in batch.items()}
+        work = map_up_to(lambda p, expert: _gather(p, dist, expert), params, sh["experts"])
+        flat = leaves(work)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, metrics = api.loss_fn(work, rows, cfg, dist=dist)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        grads = map_up_to(lambda g, p, expert: _reduce(g, p, dist, expert),
+                          unflatten(work, grads), params, sh["experts"])
+        params, opt_state, stats = optimizer.step(params, grads, opt_state)
+        metrics = {k: _batch_mean(torch.as_tensor(v), dist) for k, v in metrics.items()}
+        stats = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in stats.items()}
+        return params, opt_state, dict(metrics, **stats)
+
+    return step_fn
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  dist: DistContext = LOCAL, global_batch: int = 8,
                  seq_len: int = 128, platform: str = "h100",
                  controller: bool = False, seed: int = 0,
                  device: torch.device | str = "cuda"):
-        require_local(dist, "Trainer")
         self.cfg = cfg
         self.tc = tc
         self.dist = dist
@@ -108,8 +201,12 @@ class Trainer:
         self.controller = (ExecutionIdleController(self.device)
                            if controller else None)
         gen = torch.Generator(device=self.torch_device).manual_seed(seed)
-        self.params = api.init_params(gen, cfg)
+        self.params = api.init_params(gen, cfg, ep_size=dist.ep_size)
         self.opt_state = self.optimizer.init(self.params)
+        if dist.enabled:
+            sh = train_shardings(cfg, self.optimizer, dist)
+            self.params = place(self.params, sh["params"])
+            self.opt_state = place(self.opt_state, sh["opt_state"])
 
     # ------------------------------------------------------------------ #
     def _telemetry_tick(self, busy_s: float, idle_s: float) -> None:

@@ -47,3 +47,13 @@ def map_up_to(fn: Callable, tree, *others):
     if isinstance(tree, (list, tuple)):
         return [map_up_to(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree)]
     return fn(tree, *others)
+
+
+def map_with_path(fn: Callable, tree, path: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree``, each path its
+    ``keystr`` string as :func:`flatten` gives it; the same structure back."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{path}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_with_path(fn, v, f"{path}[{i}]") for i, v in enumerate(tree)]
+    return fn(path, tree)

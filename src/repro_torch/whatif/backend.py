@@ -29,8 +29,15 @@ Host/device split: decisions, gathers and reductions over ``(n_streams,
 n_configs)`` run on the device; per-stream prefix-sum construction, pair
 deduplication and the fleet assembly stay on the host, verbatim from the
 reference, so the fleet fold is :func:`repro_torch.core.energy.merge`'s
-left fold in sorted-stream order. The port is single-device: the
-reference's config-axis mesh is not ported.
+left fold in sorted-stream order.
+
+Config-axis sharding (the reference's ``shard_map`` over a 1-D mesh): with
+``dist`` from :func:`config_mesh`, each rank of the mesh runs the family
+evaluators (K7's pairs, K4's caps) on its block of the config axis, padded
+to a multiple of the mesh size (:func:`_config_pad`), and the blocks are
+gathered over the mesh's group; the evaluators need no other
+communication. Every rank then holds every config's result and assembles
+the same outcomes.
 """
 from __future__ import annotations
 
@@ -45,10 +52,11 @@ from repro_torch.core.energy import EnergyBreakdown
 from repro_torch.core.power_model import ClockLevel, PlatformSpec
 from repro_torch.core.states import ClassifierConfig, DEFAULT_CLASSIFIER, DeviceState
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import LOCAL, DistContext, make_mesh
 from repro_torch.kernels.downscale_replay import downscale_replay
 from repro_torch.kernels.run_replay import cap_bucket_scan
-from repro_torch.whatif.policies import (CompositeBatch, DownscaleBatch, NoOpBatch,
-                                         ParkingBatch, PowerCapBatch, make_batches)
+from repro_torch.whatif.policies import (NEVER_TRIGGERS, CompositeBatch, DownscaleBatch,
+                                         NoOpBatch, ParkingBatch, PowerCapBatch, make_batches)
 from repro_torch.whatif.replay import _resolve_platform
 from repro_torch.whatif.sweep import PolicyOutcome
 
@@ -60,6 +68,55 @@ _STATES = (_DEEP, _EXEC, _ACTIVE)
 
 def _pow2(n: int, floor: int) -> int:
     return max(int(floor), 1 << max(int(n) - 1, 0).bit_length())
+
+
+# --------------------------------------------------------------------------- #
+# Mesh helper
+# --------------------------------------------------------------------------- #
+def config_mesh(n_devices: int | None = None, axis: str = "data") -> DistContext:
+    """A 1-D config-axis mesh over the process group's first ``n_devices``
+    ranks (all of them when None), each rank on its own device. Every rank
+    of the group calls it; the ranks outside the mesh take no part in its
+    replays. ``LOCAL`` (the default everywhere) keeps the backend on one
+    device."""
+    if not torch.distributed.is_initialized():
+        raise RuntimeError("config_mesh needs an initialised torch.distributed "
+                           "process group")
+    world = torch.distributed.get_world_size()
+    n = world if n_devices is None else min(int(n_devices), world)
+    return DistContext(mesh=make_mesh((n,), (axis,)), batch_axes=(axis,))
+
+
+def _config_pad(n: int, dist: DistContext) -> int:
+    """The config axis rounded up to a multiple of the mesh's size, so that
+    every rank takes a block of the same width (the reference's rule, less
+    its power-of-two rounding, which serves jit's compilation cache)."""
+    if not dist.enabled:
+        return n
+    ax = dist.axis_size(dist.batch_axes[0])
+    return -(-n // ax) * ax
+
+
+def _block(dist: DistContext, c_pad: int) -> slice:
+    """This rank's block of a padded config axis of width ``c_pad``."""
+    if not dist.enabled:
+        return slice(0, c_pad)
+    ax = dist.batch_axes[0]
+    w = c_pad // dist.axis_size(ax)
+    r = dist.mesh.get_local_rank(ax)
+    return slice(r * w, (r + 1) * w)
+
+
+def _gather_configs(t: torch.Tensor, dist: DistContext) -> torch.Tensor:
+    """The blocks of the config axis (the last dim) gathered over the mesh,
+    in rank order."""
+    if not dist.enabled:
+        return t
+    group = dist.mesh.get_group(dist.batch_axes[0])
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=-1)
 
 
 # --------------------------------------------------------------------------- #
@@ -436,8 +493,14 @@ def _parked_mask(pools, devs: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pad_cols(a: np.ndarray, c_pad: int, fill) -> np.ndarray:
+    out = np.full(a.shape[:-1] + (c_pad,), fill, dtype=a.dtype)
+    out[..., :a.shape[-1]] = a
+    return out
+
+
 def _run_downscale_family(packed: PackedIR, batch, device: torch.device,
-                          dt: float):
+                          dt: float, dist: DistContext = LOCAL):
     """Run the cooldown-chain kernel over every bucket; returns
     ``(n_down, n_rest, throttled, sav_exec, sav_act)`` as [S, C] host
     arrays (savings in W·samples, exactly the NumPy kernel's units).
@@ -446,7 +509,8 @@ def _run_downscale_family(packed: PackedIR, batch, device: torch.device,
     pairs — the decision sequence is clock-mode independent, so a dense
     x/y grid swept at both clock modes replays each pair once. The
     kernel prices both modes; this expands pairs back to configs and
-    selects the mode's savings planes."""
+    selects the mode's savings planes. Under ``dist`` each rank replays its
+    block of the pairs (padded with pairs that never fire)."""
     mode_lo = np.array(
         [p._min_clocks() == (ClockLevel.MIN, ClockLevel.MIN)
          for p in batch.policies], dtype=bool)
@@ -456,8 +520,12 @@ def _run_downscale_family(packed: PackedIR, batch, device: torch.device,
         pair_key, axis=0, return_index=True, return_inverse=True)
     pair_of_c = pair_of_c.reshape(-1)
     p_real = uniq_idx.shape[0]
-    trig = torch.from_numpy(np.asarray(batch._trig, np.int64)[uniq_idx]).to(device)
-    y = torch.from_numpy(np.asarray(batch._y, np.float64)[uniq_idx]).to(device)
+    p_pad = _config_pad(p_real, dist)
+    mine = _block(dist, p_pad)
+    trig = torch.from_numpy(_pad_cols(np.asarray(batch._trig, np.int64)[uniq_idx], p_pad,
+                                      NEVER_TRIGGERS)[mine]).to(device)
+    y = torch.from_numpy(_pad_cols(np.asarray(batch._y, np.float64)[uniq_idx], p_pad,
+                                   0.0)[mine]).to(device)
     s = packed.n_streams
     outs = [np.zeros((s, p_real), np.int64) for _ in range(3)] + \
            [np.zeros((s, p_real)) for _ in range(4)]
@@ -471,7 +539,7 @@ def _run_downscale_family(packed: PackedIR, batch, device: torch.device,
             trig, y))
     for bucket, res in zip(packed.buckets, results):
         for dst, arr in zip(outs, res):
-            dst[bucket.idx] = arr.cpu().numpy()
+            dst[bucket.idx] = _gather_configs(arr, dist)[:, :p_real].cpu().numpy()
     nd, nr, th, se_hi, sa_hi, se_lo, sa_lo = outs
     sel = mode_lo[None, :]
     return [nd[:, pair_of_c], nr[:, pair_of_c], th[:, pair_of_c],
@@ -521,11 +589,18 @@ def _powercap_kernel(cap_sorted: torch.Tensor, cap_top: torch.Tensor,
 
 
 def _run_powercap_family(packed: PackedIR, batch, device: torch.device,
-                         dt: float):
+                         dt: float, dist: DistContext = LOCAL):
     """Cap scan over every bucket: ``(energy_cf [S,3,C], penalty [S,C],
     throttled [S,C])``. Caps and their cube roots are host-built per stream
-    platform (``frac * tdp_w``, same floats as NumPy)."""
-    caps = np.asarray(batch._fracs)[None, :] * packed.tdp[:, None]
+    platform (``frac * tdp_w``, same floats as NumPy). Under ``dist`` each
+    rank scans its block of the caps (padded with a huge finite cap, k = 0:
+    +inf would make the clipped-energy term 0 * inf = NaN)."""
+    c_real = len(batch.policies)
+    c_pad = _config_pad(c_real, dist)
+    mine = _block(dist, c_pad)
+    caps = np.where(np.arange(c_pad) < c_real,
+                    _pad_cols(np.asarray(batch._fracs, np.float64), c_pad, 1e300)[None, :]
+                    * packed.tdp[:, None], 1e300)[:, mine]
     cbrt_caps = np.cbrt(caps)
     results = []
     for bucket in packed.buckets:
@@ -536,14 +611,14 @@ def _run_powercap_family(packed: PackedIR, batch, device: torch.device,
             torch.from_numpy(caps[bucket.idx]).to(device),
             torch.from_numpy(cbrt_caps[bucket.idx]).to(device), dt))
     s = packed.n_streams
-    c_real = caps.shape[1]
     e_cf = np.zeros((s, 3, c_real))
     pen = np.zeros((s, c_real))
     thr = np.zeros((s, c_real), np.int64)
-    for bucket, (e_b, p_b, t_b) in zip(packed.buckets, results):
-        e_cf[bucket.idx] = e_b.cpu().numpy()
-        pen[bucket.idx] = p_b.cpu().numpy()
-        thr[bucket.idx] = t_b.cpu().numpy()
+    for bucket, res in zip(packed.buckets, results):
+        e_b, p_b, t_b = (_gather_configs(r, dist)[..., :c_real].cpu().numpy() for r in res)
+        e_cf[bucket.idx] = e_b
+        pen[bucket.idx] = p_b
+        thr[bucket.idx] = t_b
     return e_cf, pen, thr
 
 
@@ -561,6 +636,7 @@ def replay_ir_outcomes(
     hosts: Iterable[str] | None = None,
     device: str | torch.device = "cuda",
     pad_floor: int = 8,
+    dist: DistContext = LOCAL,
 ) -> tuple[list[PolicyOutcome], int, int]:
     """Replay a policy grid against a :class:`RunIR` on ``device``.
 
@@ -574,7 +650,9 @@ def replay_ir_outcomes(
     the sweep kernel refuses anything else under ``backend="torch"``.
 
     ``device`` is ``"cuda"`` (default; raises without CUDA) or ``"cpu"``,
-    where the kernels' plain PyTorch versions run.
+    where the kernels' plain PyTorch versions run. ``dist`` shards the
+    config axis over a mesh from :func:`config_mesh` (its collectives run
+    on ``device``: CUDA under NCCL, the CPU under gloo).
     Returns ``(outcomes in grid order, n_rows, n_runs)``.
     """
     device = resolve_device(device)
@@ -602,6 +680,12 @@ def replay_ir_outcomes(
     s = packed.n_streams
     dt = float(dt_s)
 
+    if obs.enabled():
+        n_dev = dist.mesh.size() if dist.enabled else 1
+        obs.gauge("repro_backend_devices", float(n_dev),
+                  help="devices the config axis runs over (mesh size when "
+                       "sharded, one device otherwise)")
+
     # per-(stream, config) accumulators, initialised to the baseline
     cf_time = np.repeat(packed.base_time[:, :, None], n_cfg, axis=2)
     cf_energy = np.repeat(packed.base_energy[:, :, None], n_cfg, axis=2)
@@ -617,7 +701,7 @@ def replay_ir_outcomes(
                 continue
             if isinstance(batch, DownscaleBatch):
                 nd, nr, th, se, sa = _run_downscale_family(
-                    packed, batch, device, dt)
+                    packed, batch, device, dt, dist)
                 cf_energy[:, 1, ci] = packed.base_energy[:, 1:2] - se * dt
                 cf_energy[:, 2, ci] = packed.base_energy[:, 2:3] - sa * dt
                 pen[:, ci] = nr * _price_rows(batch.policies,
@@ -640,7 +724,7 @@ def replay_ir_outcomes(
                     [p.resume_latency_s for p in batch.policies])[None, :]
             elif isinstance(batch, PowerCapBatch):
                 e_cf, p_cap, th = _run_powercap_family(
-                    packed, batch, device, dt)
+                    packed, batch, device, dt, dist)
                 cf_energy[:, :, ci] = e_cf
                 pen[:, ci] = p_cap
                 thr[:, ci] = th
@@ -650,7 +734,7 @@ def replay_ir_outcomes(
                         "run-level replay supports only parking+downscale "
                         "composites; route this batch through the row path")
                 nd, nr, th_ds, se, sa = _run_downscale_family(
-                    packed, batch._ds_batch, device, dt)
+                    packed, batch._ds_batch, device, dt, dist)
                 pt, pe = _park_tables(packed, device)
                 mask = _parked_mask(batch._park_pools, packed.devs)
                 m3 = mask[:, None, :]

@@ -1096,7 +1096,9 @@ class CompositeBatch:
 # --------------------------------------------------------------------------- #
 # Run-level evaluators (the IR fast path; see repro_torch.whatif.ir)
 # --------------------------------------------------------------------------- #
-_NEVER_TRIGGERS = 1 << 62
+#: a trigger index past any run: Algorithm 1 never fires (also pads a
+#: config axis with configs that change nothing)
+NEVER_TRIGGERS = 1 << 62
 
 
 @functools.lru_cache(maxsize=65536)
@@ -1120,7 +1122,7 @@ def downscale_trigger_index(eps: float, x: float) -> int:
         if nxt > x:
             return k
         if nxt == c:
-            return _NEVER_TRIGGERS
+            return NEVER_TRIGGERS
         c = nxt
         k += 1
 

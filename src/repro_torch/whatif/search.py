@@ -31,8 +31,9 @@ the host oracle. Rounds, candidate order, the knee test and the trace follow
 the JAX package's search line by line, so a search here evaluates the same
 configs in the same order as the JAX package's over the same store (time
 and count fields exact, energies and penalties within 1e-9 relative). The
-port takes every argument of the JAX package's search but ``dist`` (the
-config-axis mesh) and ``backend="jax"``; passing either raises.
+port takes every argument of the JAX package's search, ``dist`` (the
+config-axis mesh, :func:`repro_torch.whatif.backend.config_mesh`) included;
+``backend="jax"`` raises.
 
 Typical use::
 
@@ -64,8 +65,7 @@ from repro_torch.whatif.policies import (CompositePolicy, DownscalePolicy,
                                          PowerCapPolicy)
 from repro_torch.whatif.sweep import (Frontier, PolicyOutcome, _coverage_of,
                                       _evaluate_outcomes, assemble_frontier,
-                                      pareto_flags, reject_dropped,
-                                      resolve_backend)
+                                      pareto_flags, resolve_backend)
 
 if TYPE_CHECKING:
     from repro_torch.telemetry.storage import TelemetryStore
@@ -493,6 +493,7 @@ def search_frontier(
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
+    dist=None,
     init_frontier=None,
     strict: bool = True,
     verify: bool = False,
@@ -544,12 +545,12 @@ def search_frontier(
     .evaluate`'s dirty-telemetry knobs: ``strict=False`` skips unreadable
     shards (the returned frontier's ``coverage`` reports the replayed
     fraction), ``verify=True`` checksums every shard read, ``fault`` tunes
-    the pool crash/hang supervisor. The JAX package's ``dist`` raises a
-    ``TypeError`` naming it, and ``backend="jax"`` a ``ValueError``.
+    the pool crash/hang supervisor. ``dist`` shards the torch backend's
+    config axis over a mesh (:func:`repro_torch.whatif.sweep.evaluate`);
+    ``backend="jax"`` raises a ``ValueError``.
     """
     if max_evals < 1:
         raise ValueError(f"max_evals must be >= 1, got {max_evals}")
-    reject_dropped(replayer_kwargs, "search_frontier")
     backend = resolve_backend(backend)
     families = (default_families() if families is None else list(families))
     names = [f.name for f in families]
@@ -563,7 +564,7 @@ def search_frontier(
             store, budget, families, max_evals, max_rounds, knee_tol,
             knee_patience, anchors_per_family, include_noop, workers, hosts,
             mmap, batched, compact, ir, backend, device, init_frontier,
-            replayer_kwargs, strict=strict, verify=verify, fault=fault)
+            replayer_kwargs, strict=strict, verify=verify, fault=fault, dist=dist)
 
 
 def _search_loop(
@@ -589,6 +590,7 @@ def _search_loop(
     strict: bool = True,
     verify: bool = False,
     fault=None,
+    dist=None,
 ) -> SearchResult:
     """The :func:`search_frontier` loop body (arguments already resolved).
 
@@ -628,7 +630,7 @@ def _search_loop(
                 pols, store, workers=workers, hosts=hosts, mmap=mmap,
                 batched=batched, replayer_kwargs=replayer_kwargs,
                 compact=compact, ir=ir, backend=backend, device=device,
-                strict=strict, verify=verify, fault=fault)
+                dist=dist, strict=strict, verify=verify, fault=fault)
         n_rows = rows
         n_runs = max(n_runs, runs)
         if skips:

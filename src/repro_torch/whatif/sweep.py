@@ -479,6 +479,7 @@ def _evaluate_torch(
     verify: bool,
     fault,
     device: str,
+    dist=None,
 ) -> tuple[list[PolicyOutcome], int, int, list[dict]]:
     """The torch backend, routed as the JAX package routes its accelerator
     backend. The split is made on the host, before anything is packed for
@@ -520,6 +521,7 @@ def _evaluate_torch(
             from repro_torch.whatif import backend as torch_backend
             sup_out, n_rows, n_runs = torch_backend.replay_ir_outcomes(
                 ir_obj, [configs[i] for i in sup], hosts=hosts, device=device,
+                dist=torch_backend.LOCAL if dist is None else dist,
                 **_ir_kwargs(replayer_kwargs))
             obs.counter("repro_replay_configs_total", float(len(sup)),
                         path="torch",
@@ -551,23 +553,6 @@ def _evaluate_torch(
     return [_outcome(r) for r in results], n_rows, n_runs, skips
 
 
-#: the one argument of the JAX package's ``evaluate``/``run_sweep``/
-#: ``search_frontier`` that the port does not take yet: ``dist``, the
-#: config-axis device mesh, which comes with the distribution slice
-DROPPED_ARGUMENTS = ("dist",)
-
-
-def reject_dropped(kwargs: dict, caller: str) -> None:
-    """Raise if ``kwargs`` holds one of :data:`DROPPED_ARGUMENTS`, naming it,
-    so that none is silently ignored."""
-    dropped = sorted(set(kwargs) & set(DROPPED_ARGUMENTS))
-    if dropped:
-        raise TypeError(f"{caller}() got {dropped}, which the port does not "
-                        f"take: it replays on one device (the JAX package's "
-                        f"config-axis mesh {list(DROPPED_ARGUMENTS)} is not "
-                        f"ported)")
-
-
 def resolve_backend(backend: str) -> str:
     """Resolve an ``evaluate``/``run_sweep`` ``backend`` argument.
 
@@ -596,6 +581,7 @@ def _evaluate_outcomes(
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
+    dist=None,
     strict: bool = True,
     verify: bool = False,
     fault=None,
@@ -605,14 +591,13 @@ def _evaluate_outcomes(
     is enabled. Outcomes are bit-identical with obs on or off."""
     configs = list(configs)
     replayer_kwargs = replayer_kwargs or {}
-    reject_dropped(replayer_kwargs, "evaluate")
     backend = resolve_backend(backend)
     t0 = time.perf_counter()
     with obs.span("whatif.evaluate", configs=len(configs), backend=backend):
         if backend == "torch":
             out = _evaluate_torch(configs, store, workers, hosts, mmap,
                                   batched, replayer_kwargs, compact, ir,
-                                  strict, verify, fault, device)
+                                  strict, verify, fault, device, dist)
         else:
             results, n_rows, n_runs, skips = _evaluate(
                 configs, store, workers=workers, hosts=hosts, mmap=mmap,
@@ -644,6 +629,7 @@ def evaluate(
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
+    dist=None,
     strict: bool = True,
     verify: bool = False,
     fault=None,
@@ -694,6 +680,13 @@ def evaluate(
         device: where the torch backend runs, ``"cuda"`` (default; raises
             without CUDA) or ``"cpu"`` (the kernels' plain PyTorch
             versions). Ignored by the NumPy backend.
+        dist: a :class:`repro_torch.distributed.context.DistContext` from
+            :func:`repro_torch.whatif.backend.config_mesh`: the torch
+            backend's config axis sharded over its ranks (every rank of the
+            mesh calls ``evaluate`` alike and gets every outcome); None, as
+            in the reference, runs on one device (this module imports no
+            torch, so it does not name ``LOCAL``). Ignored by the NumPy
+            backend, as the reference's NumPy path ignores it.
         strict: ``False`` skips unreadable shards instead of raising —
             results are bit-identical to replaying the clean shard subset.
         verify: checksum every shard read against the manifest.
@@ -705,8 +698,8 @@ def evaluate(
     outcomes, _, _, _ = _evaluate_outcomes(
         configs, store, workers=workers, hosts=hosts, mmap=mmap,
         batched=batched, replayer_kwargs=replayer_kwargs, compact=compact,
-        ir=ir, backend=backend, device=device, strict=strict, verify=verify,
-        fault=fault)
+        ir=ir, backend=backend, device=device, dist=dist, strict=strict,
+        verify=verify, fault=fault)
     return outcomes
 
 
@@ -721,6 +714,7 @@ def run_sweep(
     ir=None,
     backend: str = "torch",
     device: str = "cuda",
+    dist=None,
     strict: bool = True,
     verify: bool = False,
     fault=None,
@@ -741,8 +735,8 @@ def run_sweep(
     outcomes, n_rows, n_runs, skips = _evaluate_outcomes(
         policies, store, workers=workers, hosts=hosts, mmap=mmap,
         batched=batched, replayer_kwargs=replayer_kwargs, compact=compact,
-        ir=ir, backend=backend, device=device, strict=strict, verify=verify,
-        fault=fault)
+        ir=ir, backend=backend, device=device, dist=dist, strict=strict,
+        verify=verify, fault=fault)
     coverage = _coverage_of(store, hosts, skips)
     obs.gauge("repro_coverage_fraction", coverage, stage="sweep",
               help="rows analyzed / rows on disk for the last run")

@@ -5,7 +5,8 @@ configs against the JAX package's.
   f32), with padded experts masked, and the reference's order on exact
   ties (``lax.top_k`` puts the lower index first);
 * ``moe_ffn_dense`` and ``moe_ffn`` with a shared expert within 1e-5 in
-  f32; ``moe_ffn`` refuses expert parallelism;
+  f32; ``moe_ffn`` takes ``dist`` (``LOCAL`` or a 1-wide model axis: the
+  dense dispatch);
 * granite-3-8b and qwen1.5-4b: configs and smoke prefill/decode parity
   (tests/test_torch_models.py's 1e-4);
 * ``init_moe_ffn``: granite-moe's stacks drawn bit for bit as before they
@@ -16,7 +17,9 @@ Granite-moe's prefill/decode parity, init shapes and engine tokens run in
 the parametrised cases of tests/test_torch_models.py and
 tests/test_torch_serving.py.
 """
+import contextlib
 import dataclasses
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +33,25 @@ from repro.models import api as japi
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
+from repro_torch.distributed.context import LOCAL, DistContext, make_mesh
 from repro_torch.launch import serve
 from repro_torch.models import moe
 import test_torch_models as tm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCH = "granite-moe-3b-a800m"
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A 1 x 1 (data, model) mesh over a gloo group of this process alone."""
+    with tempfile.TemporaryDirectory() as d:
+        torch.distributed.init_process_group("gloo", init_method=f"file://{d}/store",
+                                             rank=0, world_size=1)
+        try:
+            yield DistContext(mesh=make_mesh((1, 1), ("data", "model")))
+        finally:
+            torch.distributed.destroy_process_group()
 
 
 def _moe_pair(seed=0, ep_size=1, shared=0):
@@ -115,8 +131,13 @@ def test_moe_ffn_matches_jax(shared, ep_size):
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     if shared:
         assert not np.allclose(tout.numpy(), tdense.numpy())
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe.moe_ffn(torch.from_numpy(x), tp, tcfg, ep_size=2)
+    # ``dist`` is taken: LOCAL, and a mesh whose model axis is 1 wide, keep
+    # the dense dispatch (the expert-parallel one is tested in
+    # tests/test_torch_distributed.py)
+    assert torch.equal(moe.moe_ffn(torch.from_numpy(x), tp, tcfg, LOCAL)[0], tout)
+    with world_of_one() as dist:
+        assert dist.ep_size == 1
+        assert torch.equal(moe.moe_ffn(torch.from_numpy(x), tp, tcfg, dist)[0], tout)
 
 
 def test_moe_ffn_keeps_the_reference_dtypes_in_bf16():

@@ -12,12 +12,14 @@ and budget answer; counts and times exact, energies and penalties within
 Also: the O(n log n) ``pareto_flags`` against the reference's pairwise
 loop, with ties, duplicates, NaN, infinities and -0.0.
 """
+import dataclasses
 import json
 import math
 import tempfile
 
 import numpy as np
 import pytest
+import torch
 from _hyp import given, settings, st
 
 from repro.cluster import generate_cluster as ref_generate_cluster
@@ -33,7 +35,8 @@ from repro_torch.whatif import (CategoricalAxis, ContinuousAxis, PenaltyBudget,
                                 default_policy_grid, evaluate, find_knee,
                                 frontier_to_dict, pareto_flags, run_sweep,
                                 search_frontier, seed_points)
-from repro_torch.whatif.sweep import DROPPED_ARGUMENTS, assemble_frontier
+from repro_torch.whatif.backend import config_mesh
+from repro_torch.whatif.sweep import assemble_frontier
 
 FIXTURE = dict(n_devices=8, horizon_s=2700, seed=3, shard_s=900)
 RTOL = ATOL = 1e-9          # the reference's oracle tolerance for float fields
@@ -338,18 +341,30 @@ def _pool_and_path_value(name, ref):
 
 @pytest.mark.parametrize("name", ("workers", "mmap", "batched", "compact",
                                   "dist", "fault"))
-def test_search_rejects_dropped_arguments(stores, name):
-    """The JAX package's pool, read and path arguments, one case each. The
-    config-axis mesh ``dist`` is not ported (:data:`DROPPED_ARGUMENTS`): it
-    raises, naming itself, in the search and in the evaluate it calls. The
-    other five are taken, and a search with each agrees with the
-    reference's search given the same argument."""
+def test_search_rejects_dropped_arguments(stores, name, tmp_path):
+    """The JAX package's pool, read, path and mesh arguments, one case each:
+    none is dropped. A search with each of the first five agrees with the
+    reference's search given the same argument. ``dist``, the config-axis
+    mesh (here ``config_mesh(1)`` over a gloo group of this process alone),
+    gives ``search_frontier`` and ``evaluate`` the same results as the same
+    calls without it, bit for bit."""
     ref_store, store = stores
-    if name in DROPPED_ARGUMENTS:
-        with pytest.raises(TypeError, match=name):
-            search_frontier(store, **{name: 1}, **TORCH)
-        with pytest.raises(TypeError, match=name):
-            evaluate([PowerCapPolicy()], store, **{name: 1}, **TORCH)
+    if name == "dist":
+        kw = dict(max_rounds=1, max_evals=40, families=default_families(composites=False))
+        grid = default_policy_grid(dense=False)
+        want, want_eval = search_frontier(store, **kw, **TORCH), evaluate(grid, store, **TORCH)
+        torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                                             rank=0, world_size=1)
+        try:
+            mesh = config_mesh(1)
+            got = search_frontier(store, dist=mesh, **kw, **TORCH)
+            got_eval = evaluate(grid, store, dist=mesh, **TORCH)
+        finally:
+            torch.distributed.destroy_process_group()
+        assert_search_matches(want, got)
+        assert frontier_to_dict(got.frontier) == frontier_to_dict(want.frontier)
+        assert [dataclasses.asdict(o) for o in got_eval] == \
+            [dataclasses.asdict(o) for o in want_eval]
         return
     kw = dict(max_rounds=1, max_evals=40,
               families=default_families(composites=False))

@@ -219,12 +219,43 @@ def test_a_step_half_written_is_ignored(tmp_path):
         ckpt.restore(tmp_path, {"v": torch.zeros(4)}, state)
 
 
-def test_dist_with_a_mesh_is_refused():
-    cfg = get_smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="dist"):
-        Trainer(cfg, TrainerConfig(steps=1), dist=DistContext(mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
-        make_train_step(cfg, adamw(), DistContext(mesh=object()))
+def test_dist_with_a_mesh_is_taken(tmp_path):
+    """A mesh of one rank (a gloo group of this process): the Trainer and
+    make_train_step take it, and on a world of one every collective is an
+    identity, so the sharded step's losses are the LOCAL run's bit for bit
+    and its parameters are DTensors placed by their specs; its checkpoint
+    resumes onto the same placements."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.context import make_mesh
+
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    local = Trainer(cfg, TrainerConfig(steps=3), global_batch=2, seq_len=16, device="cpu")
+    want = local.run().losses
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                                         rank=0, world_size=1)
+    try:
+        dist = DistContext(mesh=make_mesh((1, 1), ("data", "model")))
+        tr = Trainer(cfg, TrainerConfig(steps=3), dist=dist, global_batch=2, seq_len=16,
+                     device="cpu")
+        assert all(isinstance(p, DTensor) for p in leaves(tr.params))
+        assert tr.run().losses == want
+        step = make_train_step(cfg, adamw(), dist)
+        params, _, metrics = step(local.params, adamw().init(local.params),
+                                  tr.dataset.device_batch_at(0, "cpu"))
+        assert isinstance(params["embed"], DTensor) and np.isfinite(float(metrics["loss"]))
+        # a checkpoint of DTensor state, and a resume onto the like trees' placements
+        tc = TrainerConfig(steps=2, checkpoint_every=2, checkpoint_dir=str(tmp_path / "ck"))
+        first = Trainer(cfg, tc, dist=dist, global_batch=2, seq_len=16, device="cpu")
+        first.run()
+        again = Trainer(cfg, tc, dist=dist, global_batch=2, seq_len=16, device="cpu")
+        assert again.run().resumed_from == 2
+        for a, b in zip(leaves({"p": first.params, "o": first.opt_state}),
+                        leaves({"p": again.params, "o": again.opt_state})):
+            assert isinstance(b, DTensor) and b.placements == a.placements
+            assert torch.equal(a.full_tensor(), b.full_tensor())
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
