@@ -100,6 +100,22 @@ paths:
   model), every loss finite, launches per step exact (K5 and K6 twice a layer
   with the remat, their backward kernels once), with the same step
   measurements;
+* dry-run: the runs the train and serve phases measure (the qwen1.5-0.5b,
+  hymba-1.5b, rwkv6-3b and whisper-tiny train steps, llama-13b's 4-slot
+  decode step) traced on the meta device by ``repro_torch.launch.dryrun``
+  on a world of one, each in a process of its own with no CUDA device
+  visible, beside the train phase's checks (which time nothing), under the
+  H100's constants: each's compute, memory and collective terms and bound
+  (the plain path's) beside the card-active time measured in this run, the
+  measured time at least the card's own compute term, a train step's
+  dry-run FLOPs at least ``train_flops``' with the difference named term by
+  term; the K2 Function's backward under ``attn_probs_bf16`` bit for bit
+  the knob-off one;
+  and hymba-1.5b's train run's parameters and first batch through one
+  forward and backward with ``attn_block_remat`` at ``q_block`` 512 and one
+  without: the same loss bit for bit, the gradients within bounds set by
+  the floor measured in the same run (two blocks of 1,024), and each one's
+  peak memory;
 * what-if: simulates the reference benchmark's fleet (64 devices x 3 h,
   seed 3) into a ``TelemetryStore``, replays the 200-config dense grid and
   the 10^4-config grid on the card through ``run_sweep`` (K4 cap-bucket
@@ -177,6 +193,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -1424,9 +1441,10 @@ def compare_logits(cfg, params, dev, tol: float, label: str, prompt: int = 32,
     return {"kernel_vs_plain": worst, "plain_f32_vs_f64_attention": chaos}
 
 
-def mha_f64(q, k, v, *, causal: bool = True, window: int = 0):
+def mha_f64(q, k, v, *, causal: bool = True, window: int = 0, knobs=None):
     """The plain prefill attention in float64, cast to q's type: a second
-    correct computation of the same function, for the chaos floor."""
+    correct computation of the same function, for the chaos floor (with no
+    tuning knob; ``knobs`` is taken and ignored)."""
     import torch
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
@@ -1444,8 +1462,9 @@ def mha_f64(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v).to(q.dtype)
 
 
-def decode_f64(q, k_cache, v_cache, cache_len):
-    """The plain decode attention in float64, cast to q's type."""
+def decode_f64(q, k_cache, v_cache, cache_len, knobs=None):
+    """The plain decode attention in float64, cast to q's type (``knobs``
+    taken and ignored, as by :func:`mha_f64`)."""
     import torch
     b, h, d = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
@@ -2455,9 +2474,33 @@ def pareto_flags_pairwise(saved, penalty) -> list[bool]:
     return flags
 
 
+def pareto_flags_broadcast(saved, penalty, rows: int = 1024) -> list[bool]:
+    """The pairwise loop's flags by NumPy broadcasting, ``rows`` outcomes
+    against all at a time: j dominates i where s_j >= s_i and p_j <= p_i,
+    one of them strictly (never i itself). The yardstick of ``pareto_flags``
+    on a whole grid, which the Python loop takes too long for."""
+    import numpy as np
+
+    s, p = np.asarray(saved, dtype=float), np.asarray(penalty, dtype=float)
+    flags = []
+    for i in range(0, len(s), rows):
+        si, pi = s[i:i + rows, None], p[i:i + rows, None]
+        dominated = ((s >= si) & (p <= pi) & ((s > si) | (p < pi))).any(axis=1)
+        flags += [not d for d in dominated.tolist()]
+    return flags
+
+
+#: outcomes of the 10^4 grid the pairwise Python loop is timed on (it is
+#: O(n²): 13.8 s for all 10^4 on a slow host of an H100 machine)
+PARETO_LOOP_POINTS = 2000
+
+
 def pareto_times(outcomes) -> dict:
-    """``pareto_flags`` against the pairwise loop on the 10^4 grid's
-    outcomes: the same flags, each one's host time."""
+    """``pareto_flags`` on the 10^4 grid's outcomes, timed, against the
+    pairwise comparison by broadcasting over all of them: the same flags.
+    The pairwise Python loop it replaced, timed on the first
+    :data:`PARETO_LOOP_POINTS` outcomes beside ``pareto_flags`` on the same
+    ones: the same flags there too."""
     from repro_torch.whatif import pareto_flags
 
     saved = [o.energy_saved_j for o in outcomes]
@@ -2466,14 +2509,28 @@ def pareto_times(outcomes) -> dict:
     new = pareto_flags(saved, penalty)
     new_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    old = pareto_flags_pairwise(saved, penalty)
+    whole = pareto_flags_broadcast(saved, penalty)
+    whole_s = time.perf_counter() - t0
+    if new != whole:
+        raise AssertionError("10^4 grid: pareto_flags differs from the pairwise comparison")
+    n = PARETO_LOOP_POINTS
+    t0 = time.perf_counter()
+    sub = pareto_flags(saved[:n], penalty[:n])
+    sub_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    old = pareto_flags_pairwise(saved[:n], penalty[:n])
     old_s = time.perf_counter() - t0
-    if new != old:
-        raise AssertionError("10^4 grid: pareto_flags differs from the pairwise loop")
-    result = {"points": len(saved), "pareto": sum(new), "sort_s": new_s, "pairwise_s": old_s}
+    if sub != old:
+        raise AssertionError(f"the 10^4 grid's first {n}: pareto_flags differs from the "
+                             "pairwise loop")
+    result = {"points": len(saved), "pareto": sum(new), "sort_s": new_s,
+              "broadcast_s": whole_s, "loop_points": n, "loop_pareto": sum(sub),
+              "sort_loop_points_s": sub_s, "loop_s": old_s}
     log(f"what-if pareto_flags on the 10^4 grid ({len(saved)} points, {sum(new)} on the "
-        f"front): O(n log n) {new_s * 1e3:.3f} ms, the pairwise loop {old_s * 1e3:.1f} ms, "
-        f"the same flags (host time)")
+        f"front): O(n log n) {new_s * 1e3:.3f} ms, the pairwise comparison by broadcasting "
+        f"{whole_s * 1e3:.1f} ms, the same flags; on its first {n} ({sum(sub)} on their "
+        f"front) {sub_s * 1e3:.3f} ms against the pairwise Python loop's {old_s * 1e3:.1f} "
+        f"ms, the same flags (host time)")
     return result
 
 
@@ -2840,6 +2897,7 @@ def whatif(dev) -> dict:
 
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
+    t_whatif = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=scratch) as d:
         t0 = time.perf_counter()
         store = TelemetryStore(d, shard_format="npy_dir")
@@ -2916,13 +2974,21 @@ def whatif(dev) -> dict:
         log(f"what-if 10^4 grid sample ({len(idx)} configs, {families}): torch on "
             f"the card == numpy oracle (time and count fields exact; worst relative "
             f"error per float field: {json.dumps(worst_10k)})")
+        parts = {"fleet, the dense and 10^4 grids": time.perf_counter() - t_whatif}
+        t0 = time.perf_counter()
         pareto = pareto_times(outs)
+        parts["pareto_flags"], t0 = time.perf_counter() - t0, time.perf_counter()
         searched = search(dev, store, kw)
+        parts["search"], t0 = time.perf_counter() - t0, time.perf_counter()
         idle = profile_evaluate(grid, store, kw)
+        parts["profiled evaluate"], t0 = time.perf_counter() - t0, time.perf_counter()
 
         packed = B.pack_ir(get_ir(store, ir_config_for(grid)), 5, **kw)
         krows = replay_kernels(dev, grid, packed)
+        parts["K4 and K7 by bucket"], t0 = time.perf_counter() - t0, time.perf_counter()
         hosted = host_paths(Path(d), store, dense, front, kw)
+        parts["host paths"] = time.perf_counter() - t0
+        log("what-if parts, s: " + json.dumps({k: round(v, 1) for k, v in parts.items()}))
 
     result = {
         "deployment": WHATIF_DEPLOYMENT, **counts, "streams": len(ir.streams),
@@ -3882,8 +3948,11 @@ def live(dev) -> dict:
     try:
         with tempfile.TemporaryDirectory(dir=scratch) as d:
             root = Path(d)
+            parts, t0 = {}, time.perf_counter()
             fleet = live_fleet(dev, root)
+            parts["fleet"], t0 = time.perf_counter() - t0, time.perf_counter()
             simulated = live_simulated(dev, root)
+            parts["simulated"], t0 = time.perf_counter() - t0, time.perf_counter()
             fam = obs.REGISTRY.family("repro_fallbacks_total")
             if fam is None or any(m.value for m in fam.metrics.values()):
                 raise AssertionError("live: a tick fell back: " + json.dumps(
@@ -3895,8 +3964,12 @@ def live(dev) -> dict:
                     or any(launches[k] for k in SERVING_KERNELS):
                 raise AssertionError(f"live: launches {launches}")
             bench = live_bench(dev, root)
+            parts["bench"], t0 = time.perf_counter() - t0, time.perf_counter()
             crash = live_crash_resume(dev, root)
+            parts["crash/resume"], t0 = time.perf_counter() - t0, time.perf_counter()
             degradation = live_degradation(dev, root)
+            parts["degradation"] = time.perf_counter() - t0
+            log("live parts, s: " + json.dumps({k: round(v, 1) for k, v in parts.items()}))
         text = obs.render_prometheus()
     finally:
         obs.disable()
@@ -4207,7 +4280,10 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
     matrix products (2 a parameter a token) and attention (QKᵀ and PV over
     the pairs its mask keeps) run forward, again in the backward's
     recompute, and twice in the backward; the head forward and twice in the
-    backward. hymba adds its Mamba projections and a window on all but its
+    backward. The recompute stops at the last product whose output the
+    backward needs (``torch.utils.checkpoint``'s early stop), so a layer
+    whose last product is its MLP's down projection (every family but rwkv,
+    whose channel mix multiplies it by a gate) does that one three times. hymba adds its Mamba projections and a window on all but its
     global layers; rwkv6 has no attention; whisper's encoder (1,500 frames,
     no mask, not rematerialised) runs forward and twice in the backward, its
     decoder adds cross-attention over the frames. ``recurrence_ops``: the
@@ -4245,12 +4321,15 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
             2 * frames * L * (attn_proj // 2)
     else:
         layer_params = attn_proj + 3 * d * f
-        attn = score * seq * seq / 2 * L
+        attn = score * attention_pairs(seq, seq, True, 0) * L
     layers = 2 * tokens * L * layer_params
     head = 2 * tokens * d * cfg.vocab_size
-    flops = 4 * (layers + attn) + 3 * head + (3 * enc if cfg.family == "encdec" else 0)
+    # whisper's MLP is 4 d wide (d_ff), as the others' down projections are d_ff
+    not_recomputed = 0 if cfg.family == "rwkv" else 2 * tokens * L * d * f
+    flops = 4 * (layers + attn) - not_recomputed + 3 * head + \
+        (3 * enc if cfg.family == "encdec" else 0)
     return {"flops": flops, "layer_matmul_params": L * layer_params,
-            "recompute_flops": layers + attn, "tokens": tokens,
+            "recompute_flops": layers + attn - not_recomputed, "tokens": tokens,
             "recurrence_ops": recurrence}
 
 
@@ -4318,8 +4397,8 @@ def wrong_forward(cfg) -> tuple[list, str]:
         return [(rwkv6_scan, "wkv6_plain", reversed_wkv)], "time-reversed WKV"
     saved = flash_attention.flash_attention_plain
     return [(flash_attention, "flash_attention_plain",
-             lambda q, k, v, causal=True, window=0: saved(q, k, v, causal=False,
-                                                          window=window))], "unmasked attention"
+             lambda q, k, v, causal=True, window=0, knobs=None: saved(
+                 q, k, v, causal=False, window=window))], "unmasked attention"
 
 
 def patched_call(patches: list, fn):
@@ -4492,8 +4571,8 @@ def step0_check(trainer, cfg, dev, tokens: int | None = None,
                 layers: int | None = None) -> dict:
     """Step 0's bf16 loss and gradients, kernel path against plain path, on
     the trainer's parameters and batch (its first ``tokens`` tokens a row
-    and its first ``layers`` layers when given; then the full depth is also
-    read, not gated), beside the chaos floor: the plain path against itself
+    and its first ``layers`` layers when given, with the backward kernel
+    checked inside the whole model), beside the chaos floor: the plain path against itself
     with its sequence mixers computed another correct way
     (:func:`floor_mixers`: in float64, as the bf16 logit checks measure
     theirs; the farthest of them), leaf by leaf. The loss gate is shown to see
@@ -4504,11 +4583,8 @@ def step0_check(trainer, cfg, dev, tokens: int | None = None,
     if tokens is not None:
         batch = {k: v[:, :tokens] if k in ("tokens", "labels") else v for k, v in batch.items()}
     shape = tuple(batch["tokens"].shape)
-    full = in_model = None
-    if layers is not None:     # chaotic: the full kernel path read, not gated
-        full = step0_readings(trainer.params, batch, cfg)
-        log(step0_line(full, f"train {cfg.name} step 0 bf16 ({shape} tokens, all "
-                             f"{cfg.n_layers} layers; not gated: chaotic)"))
+    in_model = None
+    if layers is not None:     # chaotic at full depth: the backward kernel in the model
         in_model = backward_in_model(trainer.params, batch, cfg)
         in_model["wkv_on_model_inputs"] = wkv_on_model_inputs(trainer.params, batch, cfg)
         out = step0_readings(first_layers(trainer.params, layers), batch,
@@ -4523,8 +4599,7 @@ def step0_check(trainer, cfg, dev, tokens: int | None = None,
         out["grad_tol"] = (float("inf") if layers is not None else
                            max(STEP0_GRAD_FLOORS * out["floor_grads"]["worst_leaf"],
                                TRAIN_BF16_GRAD_TOL))
-    out.update(tokens=shape[1], layers=layers or cfg.n_layers, full_depth=full,
-               backward_in_model=in_model)
+    out.update(tokens=shape[1], layers=layers or cfg.n_layers, backward_in_model=in_model)
     log(step0_line(out, f"train {cfg.name} step 0 bf16 ({shape} tokens"
                         + (f", the first {layers} layers; gradients not gated: chaotic)"
                            if layers else ")")))
@@ -4606,8 +4681,10 @@ def train_model(name: str, dev) -> dict:
     trainer = launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq,
                                    controller=True, device=dev)
     n_params = count_params(trainer.params)
+    t0 = time.perf_counter()
     result = {"step0": step0_check(trainer, cfg, dev, run["step0_tokens"],
                                    run.get("step0_layers"))}
+    log(f"train {name} step 0 checks: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4672,7 +4749,10 @@ def train_model(name: str, dev) -> dict:
         f"parameter {opt_bytes / 1e9:.2f} GB {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
         f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
         f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
-    del trainer, batches, it
+    del batches, it
+    if name == TUNED_BWD_ARCH:
+        result["tuned_backward"] = tuned_backward(trainer, cfg, dev)
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -4809,9 +4889,320 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
     return out
 
 
-def train(dev) -> dict:
+#: the dry-run phase's cells: the runs the train and serve phases measure,
+#: each traced on the meta device on a world of one rank
+#: (``repro_torch.launch.dryrun --mesh local``)
+DRYRUN_CELLS = {"qwen1.5-0.5b": "train:8x128", "hymba-1.5b": "train:2x2048",
+                "rwkv6-3b": "train:8x128", "whisper-tiny": "train:8x128",
+                "llama-13b": "decode:4x256"}
+#: the tuned backward at full width: hymba-1.5b's train run, its parameters
+#: and first batch, one forward and backward with these knobs and one without
+TUNED_BWD_ARCH = "hymba-1.5b"
+TUNED_BWD_KNOBS = dict(attn_block_remat=True, q_block=512)
+#: the floor the tuned backward's gradients are gated against: the same
+#: knobs at two blocks of 1,024 rows
+TUNED_BWD_FLOOR_KNOBS = dict(attn_block_remat=True, q_block=1024)
+#: the tuned backward's gradients against the untuned ones (grad_errors),
+#: gated against the floor measured in the same run: the same knobs at two
+#: blocks of 1,024 rows against one. The forward is the same kernels, bit
+#: for bit, so in both only the f32 sums of dK and dV over the query blocks,
+#: and the bf16 roundings of the gradients they feed, differ; hymba-1.5b at
+#: random weights carries such a difference back through its 32 layers as
+#: its forward carries a rounding (its chaos floor, 2.9e-2 in the logits).
+#: Runs on an NVIDIA H100 read, tuned against floor, at the worst leaf
+#: 7.93e-2 / 3.03e-2 = 2.6 after 3 training steps (['layers'][10]
+#: ['beta_ssm'], a scale whose gradient sums 4,096 tokens with cancellation)
+#: and 2.14e-2 / 1.84e-2 = 1.16 after this run's 6; the whole gradient
+#: 8.98e-3 / 7.32e-3 and 9.04e-3 / 7.32e-3 = 1.23. Gates: the worst leaf
+#: within TUNED_BWD_LEAF_RATIO of the floor's, the whole gradient within
+#: twice the floor's and within TUNED_BWD_WHOLE_TOL (about twice what it
+#: read), so that a fault shared by both blocked passes, which moves every
+#: leaf by a few percent, fails too
+TUNED_BWD_LEAF_RATIO = 4.0
+TUNED_BWD_WHOLE_TOL = 2e-2
+#: K2's Function's backward at one hymba layer's shapes, blocked against
+#: whole, normwise per gradient: bf16 outputs of f32 sums in another order;
+#: ten times the worst an NVIDIA H100 read (9.7e-5, dv; dq 0)
+TUNED_LAYER_TOL = 1e-3
+
+
+def start_dryruns(root: Path) -> list:
+    """The dry-run of each of :data:`DRYRUN_CELLS`, one CLI process each, all
+    started at once with no CUDA device visible (the dry-run needs none).
+    They run beside the train phase's checks, which time nothing, and are
+    collected by :func:`collect_dryruns` before its first timed step."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "local", "--out", str(root)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for arch, shape in DRYRUN_CELLS.items()]
+
+
+def collect_dryruns(procs: list) -> dict:
+    """Wait for the processes of :func:`start_dryruns`; raise unless each
+    ended ``ok``. Returns their output and the seconds waited."""
+    t0 = time.perf_counter()
+    texts = {arch: proc.communicate(timeout=300)[0] for arch, _, proc in procs}
+    for arch, shape, proc in procs:
+        if proc.returncode or "[ok     ]" not in texts[arch]:
+            raise AssertionError(f"dryrun {arch} {shape}: exit {proc.returncode}: "
+                                 f"{texts[arch][-2000:]}")
+    return {"texts": texts, "wait_s": time.perf_counter() - t0}
+
+
+def stop(procs: list) -> None:
+    """Kill every process of ``procs`` still running and reap it."""
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def attention_calls(cfg, batch: int, seq: int) -> list[tuple]:
+    """(query rows, keys, kept pairs a head, forward passes) of each of the
+    train step's attention calls: the decoder's self-attention a layer
+    (causal, hymba's window on all but its global layers), whisper's
+    cross-attention over its frames a layer (both run twice forward, by the
+    layer's remat) and its encoder's self-attention a layer (once)."""
+    if cfg.family == "rwkv":
+        return []
+    calls = [(seq, seq, attention_pairs(seq, seq, True, cfg.window
+                                        if cfg.family == "hybrid" and i not in cfg.global_layers
+                                        else 0), 2) for i in range(cfg.n_layers)]
+    if cfg.family == "encdec":
+        f = cfg.n_frames
+        calls += [(seq, f, seq * f, 2)] * cfg.n_layers + [(f, f, f * f, 1)] * cfg.n_enc_layers
+    return calls
+
+
+def dryrun_difference(cfg, batch: int, seq: int, dry_flops: float, model_flops: float) -> dict:
+    """The dry-run's FLOPs beyond :func:`train_flops`'s, term by term. A
+    unit is one attention product over (query, key) pairs, 2 B H Sq Sk hd
+    over all of them. The plain path the dry-run traces runs every pair,
+    masked or not: 2 products a forward pass and 5 in the backward
+    (``ops.FlashAttentionFunction``: QKᵀ again, dV, dP, dQ, dK), where
+    train_flops counts 2 a forward pass and 4 in the backward over the
+    pairs the mask keeps. So: ``masked_pairs`` = (2 x forward passes + 4)
+    units over the masked pairs, ``recompute_p`` = 1 unit over all pairs
+    (the backward's QKᵀ), ``recurrence_dots`` = the selective scan's and the
+    WKV recurrence's products in their plain versions (forward twice,
+    backward once), which train_flops counts as float32 work apart;
+    ``conv_elementwise`` (hymba) the Mamba branch's depthwise convolution,
+    which train_flops counts as products (2 a weight a token, 4 passes) and
+    the port computes elementwise; ``other`` what is left."""
+    unit = 2 * batch * cfg.n_heads * cfg.resolved_head_dim
+    masked = recompute = 0
+    for sq, sk, kept, passes in attention_calls(cfg, batch, seq):
+        masked += (2 * passes + 4) * unit * (sq * sk - kept)
+        recompute += unit * sq * sk
+    recurrence = conv = 0
+    if cfg.family == "hybrid":
+        recurrence = (2 * 2 + 6) * batch * seq * cfg.d_inner * cfg.ssm_state * cfg.n_layers
+        conv = -4 * 2 * batch * seq * cfg.conv_kernel * cfg.d_inner * cfg.n_layers
+    if cfg.family == "rwkv":
+        recurrence = (2 * 2 + 6) * batch * seq * cfg.d_model * cfg.rwkv_head_size * cfg.n_layers
+    diff = dry_flops - model_flops
+    return {"difference": diff, "masked_pairs": masked, "recompute_p": recompute,
+            "recurrence_dots": recurrence, "conv_elementwise": conv,
+            "other": diff - masked - recompute - recurrence - conv}
+
+
+def tuned_layer_check(cfg, dev, batch: int, seq: int) -> dict:
+    """``ops.FlashAttentionFunction``'s backward with :data:`TUNED_BWD_KNOBS`
+    against without, at one layer's shapes of ``cfg`` (bf16, causal, the
+    window and global), on random inputs: each gradient's normwise
+    difference within :data:`TUNED_LAYER_TOL`. And with ``attn_probs_bf16``
+    on the card, where K2 keeps P in f32 and so the backward does too: the
+    output and the gradients equal the baseline's bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import tuning
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    hd = cfg.resolved_head_dim
+    q, k, v, do = (torch.randn((batch, seq, n, hd), generator=g, device=dev).to(torch.bfloat16)
+                   for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads, cfg.n_heads))
+    out = {}
+    for window in (cfg.window, 0):
+        grads = {}
+        passes = [("tuned", TUNED_BWD_KNOBS), ("baseline", {})]
+        if dev.type == "cuda":
+            passes.append(("probs_bf16", dict(attn_probs_bf16=True)))
+        for label, knobs in passes:
+            qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+            o = ops.FlashAttentionFunction.apply(qq, kk, vv, True, window,
+                                                 tuning.attention_knobs(tuning.Tuning(**knobs)))
+            grads[label] = (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), do))
+        errs = [float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(grads["tuned"][1:], grads["baseline"][1:])]
+        out[f"window_{window}"] = dict(zip(("dq", "dk", "dv"), errs))
+        if not max(errs) <= TUNED_LAYER_TOL:
+            raise AssertionError(f"tuned layer backward (window {window}): {errs}")
+        if "probs_bf16" in grads:
+            same = all(map(torch.equal, grads["probs_bf16"], grads["baseline"]))
+            out[f"window_{window}"]["probs_bf16_bit_for_bit"] = same
+            if not same:
+                raise AssertionError(f"attn_probs_bf16 moved K2's output or its gradients on "
+                                     f"the card (window {window})")
+    return out
+
+
+def tuned_backward(trainer, cfg, dev) -> dict:
+    """One forward and backward of ``trainer``'s model on its parameters and
+    first batch with :data:`TUNED_BWD_KNOBS`, with two blocks of 1,024 (the
+    floor) and with no knob: the loss bit for bit, the gradients within the
+    bounds of :data:`TUNED_BWD_LEAF_RATIO` and :data:`TUNED_BWD_WHOLE_TOL`,
+    and each pass's peak memory above what was allocated before it; then
+    :func:`tuned_layer_check`."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import tuning
+    from repro_torch.train.tree import flatten
+
+    t0 = time.perf_counter()
+    batch = trainer.dataset.device_batch_at(0, dev)
+    out = {}
+    for label, knobs in (("tuned", TUNED_BWD_KNOBS),
+                         ("floor", TUNED_BWD_FLOOR_KNOBS), ("baseline", {})):
+        # each pass builds its own masks (the training steps left the
+        # unblocked ones cached), so that the peaks compare alike
+        ops._backward_masks.cache_clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tuning.set_tuning(**knobs)
+        try:
+            t1 = time.perf_counter()
+            loss, _, grads = loss_and_grads(trainer.params, batch, cfg, plain=False)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            out[label] = {"loss": loss, "grads": grads, "s": time.perf_counter() - t1,
+                          "peak_gib": peak / 2**30, "peak_above_gib": (peak - before) / 2**30}
+        finally:
+            tuning.reset()
+    paths = [path for path, _ in flatten(trainer.params)]
+    base = out["baseline"].pop("grads")
+    errs = grad_errors(out["tuned"].pop("grads"), base, paths)
+    floor = grad_errors(out["floor"].pop("grads"), base, paths)
+    del base
+    b, s = batch["tokens"].shape
+    p_bytes = b * cfg.n_heads * s * s * 4
+    layer = tuned_layer_check(cfg, dev, b, s)
+    result = {**out, "worst_leaf": errs["worst_leaf"], "worst_path": errs["worst_path"],
+              "whole": errs["whole"], "floor_worst_leaf": floor["worst_leaf"],
+              "floor_whole": floor["whole"], "layer": layer, "p_bytes_a_layer": p_bytes,
+              "s": time.perf_counter() - t0}
+    log(f"dryrun tuned backward {cfg.name} (its train run's parameters and first batch, "
+        f"{b} x {s}): {json.dumps(TUNED_BWD_KNOBS)} against no knob: loss "
+        f"{out['tuned']['loss']!r} vs {out['baseline']['loss']!r}; gradients worst leaf "
+        f"{errs['worst_leaf']:.3e} ({errs['worst_path']}; tol {TUNED_BWD_LEAF_RATIO} x the "
+        f"floor's), whole {errs['whole']:.3e} (tol 2 x the floor's and "
+        f"{TUNED_BWD_WHOLE_TOL}); two blocks of 1,024 against none (floor): worst leaf "
+        f"{floor['worst_leaf']:.3e} ({floor['worst_path']}), whole {floor['whole']:.3e}; one "
+        f"layer's attention backward on random bf16 inputs, normwise (tol {TUNED_LAYER_TOL}): "
+        f"{json.dumps(layer)}; max_memory_allocated tuned {out['tuned']['peak_gib']:.3f} / "
+        f"two blocks {out['floor']['peak_gib']:.3f} / baseline "
+        f"{out['baseline']['peak_gib']:.3f} GiB, above the parameters and state: tuned "
+        f"{out['tuned']['peak_above_gib']:.3f} GiB, two blocks "
+        f"{out['floor']['peak_above_gib']:.3f} GiB, baseline "
+        f"{out['baseline']['peak_above_gib']:.3f} GiB (P alone {p_bytes / 1e6:.0f} MB a "
+        f"layer, f32); {out['tuned']['s']:.2f} / {out['floor']['s']:.2f} / "
+        f"{out['baseline']['s']:.2f} s; {result['s']:.1f} s; card {nvidia_smi_line()}")
+    if not out["tuned"]["loss"] == out["floor"]["loss"] == out["baseline"]["loss"]:
+        raise AssertionError("tuned backward: the forward moved with the knobs")
+    if not (errs["worst_leaf"] <= TUNED_BWD_LEAF_RATIO * floor["worst_leaf"]
+            and errs["whole"] <= min(2 * floor["whole"], TUNED_BWD_WHOLE_TOL)):
+        raise AssertionError(f"tuned backward: gradients {errs['worst_leaf']:.3e} apart at "
+                             f"{errs['worst_path']}, {errs['whole']:.3e} whole; the floor "
+                             f"{floor['worst_leaf']:.3e} and {floor['whole']:.3e}")
+    return result
+
+
+def decode_attention_flops(cfg, batch: int, cache: int) -> float:
+    """The decode step's attention products over a whole cache of ``cache``
+    slots, as the plain decode attention computes them (QKᵀ and PV, 2 B H S
+    hd each, every layer); K3 takes only the valid slots."""
+    return 4 * batch * cfg.n_heads * cache * cfg.resolved_head_dim * cfg.n_layers
+
+
+def dryrun(root: Path, tresult: dict, serve_runs: dict, t_tuned: float) -> dict:
+    """The dry-run phase: each of :data:`DRYRUN_CELLS` traced on ``meta``
+    (:func:`start_dryruns`, collected in the train phase before its first
+    timed step) under the H100's constants; its three terms and bound, the
+    plain path's (which
+    computes every masked pair and writes P), beside the card-active time
+    the train and serve phases measured in this run. Gate 1: the measured
+    time is not below the compute term of the card's own program: a train
+    step's :func:`train_flops` (the pairs the mask keeps), the decode step's
+    dry-run FLOPs less the attention over the whole cache
+    (:func:`decode_attention_flops`), each at 989 TFLOP/s. Gate 2: a train
+    step's dry-run FLOPs are at least :func:`train_flops`'s, the difference
+    named by :func:`dryrun_difference`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _cell_file
+
+    t0 = time.perf_counter()
+    measured = {TRAIN_ARCH: tresult["run"]["profile"]["card_active_ms_per_step"],
+                **{n: m["run"]["profile"]["card_active_ms_per_step"]
+                   for n, m in tresult["models"].items()},
+                "llama-13b": serve_runs["llama-13b"]["decode_step"]["replayed"][
+                    "card_active_ms_per_step"]}
+    out = {}
+    for arch, shape in DRYRUN_CELLS.items():
+        r = json.loads(_cell_file(root, arch, shape, "local", ".json").read_text())
+        rf = r["roofline"]
+        ms = measured[arch]
+        cfg = get_config(arch)
+        kind, dims = shape.split(":")
+        b, s = map(int, dims.split("x"))
+        if kind == "train":
+            model = train_flops(cfg, b, s)["flops"]
+            card_flops, card_source = model, "train_flops"
+        else:
+            card_flops = rf["flops"] - decode_attention_flops(cfg, b, s)
+            card_source = "the dry-run's less the attention over the whole cache"
+        card_compute_ms = card_flops / BF16_FLOPS_PER_S * 1e3
+        cell = {"compute_ms": 1e3 * rf["compute_s"], "memory_ms": 1e3 * rf["memory_s"],
+                "collective_ms": 1e3 * rf["collective_s"], "bound_ms": 1e3 * rf["roofline_bound_s"],
+                "bottleneck": rf["bottleneck"], "flops": rf["flops"], "hbm_bytes": rf["hbm_bytes"],
+                "card_flops": card_flops, "card_compute_ms": card_compute_ms,
+                "card_active_ms": ms, "trace_s": r["lower_s"]}
+        line = (f"dryrun {arch} {shape} (meta, a world of one, H100 constants), the plain "
+                f"path's terms: compute {cell['compute_ms']:.4f} ms ({rf['flops'] / 1e12:.4f} "
+                f"TFLOP), memory {cell['memory_ms']:.4f} ms ({rf['hbm_bytes'] / 1e9:.3f} GB "
+                f"materialised), collective {cell['collective_ms']:.4f} ms, bound "
+                f"{cell['bound_ms']:.4f} ms by {rf['bottleneck']}; the card's compute term "
+                f"{card_compute_ms:.4f} ms ({card_flops / 1e12:.4f} TFLOP, {card_source}); card "
+                f"active {ms:.4f} ms measured in this run ({ms / card_compute_ms:.2f}x the "
+                f"card's compute term, {ms / cell['bound_ms']:.2f}x the plain path's bound); "
+                f"traced in {r['lower_s']} s")
+        if ms < card_compute_ms:
+            raise AssertionError(f"dryrun {arch}: the card's {ms} ms beat its compute term "
+                                 f"{card_compute_ms} ms")
+        if kind == "train":
+            cell["difference"] = dryrun_difference(cfg, b, s, rf["flops"], model)
+            line += (f"; FLOPs {rf['flops'] / 1e12:.4f} T >= train_flops' "
+                     f"{model / 1e12:.4f} T by " + ", ".join(
+                         f"{k} {v / 1e12:.4f} T" for k, v in cell["difference"].items()))
+            if rf["flops"] < model:
+                raise AssertionError(f"dryrun {arch}: {rf['flops']} FLOPs below train_flops' "
+                                     f"{model}")
+        log(line)
+        out[arch] = cell
+    t_wait = tresult["dryrun_traces"]["wait_s"]
+    wall = time.perf_counter() - t0 + t_tuned + t_wait
+    log(f"dryrun phase: {wall:.1f} s (the traces' wait after the train phase's checks, "
+        f"which they ran beside, {t_wait:.1f} s; the tuned backward {t_tuned:.1f} s)")
+    return {"cells": out, "s": wall}
+
+
+def train(dev, before_timed: Callable[[], dict]) -> dict:
     """Training on the card: K1's and K2's Functions alone, the f32 family
-    checks and the refusals; then qwen1.5-0.5b at full width through
+    checks and the refusals; ``before_timed()`` (kept as
+    ``result["dryrun_traces"]``); then qwen1.5-0.5b at full width through
     ``repro_torch.launch.train``'s ``Trainer`` (bf16, AdamW, the controller,
     a checkpoint every 10 steps into a temporary directory), its step 0 held
     to the plain path, its launches counted, both resumes checked, its step
@@ -4829,6 +5220,8 @@ def train(dev) -> dict:
     result["f32"] = {name: train_family_f32(name, dev) for name in TRAIN_F32_MODELS}
     result["refusals"] = train_refusals(dev)
     result["models"] = {}
+    log(f"train functions, f32 families and refusals: {time.perf_counter() - t_phase:.1f} s")
+    result["dryrun_traces"] = before_timed()
 
     cfg = get_config(TRAIN_ARCH)
     batch, seq = TRAIN_BATCH
@@ -4854,7 +5247,9 @@ def train(dev) -> dict:
 
         trainer = trainer_at(root / "run")
         n_params = count_params(trainer.params)
+        t0 = time.perf_counter()
         result["step0"] = step0_check(trainer, cfg, dev)
+        log(f"train {cfg.name} step 0 checks: {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
@@ -5035,7 +5430,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     presult = pool(dev)
     log(f"pool phase: {time.perf_counter() - t_phase:.1f} s")
-    tresult = train(dev)
+    with tempfile.TemporaryDirectory(prefix="repro_dryrun_") as dry_root:
+        procs = start_dryruns(Path(dry_root))
+        try:
+            tresult = train(dev, lambda: collect_dryruns(procs))
+        finally:
+            stop(procs)
+        dryrun(Path(dry_root), tresult, dict(zip(SERVE_MAX_SEQ, runs)),
+               tresult["models"][TUNED_BWD_ARCH]["tuned_backward"]["s"])
 
     t_phase = time.perf_counter()
     wresult, wtimes = whatif(dev)

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (LM_SHAPES, SUBQUADRATIC_ARCHS,  # noqa: F401
+                                      ModelConfig, ShapeSpec, cell_is_applicable)
 from repro_torch.configs import (deepseek_v3_671b, gemma_2b, granite_3_8b,
                                  granite_moe_3b_a800m, hymba_1_5b, llama_3_2_vision_90b,
                                  llama_13b, qwen1_5_0_5b, qwen1_5_4b, rwkv6_3b,
@@ -30,6 +31,9 @@ ARCHS: dict[str, ModelConfig] = {
     # the paper's own serving model (trace replay, §2.3)
     "llama-13b": llama_13b.CONFIG,
 }
+
+#: the architectures of the dry-run's cells (the serving model is not one)
+ASSIGNED_ARCHS: tuple[str, ...] = tuple(a for a in ARCHS if a != "llama-13b")
 
 
 def get_config(arch: str) -> ModelConfig:

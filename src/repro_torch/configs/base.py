@@ -1,6 +1,7 @@
 """Model configuration dataclass: the JAX package's ``ModelConfig``, with
 the fields of every family the port serves (dense, moe, mla_moe, rwkv,
-hybrid, encdec, vlm)."""
+hybrid, encdec, vlm); and the assigned input-shape cells of the dry-run
+(``ShapeSpec``, ``LM_SHAPES``, ``cell_is_applicable``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,3 +97,30 @@ class ModelConfig:
             raise ValueError("vlm needs cross_every")
         if self.family == "encdec" and self.n_enc_layers <= 0:
             raise ValueError("encdec needs n_enc_layers")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+LM_SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+#: archs allowed to run long_500k (sub-quadratic decoding state)
+SUBQUADRATIC_ARCHS = frozenset({"rwkv6-3b", "hymba-1.5b"})
+
+
+def cell_is_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in SUBQUADRATIC_ARCHS
+    return True

@@ -59,7 +59,7 @@ class PlatformSpec:
     #: effective bandwidth ratio; LLM decode is memory-bound, so this is the
     #: §5.3 SM+mem latency cliff)
     perf_at_min_memory: float = 0.09
-    #: roofline terms (TPU platform only; None for GPUs we never dry-run on)
+    #: roofline terms (the H100's, which the port's dry-run uses, and the TPU's)
     peak_bf16_tflops: float | None = None
     hbm_gbps: float | None = None
     ici_gbps_per_link: float | None = None
@@ -145,9 +145,13 @@ A100 = _register(PlatformSpec(
     name="a100", tdp_w=400.0, deep_idle_w=52.0,
     exec_idle_w=120.0, exec_idle_sm_min_w=75.0, exec_idle_all_min_w=55.0,
 ))
+#: peak terms from NVIDIA's H100 SXM data sheet (dense bf16, HBM3, NVLink 4
+#: a direction), as ``roofline/analysis.py`` takes them
 H100 = _register(PlatformSpec(
     name="h100", tdp_w=700.0, deep_idle_w=70.0,
     exec_idle_w=165.0, exec_idle_sm_min_w=100.0, exec_idle_all_min_w=74.0,
+    peak_bf16_tflops=989.0, hbm_gbps=3350.0, ici_gbps_per_link=450.0,
+    hbm_capacity_gib=80.0 * 1e9 / 2**30,
 ))
 B200 = _register(PlatformSpec(
     name="b200", tdp_w=1000.0, deep_idle_w=130.0,

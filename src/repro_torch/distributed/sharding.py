@@ -30,6 +30,7 @@ import re
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import DistContext, P
+from repro_torch.models import tuning
 from repro_torch.train.tree import map_up_to, map_with_path
 
 # leaf-name rule sets (matched on the last string key in the tree path)
@@ -137,12 +138,16 @@ def token_specs(dist: DistContext, global_batch: int | None = None) -> P:
 # --------------------------------------------------------------------------- #
 # decode caches
 # --------------------------------------------------------------------------- #
-def cache_specs(cfg: ModelConfig, cache_tree, dist: DistContext, data_only: bool = False):
+def cache_specs(cfg: ModelConfig, cache_tree, dist: DistContext,
+                data_only: bool | None = None):
     """Spec tree matching ``init_cache``'s structure for each family; every
     placement is checked against the leaf's shape and dropped (replicated)
     if the dim does not divide, e.g. whisper's 1500-frame cross cache or
     rwkv's 40 heads on a 16-wide model axis. ``data_only`` shards the caches
-    over the batch axes only (the reference's ``decode_cache_data_only``)."""
+    over the batch axes only; None takes the ``decode_cache_data_only``
+    tuning knob, as the reference reads it."""
+    if data_only is None:
+        data_only = tuning.ACTIVE.decode_cache_data_only
     b = dist.batch_axes
     m = dist.model_axis
     ep = max(dist.ep_size, 1)
@@ -209,12 +214,16 @@ def named(dist: DistContext, spec_tree):
 # activation specs (the reference's shard hook)
 # --------------------------------------------------------------------------- #
 def activation_spec(cfg: ModelConfig, dist: DistContext, kind: str, shape,
-                    seq_parallel: bool = False) -> P | None:
+                    seq_parallel: bool | None = None) -> P | None:
     """The spec that the reference's ``make_shard_hook`` constrains an
     activation of ``kind`` and ``shape`` to under a mesh, or None where it
     leaves it as it is (an unknown kind). ``seq_parallel`` shards the
-    residual stream's sequence dim over ``model`` (the reference's
-    ``seq_parallel`` knob)."""
+    residual stream's sequence dim over ``model``; None takes the
+    ``seq_parallel`` tuning knob, as the reference's hook reads it. No
+    activation of the port is a DTensor, so no count of the dry-run moves
+    with it."""
+    if seq_parallel is None:
+        seq_parallel = tuning.ACTIVE.seq_parallel
     b = dist.batch_axes
     m = dist.model_axis
     ep = dist.ep_size

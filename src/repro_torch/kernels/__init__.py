@@ -2,7 +2,12 @@
 its plain PyTorch version.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
-tensors it runs the plain version. Each kernel module counts its launches in
+tensors it runs the plain version. Given ``meta`` tensors (the dry-run,
+``launch/dryrun.py``), RMSNorm and the two attentions run their plain
+versions, and the selective scan and the WKV recurrence (forward and
+backward) return outputs of the right shape and charge what their plain
+versions would count in closed form (``_build.charge_meta``); no launch is
+counted. The cap-bucket scan and the cooldown chain refuse ``meta``. Each kernel module counts its launches in
 a plain integer ``LAUNCHES``, and the selective scan's and the WKV
 recurrence's backward kernels theirs in ``BWD_LAUNCHES``; prefill attention
 also counts, in ``WGMMA_LAUNCHES``, the launches that took its tensor-core

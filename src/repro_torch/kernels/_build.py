@@ -204,6 +204,23 @@ def sm_count(t: torch.Tensor) -> int:
                      else torch.cuda.current_device())
 
 
+#: devices on which a wrapper runs its kernel's plain version: the CPU, and
+#: ``meta`` (shapes without storage: the dry-run traces a step there, and a
+#: call there launches nothing and counts no launch)
+PLAIN_DEVICES = ("cpu", "meta")
+
+#: callables (op, flops, hbm_bytes) that a wrapper given ``meta`` tensors
+#: charges what its plain version would have cost to, where that version
+#: is not run there (the recurrences: ``roofline.op_count.OpCounter``
+#: appends one while it counts a step)
+META_CHARGES: list = []
+
+
+def charge_meta(op: str, flops: float, hbm_bytes: float) -> None:
+    for charge in META_CHARGES:
+        charge(op, flops, hbm_bytes)
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on one CUDA device."""
     devices = {t.device for t in tensors}

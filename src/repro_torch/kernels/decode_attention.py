@@ -9,7 +9,9 @@ cache length works, and ``cache_len`` may be an int32 tensor on the card
 slot counts as valid. The kernel splits the cache over blocks
 (:func:`split_plan`) and merges the splits in one launch, the last block of
 each (kv head, batch) merging by a ticket kept in a per-device buffer; bf16
-computes its products on the tensor cores, f32 on the CUDA cores.
+computes its products on the tensor cores, f32 on the CUDA cores. The
+plain version follows ``knobs`` (:class:`repro_torch.kernels.ref.AttentionKnobs`);
+the kernel reads none, as the Pallas kernel reads none.
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ MAX_CHUNK_BYTES = 32 * 1024
 _TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
-def decode_attention_plain(q, k_cache, v_cache, cache_len):
-    return ref.decode_attention_reference(q, k_cache, v_cache, cache_len).to(q.dtype)
+def decode_attention_plain(q, k_cache, v_cache, cache_len,
+                           knobs: ref.AttentionKnobs = ref.NO_KNOBS):
+    return ref.decode_attention_reference(q, k_cache, v_cache, cache_len,
+                                          knobs).to(q.dtype)
 
 
 def split_plan(b: int, kv: int, s: int, d: int, itemsize: int) -> tuple[int, int]:
@@ -60,12 +64,14 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int | torch.Tensor) -> torch.Tensor:
+                     cache_len: int | torch.Tensor,
+                     knobs: ref.AttentionKnobs = ref.NO_KNOBS) -> torch.Tensor:
     """q: (B, H, d) one token; caches: (B, KV, S, d); ``cache_len`` an int
-    or a one-element int32 tensor. Returns (B, H, d) in q's dtype."""
+    or a one-element int32 tensor. Returns (B, H, d) in q's dtype.
+    ``knobs`` acts on the plain version only."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    if q.device.type in _build.PLAIN_DEVICES:
+        return decode_attention_plain(q, k_cache, v_cache, cache_len, knobs)
     _build.require_cuda(q, k_cache, v_cache)
     _build.refuse_grad("decode_attention (K3)", q, k_cache, v_cache)
     b, h, d = q.shape

@@ -8,6 +8,9 @@ masked), and inputs are read through their strides, so head-major views of
 the model's (B, S, H, d) tensors need no copy. On the card the element type
 picks the kernel (:func:`route`): bf16 runs on the tensor cores (wgmma fed by
 TMA), f32 on the CUDA cores, whose f32 arithmetic the f32 checks need.
+The plain version follows ``knobs`` (:class:`repro_torch.kernels.ref.AttentionKnobs`);
+the kernels read none: their GQA is grouped by construction and their
+probabilities stay f32, as the Pallas kernel's do.
 """
 from __future__ import annotations
 
@@ -50,21 +53,23 @@ def require_16b_rows(*tensors: torch.Tensor) -> None:
                              f"{t.stride()} is not readable in 16-byte rows")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    return ref.mha_reference(q, k, v, causal=causal, window=window).to(q.dtype)
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          knobs: ref.AttentionKnobs = ref.NO_KNOBS):
+    return ref.mha_reference(q, k, v, causal=causal, window=window, knobs=knobs).to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    knobs: ref.AttentionKnobs = ref.NO_KNOBS) -> torch.Tensor:
     """q: (B, H, Sq, d); k/v: (B, KV, Sk, d). Returns (B, H, Sq, d) in q's
-    dtype.
+    dtype. ``knobs`` acts on the plain version only.
 
     On the card the result is a head-major view of memory laid out as
     (B, Sq, H, d), so the model layout is one free transpose away.
     """
     global LAUNCHES, WGMMA_LAUNCHES
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type in _build.PLAIN_DEVICES:
+        return flash_attention_plain(q, k, v, causal=causal, window=window, knobs=knobs)
     _build.require_cuda(q, k, v)
     _build.refuse_grad("flash_attention (K2)", q, k, v,
                        function="repro_torch.kernels.ops.FlashAttentionFunction")

@@ -26,13 +26,14 @@ import math
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import run_replay as _rr
 from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import ssm_scan as _ssm
-from repro_torch.kernels.ref import NEG_INF, acc_dtype, attention_mask
+from repro_torch.kernels.ref import NEG_INF, NO_KNOBS, AttentionKnobs, acc_dtype, attention_mask
 
 
 def _grad_wanted(*tensors: torch.Tensor | None) -> bool:
@@ -68,14 +69,14 @@ class RMSNormFunction(torch.autograd.Function):
         return dx, dw, None
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _backward_masks(sq: int, sk: int, causal: bool, window: int, groups: int, scale: float,
-                    device: torch.device, dtype: torch.dtype) -> tuple:
+                    device: torch.device, dtype: torch.dtype, q_start: int = 0) -> tuple:
     """(score bias, 0 where a key is kept and NEG_INF where masked; scale
     where kept and 0 where masked), each (groups * Sq, Sk) for the
-    backward's stacked rows. Every layer's backward at one shape takes the
-    same two, so they are built once."""
-    keep = attention_mask(sq, sk, causal, window, device).repeat(groups, 1)
+    backward's stacked rows of queries ``q_start`` on. Every layer's
+    backward at one shape takes the same two, so they are built once."""
+    keep = attention_mask(sq, sk, causal, window, device, q_start).repeat(groups, 1)
     bias = torch.full(keep.shape, NEG_INF, dtype=dtype, device=device).masked_fill_(keep, 0.0)
     return bias, keep.to(dtype) * scale
 
@@ -88,14 +89,29 @@ class FlashAttentionFunction(torch.autograd.Function):
     recomputed under the forward's mask (causal, window, Sq ≠ Sk) as an
     additive bias, dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)),
     dQ = dS K/√d, dK = dSᵀ Q/√d; the products over the stacked rows sum dK
-    and dV over the group's q heads."""
+    and dV over the group's q heads.
+
+    Under ``knobs`` (:class:`repro_torch.kernels.ref.AttentionKnobs`, which
+    the models layer sets from its tuning knobs): with ``block_remat`` P and
+    dS are rebuilt a block of ``q_block`` query rows at a time (where Sq is
+    a multiple longer than one block), dK and dV summed over the blocks, as
+    the reference's per-block ``jax.checkpoint`` rebuilds them. With
+    ``probs_bf16``, where the forward ran the plain version (which casts P
+    to bf16 before PV), the backward is autograd's through that cast, as the
+    reference's is: P rounded to bf16 for dV, dP rounded to bf16, and the
+    softmax's row term Σ dP ∘ P taken from them (O is the rounded P's
+    product, so rowsum(dO ∘ O) no longer equals it). K2 keeps P in f32, so
+    on the card the backward keeps it too. With the default knobs, one
+    block in f32."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, knobs=NO_KNOBS):
         out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=causal, window=window).transpose(1, 2)
+                                  causal=causal, window=window, knobs=knobs).transpose(1, 2)
         ctx.save_for_backward(q, k, v, out)
         ctx.causal, ctx.window = causal, window
+        ctx.q_block = knobs.q_block if knobs.block_remat else 0
+        ctx.probs_bf16 = knobs.probs_bf16 and q.device.type in _build.PLAIN_DEVICES
         return out
 
     @staticmethod
@@ -103,29 +119,47 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
+        g = h // kvh
         acc = acc_dtype(q.dtype)
         scale = 1.0 / math.sqrt(d)
 
-        def heads(t):  # (B, S, N, d) -> (B * KV, N // KV * S, d) in acc: one copy
+        def heads(t):  # (B, S, N, d) -> (B * KV, N // KV, S, d) in acc: one copy
             n, t_s = t.shape[2], t.shape[1]
             return t.new_empty((b, n, t_s, d), dtype=acc).copy_(t.transpose(1, 2)).view(
-                b * kvh, n // kvh * t_s, d)
+                b * kvh, n // kvh, t_s, d)
 
-        qh, doh, oh, kh, vh = map(heads, (q, dout, out, k, v))
-        bias, keep_scale = _backward_masks(sq, sk, ctx.causal, ctx.window, h // kvh, scale,
-                                           q.device, acc)
-        p = torch.softmax(torch.baddbmm(bias, qh, kh.transpose(1, 2), alpha=scale), dim=-1)
-        dv = torch.bmm(p.transpose(1, 2), doh)
-        rowsum = (doh * oh).sum(dim=-1, keepdim=True)
-        # dS, in place of dP; a masked score is a constant: no gradient (a
-        # row masked whole averages V)
-        ds = torch.bmm(doh, vh.transpose(1, 2)).sub_(rowsum).mul_(p).mul_(keep_scale)
-        dq = torch.bmm(ds, kh).view(b, h, sq, d).transpose(1, 2)
-        dk = torch.bmm(ds.transpose(1, 2), qh).view(b, kvh, sk, d).transpose(1, 2)
+        qh, doh, oh = map(heads, (q, dout, out))
+        kh, vh = (heads(t)[:, 0] for t in (k, v))
+        qb = ctx.q_block
+        blocked = qb and sq > qb and sq % qb == 0
+        dqs, dk, dv = [], None, None
+        for i in range(0, sq, qb) if blocked else (0,):
+            rows = slice(i, i + qb) if blocked else slice(None)
+            n = qb if blocked else sq
+            qr, dor, outr = (t[:, :, rows].reshape(b * kvh, g * n, d) for t in (qh, doh, oh))
+            bias, keep_scale = _backward_masks(n, sk, ctx.causal, ctx.window, g, scale,
+                                               q.device, acc, i)
+            p = torch.softmax(torch.baddbmm(bias, qr, kh.transpose(1, 2), alpha=scale), dim=-1)
+            dp = torch.bmm(dor, vh.transpose(1, 2))
+            if ctx.probs_bf16:
+                dv_r = torch.bmm(p.to(torch.bfloat16).to(acc).transpose(1, 2), dor)
+                dp = dp.to(torch.bfloat16).to(acc)
+                rowsum = (dp * p).sum(dim=-1, keepdim=True)
+            else:
+                dv_r = torch.bmm(p.transpose(1, 2), dor)
+                rowsum = (dor * outr).sum(dim=-1, keepdim=True)
+            # dS, in place of dP; a masked score is a constant: no gradient (a
+            # row masked whole averages V)
+            ds = dp.sub_(rowsum).mul_(p).mul_(keep_scale)
+            dqs.append(torch.bmm(ds, kh).view(b * kvh, g, n, d))
+            dk_r = torch.bmm(ds.transpose(1, 2), qr)
+            dk, dv = (dk_r, dv_r) if dk is None else (dk + dk_r, dv + dv_r)
+        dq = (dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=2)).view(b, h, sq, d).transpose(1, 2)
+        dk = dk.view(b, kvh, sk, d).transpose(1, 2)
         dv = dv.view(b, kvh, sk, d).transpose(1, 2)
         return (dq.to(q.dtype, memory_format=torch.contiguous_format),
                 dk.to(k.dtype, memory_format=torch.contiguous_format),
-                dv.to(v.dtype, memory_format=torch.contiguous_format), None, None)
+                dv.to(v.dtype, memory_format=torch.contiguous_format), None, None, None)
 
 
 class SsmScanFunction(torch.autograd.Function):
@@ -195,22 +229,23 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0,
-                    plain: bool = False) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, plain: bool = False,
+                    knobs: AttentionKnobs = NO_KNOBS) -> torch.Tensor:
     """q: (B,S,H,d); k/v: (B,S,KV,d). Returns (B,S,H,d)."""
     if not plain and _grad_wanted(q, k, v):
-        return FlashAttentionFunction.apply(q, k, v, causal, window)
+        return FlashAttentionFunction.apply(q, k, v, causal, window, knobs)
     fn = _fa.flash_attention_plain if plain else _fa.flash_attention
     out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-             causal=causal, window=window)
+             causal=causal, window=window, knobs=knobs)
     return out.transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int | torch.Tensor, plain: bool = False) -> torch.Tensor:
+                     cache_len: int | torch.Tensor, plain: bool = False,
+                     knobs: AttentionKnobs = NO_KNOBS) -> torch.Tensor:
     """q: (B,1,H,d); caches: (B,S,KV,d). Returns (B,1,H,d)."""
     fn = _da.decode_attention_plain if plain else _da.decode_attention
-    out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), cache_len)
+    out = fn(q[:, 0], k_cache.transpose(1, 2), v_cache.transpose(1, 2), cache_len, knobs)
     return out[:, None]
 
 

@@ -2,16 +2,39 @@
 contracts).
 
 Deliberately simple O(S^2) / sequential implementations of the same maths as
-the JAX package's oracles. The kernel wrappers run these for tensors on the CPU,
-and the card's kernels are held against them.
+the JAX package's oracles. The kernel wrappers run these for tensors on the CPU
+and on the ``meta`` device, and the card's kernels are held against them.
+
+The two attentions take :class:`AttentionKnobs`, which the models layer
+builds from its tuning knobs (``models/tuning.py``), as the JAX package's
+``common.attention`` and ``common.decode_attention`` read them; with the
+default knobs they compute as before the knobs.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
+
+
+class AttentionKnobs(NamedTuple):
+    """How the plain attentions compute. ``grouped``: contract each kv
+    head's group of q heads in the operands' dtype (no repeated K and V);
+    ``probs_bf16``: cast P to bf16 before PV; ``q_block``: query rows a
+    block (0: one block); ``block_remat``: each block under
+    ``torch.utils.checkpoint``."""
+    grouped: bool = False
+    probs_bf16: bool = False
+    q_block: int = 0
+    block_remat: bool = False
+
+
+#: the plain attentions' default: one block, no knob
+NO_KNOBS = AttentionKnobs()
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -21,11 +44,11 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def attention_mask(sq: int, sk: int, causal: bool, window: int,
-                   device: torch.device) -> torch.Tensor:
+                   device: torch.device, q_start: int = 0) -> torch.Tensor:
     """(Sq, Sk) bool, True where query i may attend key j: ``j <= i`` when
-    causal, ``j > i - window`` when ``window > 0``; positions count from 0
-    on both sides."""
-    q_pos = torch.arange(sq, device=device)[:, None]
+    causal, ``j > i - window`` when ``window > 0``; keys count from 0,
+    queries from ``q_start`` (a block of query rows)."""
+    q_pos = torch.arange(q_start, q_start + sq, device=device)[:, None]
     k_pos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -35,32 +58,74 @@ def attention_mask(sq: int, sk: int, causal: bool, window: int,
     return mask
 
 
-def mha_reference(q, k, v, causal: bool = True, window: int = 0):
+def mha_reference(q, k, v, causal: bool = True, window: int = 0,
+                  knobs: AttentionKnobs = NO_KNOBS):
     """q: (B,H,Sq,d); k/v: (B,KV,Sk,d) -> (B,H,Sq,d) f32 (f64 for f64
-    inputs)."""
+    inputs).
+
+    Under ``knobs``, as ``common.attention``: ``grouped`` contracts per kv
+    head in the operands' dtype, ``probs_bf16`` casts P to bf16 and takes PV
+    in v's dtype; queries go in blocks of ``q_block`` rows where Sq is a
+    multiple of it longer than one, each under ``torch.utils.checkpoint``
+    with ``block_remat``."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     acc = acc_dtype(q.dtype)
-    k = torch.repeat_interleave(k, h // kvh, dim=1)
-    v = torch.repeat_interleave(v, h // kvh, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) / math.sqrt(d)
-    s = torch.where(attention_mask(sq, sk, causal, window, q.device)[None, None], s,
-                    NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
+    if knobs.grouped:
+        pv_dtype = v.dtype
+        q_in = q.reshape(b, kvh, h // kvh, sq, d)
+    else:
+        k = torch.repeat_interleave(k, h // kvh, dim=1)
+        v = torch.repeat_interleave(v, h // kvh, dim=1)
+        pv_dtype = v.dtype if knobs.probs_bf16 else acc
+        q_in, k = q.to(acc), k.to(acc)
+    v = v.to(pv_dtype)
+
+    def block(q_blk, start):
+        bq = q_blk.shape[-2]
+        eq = "bgpqd,bgkd->bgpqk" if knobs.grouped else "bhqd,bhkd->bhqk"
+        s = torch.einsum(eq, q_blk, k).to(acc) / math.sqrt(d)
+        s = torch.where(attention_mask(bq, sk, causal, window, q.device, start), s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        if knobs.probs_bf16:
+            p = p.to(torch.bfloat16)
+        eq = "bgpqk,bgkd->bgpqd" if knobs.grouped else "bhqk,bhkd->bhqd"
+        return torch.einsum(eq, p.to(pv_dtype), v).to(acc).reshape(b, h, bq, d)
+
+    fn = block
+    if knobs.block_remat:
+        def fn(q_blk, start):
+            return torch.utils.checkpoint.checkpoint(block, q_blk, start, use_reentrant=False)
+    qb = knobs.q_block
+    if not qb or sq <= qb or sq % qb:
+        return fn(q_in, 0)
+    return torch.cat([fn(q_in[..., i:i + qb, :], i) for i in range(0, sq, qb)], dim=-2)
 
 
-def decode_attention_reference(q, k_cache, v_cache, cache_len):
+def decode_attention_reference(q, k_cache, v_cache, cache_len,
+                               knobs: AttentionKnobs = NO_KNOBS):
     """q: (B,H,d); caches: (B,KV,S,d); cache_len int or int tensor ->
-    (B,H,d) f32."""
+    (B,H,d) f32. ``knobs.grouped`` and ``knobs.probs_bf16`` act as in
+    :func:`mha_reference`."""
     b, h, d = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
+    valid = torch.arange(s, device=q.device) < cache_len
+    if knobs.grouped:
+        qg = q.reshape(b, kvh, h // kvh, d)
+        scores = torch.einsum("bgpd,bgkd->bgpk", qg, k_cache).float() / math.sqrt(d)
+        p = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+        if knobs.probs_bf16:
+            p = p.to(torch.bfloat16)
+        out = torch.einsum("bgpk,bgkd->bgpd", p.to(v_cache.dtype), v_cache)
+        return out.reshape(b, h, d).float()
     k = torch.repeat_interleave(k_cache, h // kvh, dim=1)
     v = torch.repeat_interleave(v_cache, h // kvh, dim=1)
     scores = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) / math.sqrt(d)
-    valid = torch.arange(s, device=q.device)[None, None, :] < cache_len
-    scores = torch.where(valid, scores, NEG_INF)
+    scores = torch.where(valid[None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
+    if knobs.probs_bf16:
+        p = p.to(torch.bfloat16)
+        return torch.einsum("bhk,bhkd->bhd", p.to(v.dtype), v).float()
     return torch.einsum("bhk,bhkd->bhd", p, v.float())
 
 

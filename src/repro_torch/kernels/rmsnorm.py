@@ -66,7 +66,7 @@ def launch_plan(rows: int, d: int, itemsize: int, aligned: bool) -> NormPlan:
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); weight: (D,). Output in x's dtype, f32 statistics."""
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return rmsnorm_plain(x, weight, eps)
     _build.require_cuda(x, weight)
     _build.refuse_grad("rmsnorm (K1)", x, weight,

@@ -65,6 +65,54 @@ def wkv6_plain(r, k, v, w, u, state0=None, state_out=None):
     return y, state
 
 
+def _rows_merge(t: torch.Tensor) -> bool:
+    """Whether a step's (B, H, K) slice of ``t`` (B, H, S, K) views as
+    (B H, K) without a copy: not so for head-major views of the model's
+    (B, S, H, K), whose ``einsum`` copies the slice each step."""
+    return t.shape[0] == 1 or t.shape[1] == 1 or t.stride(0) == t.shape[1] * t.stride(1)
+
+
+def plain_cost(bsz: int, h: int, s: int, kd: int, state_out: bool,
+               copies: int = 0) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) that ``roofline.op_count`` counts over
+    :func:`wkv6_plain` on float32 inputs: a step's ``einsum`` with r_t a
+    (B H, 1, K) x (B H, K, K) product (2 B H K² FLOPs; r_t, the state term
+    and y_t read and written), ``copies`` (B, H, K) slices copied a step
+    (r_t, where :func:`_rows_merge` fails), the stack of the S outputs, the
+    copy into ``state_out``."""
+    bh = bsz * h
+    step = (2 + 2 * copies) * bh * kd + bh * kd * kd
+    elems = s * step + (2 * bh * s * kd if s else 0) + (2 * bh * kd * kd if state_out else 0)
+    return 2 * bh * s * kd * kd, 4 * elems
+
+
+def backward_plain_cost(bsz: int, h: int, s: int, kd: int,
+                        copies: int = 0) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) that ``roofline.op_count`` counts over
+    :func:`wkv6_backward_plain` on float32 inputs: a step's three
+    (B H, K, K) x (B H, K, 1) products (dr, dk, dv: 6 B H K² FLOPs), four
+    sums (dy·v, r u k, dw, du), four copies into the gradients' rows, and
+    ``copies`` (B, H, K) slices the products copy (dy_t, v_t, k_t where
+    :func:`_rows_merge` fails)."""
+    bh = bsz * h
+    step = 4 * bh * kd * kd + (18 + 2 * copies) * bh * kd + 2 * bh + h * kd
+    return 6 * bh * s * kd * kd, 4 * s * step
+
+
+def _meta_wkv(r, k, v, w, u, state_out):
+    """On ``meta``: the outputs' shapes (y head-major over (B, S, H, K), as
+    on the card), and :func:`plain_cost` charged (``_build.charge_meta``) in
+    place of walking the S steps."""
+    bsz, h, s, kd = r.shape
+    if any(t.dtype != torch.float32 for t in (r, k, v, w, u)):
+        raise ValueError("the WKV recurrence takes float32 tensors")
+    _build.charge_meta("wkv6 (plain, closed form)",
+                       *plain_cost(bsz, h, s, kd, state_out is not None,
+                                   copies=int(not _rows_merge(r))))
+    y = r.new_empty((bsz, s, h, kd)).transpose(1, 2)
+    return y, state_out if state_out is not None else r.new_empty((bsz, h, kd, kd))
+
+
 @dataclasses.dataclass(frozen=True)
 class WkvPlan:
     """One launch: each (row, head) split into ``slices`` blocks of
@@ -129,6 +177,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     global LAUNCHES
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state0, state_out)
+    if r.device.type == "meta":
+        return _meta_wkv(r, k, v, w, u, state_out)
     states = [t for t in (state0, state_out) if t is not None]
     _build.require_cuda(r, k, v, w, u, *states)
     _build.refuse_grad("wkv6 (K6)", r, k, v, w, u, *states,
@@ -244,6 +294,13 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     global BWD_LAUNCHES
     if r.device.type == "cpu":
         return wkv6_backward_plain(r, k, v, w, u, state0, dy, dstate_out)
+    if r.device.type == "meta":
+        bsz, h, s, kd = r.shape
+        copies = sum(not _rows_merge(t) for t in (dy, v, k))
+        _build.charge_meta("wkv6_backward (plain, closed form)",
+                           *backward_plain_cost(bsz, h, s, kd, copies))
+        grads = [r.new_empty((bsz, s, h, kd)).transpose(1, 2) for _ in range(4)]
+        return (*grads, u.new_empty(u.shape), r.new_empty((bsz, h, kd, kd)))
     states = [t for t in (state0, dstate_out) if t is not None]
     _build.require_cuda(r, k, v, w, u, dy, *states)
     _build.refuse_grad("wkv6_backward (K6')", r, k, v, w, u, dy, *states)

@@ -62,6 +62,38 @@ def ssm_scan_plain(u, dt, a, b, c, h0=None, h_out=None):
     return y, h
 
 
+def plain_cost(bsz: int, s: int, di: int, n: int, h_out: bool) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) that ``roofline.op_count`` counts over
+    :func:`ssm_scan_plain` on float32 inputs: a step's ``einsum`` with C_t a
+    (B, I, N) x (B, N, 1) product (2 B I N FLOPs; h, C_t and y_t read and
+    written), the stack of the S outputs, the copy into ``h_out``."""
+    step = bsz * di * n + bsz * n + bsz * di
+    elems = s * step + (2 * bsz * s * di if s else 0) + (2 * bsz * di * n if h_out else 0)
+    return 2 * bsz * s * di * n, 4 * elems
+
+
+def backward_plain_cost(bsz: int, s: int, di: int, n: int) -> tuple[int, int]:
+    """(FLOPs, HBM bytes) that ``roofline.op_count`` counts over
+    :func:`ssm_scan_backward_plain` on float32 inputs: a step's three
+    (B, I, N) products (dc, db, du: 6 B I N FLOPs), two sums over (B, I, N)
+    (ddt, da) and four copies into the gradients' rows."""
+    step = 5 * bsz * di * n + 8 * bsz * di + 7 * bsz * n + di * n
+    return 6 * bsz * s * di * n, 4 * s * step
+
+
+def _meta_scan(u, dt, a, b, c, h_out):
+    """On ``meta``: the outputs' shapes, and :func:`plain_cost` charged
+    (``_build.charge_meta``) in place of walking the S steps."""
+    bsz, s, di = u.shape
+    n = a.shape[-1]
+    if any(t.dtype != torch.float32 for t in (u, dt, a, b, c)):
+        raise ValueError("the selective scan takes float32 tensors")
+    _build.charge_meta("ssm_scan (plain, closed form)", *plain_cost(bsz, s, di, n,
+                                                                  h_out is not None))
+    y = u.new_empty((bsz, s, di))
+    return y, h_out if h_out is not None else u.new_empty((bsz, di, n))
+
+
 @dataclasses.dataclass(frozen=True)
 class ScanPlan:
     """One launch: ``group`` state entries a thread, ``lanes`` (N / group)
@@ -116,6 +148,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     global LAUNCHES
     if u.device.type == "cpu":
         return ssm_scan_plain(u, dt, a, b, c, h0, h_out)
+    if u.device.type == "meta":
+        return _meta_scan(u, dt, a, b, c, h_out)
     states = [t for t in (h0, h_out) if t is not None]
     _build.require_cuda(u, dt, a, b, c, *states)
     _build.refuse_grad("ssm_scan (K5)", u, dt, a, b, c, *states,
@@ -300,6 +334,13 @@ def ssm_scan_backward(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     global BWD_LAUNCHES
     if u.device.type == "cpu":
         return ssm_scan_backward_plain(u, dt, a, b, c, h0, dy, dh_out)
+    if u.device.type == "meta":
+        bsz, s, di = u.shape
+        n = a.shape[-1]
+        _build.charge_meta("ssm_scan_backward (plain, closed form)",
+                           *backward_plain_cost(bsz, s, di, n))
+        return (u.new_empty(u.shape), u.new_empty(u.shape), a.new_empty(a.shape),
+                b.new_empty(b.shape), b.new_empty(b.shape), u.new_empty((bsz, di, n)))
     states = [t for t in (h0, dh_out) if t is not None]
     _build.require_cuda(u, dt, a, b, c, dy, *states)
     _build.refuse_grad("ssm_scan_backward (K5')", u, dt, a, b, c, dy, *states)

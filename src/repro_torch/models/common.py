@@ -6,9 +6,11 @@ layers, and the chunk-checkpointed scan.
 
 Parameters are plain dicts of tensors. RMSNorm, attention and decode
 attention are the Hopper kernels, called from ``repro_torch.kernels.ops``;
-the projections, MLP and LM head are ``torch.matmul``. This is the JAX
-package's default path (no grouped attention, no probability downcast): its
-TPU tuning knobs are not ported.
+the projections, MLP and LM head are ``torch.matmul``. :func:`attention`
+and :func:`decode_attention` read the tuning knobs (``models/tuning.py``),
+as the JAX package's ``common.attention`` and ``common.decode_attention``
+do, and pass them to the kernels' wrappers; with every knob off this is
+the reference's default path.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.models import tuning
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -158,6 +161,20 @@ def qkv(x, lp, cfg):
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def attention(q, k, v, causal: bool = True, window: int = 0, plain: bool = False):
+    """Prefill attention (K2, ``ops.flash_attention``) under the active
+    tuning knobs. q: (B,S,H,d); k/v: (B,S,KV,d)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window, plain=plain,
+                               knobs=tuning.attention_knobs())
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, plain: bool = False):
+    """Decode attention (K3, ``ops.decode_attention``) under the active
+    tuning knobs. q: (B,1,H,d); caches: (B,S,KV,d)."""
+    return ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain,
+                                knobs=tuning.attention_knobs())
 
 
 def mlp_residual(x, lp, cfg, plain: bool):

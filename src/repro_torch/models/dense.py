@@ -121,7 +121,7 @@ def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool):
     q, k, v = cm.qkv(h, lp, cfg)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
+    attn = cm.attention(q, k, v, causal=True, plain=plain)
     x = x + attn.reshape(b, s, -1) @ lp["wo"]
     return cm.mlp_residual(x, lp, cfg, plain), k, v
 
@@ -168,7 +168,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache.index_copy_(1, write_at, k)
         v_cache.index_copy_(1, write_at, v)
-        attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
+        attn = cm.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"]
         x = cm.mlp_residual(x, lp, cfg, plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)

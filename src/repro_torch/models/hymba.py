@@ -201,8 +201,8 @@ def _full_layer(x, lp, cfg: ModelConfig, positions, is_global: bool, plain: bool
     q, k, v = cm.qkv(h, lp, cfg)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    attn = ops.flash_attention(q, k, v, causal=True,
-                               window=0 if is_global else cfg.window, plain=plain)
+    attn = cm.attention(q, k, v, causal=True,
+                        window=0 if is_global else cfg.window, plain=plain)
     attn_out = attn.reshape(b, s, -1) @ lp["wo"]
     ssm_out, conv_state, ssm_state = mamba_branch(h, lp, cfg, plain)
     x = x + _fuse(attn_out, ssm_out, lp, cfg, plain)
@@ -266,7 +266,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         lc["v"].index_copy_(1, slot, v)
         # a window layer's ring counts every slot once cache_len >= size,
         # which K3 does for any cache_len at or past S
-        attn = ops.decode_attention(q, lc["k"], lc["v"], cache_len, plain=plain)
+        attn = cm.decode_attention(q, lc["k"], lc["v"], cache_len, plain=plain)
         attn_out = attn.reshape(b, 1, -1) @ lp["wo"]
         ssm_out = mamba_step(h, lp, cfg, lc["conv"], lc["ssm"], plain)
         x = x + _fuse(attn_out, ssm_out, lp, cfg, plain)

@@ -287,7 +287,9 @@ def _ep_block(x_loc, router, we_gate, we_up, we_down, *, cfg: ModelConfig, group
     # position of each assignment within its expert's capacity buffer
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
-    counts = torch.bincount(flat_ids, minlength=e_pad)
+    # bincount by scatter_add_: the same counts, and a kernel on ``meta`` too
+    counts = torch.zeros(e_pad, dtype=flat_ids.dtype, device=dev).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n_assign, device=dev) - starts[sorted_ids]
     slot = torch.where(pos_in_e < cap, pos_in_e, cap)              # overflow -> dropped row
@@ -412,7 +414,7 @@ def _prefill_layer(x, lp, cfg: ModelConfig, positions, plain: bool, aux: bool = 
     q, k, v = cm.qkv(h, lp, cfg)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
+    attn = cm.attention(q, k, v, causal=True, plain=plain)
     x = x + attn.reshape(b, s, -1) @ lp["wo"]
     x, aux_loss = _moe_residual(x, lp, cfg, plain, aux, dist)
     return x, k, v, aux_loss
@@ -433,7 +435,7 @@ def _decode_layer(x, lp, cfg: ModelConfig, caches, at, plain: bool,
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     k_cache.index_copy_(1, write_at, k)
     v_cache.index_copy_(1, write_at, v)
-    attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
+    attn = cm.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
     x = x + attn.reshape(b, 1, -1) @ lp["wo"]
     return _moe_residual(x, lp, cfg, plain, dist=dist)[0]
 

@@ -90,7 +90,7 @@ def _self_prefill(x, lp, cfg: ModelConfig, positions, plain: bool):
     q, k, v = cm.qkv(h, lp, cfg)
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
-    attn = ops.flash_attention(q, k, v, causal=True, plain=plain)
+    attn = cm.attention(q, k, v, causal=True, plain=plain)
     x = x + attn.reshape(b, s, -1) @ lp["wo"]
     return cm.mlp_residual(x, lp, cfg, plain), k, v
 
@@ -106,7 +106,7 @@ def _self_decode(x, lp, cfg: ModelConfig, positions, k_cache, v_cache, write_at,
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     k_cache.index_copy_(1, write_at, k)
     v_cache.index_copy_(1, write_at, v)
-    attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
+    attn = cm.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
     x = x + attn.reshape(b, 1, -1) @ lp["wo"]
     return cm.mlp_residual(x, lp, cfg, plain)
 
@@ -129,7 +129,7 @@ def _cross_block(x, lp, cfg: ModelConfig, attend, plain: bool):
 def _attend_vision(xk, xv, plain: bool):
     """The cross block's ``attend`` over the whole prompt: K2 with no mask,
     Sq the prompt, Sk the vision tokens."""
-    return lambda q: ops.flash_attention(q, xk, xv, causal=False, plain=plain)
+    return lambda q: cm.attention(q, xk, xv, causal=False, plain=plain)
 
 
 def _vision_kv(vision, lp, cfg: ModelConfig):
@@ -252,7 +252,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
                              write_at, cache_len, plain)
         xk, xv = cache["xk"][g], cache["xv"][g]
         x = _cross_block(x, cm.layer(params["cross_layers"], g), cfg,
-                         lambda q: ops.decode_attention(q, xk, xv, n_vision, plain=plain),
+                         lambda q: cm.decode_attention(q, xk, xv, n_vision, plain=plain),
                          plain)
     x = ops.rmsnorm(x, params["final_norm"], cfg.norm_eps, plain=plain)
     logits = x @ params["out_head"]

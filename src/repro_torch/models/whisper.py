@@ -23,7 +23,6 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
 
@@ -108,7 +107,7 @@ def _mha(x, kv_src, lp, cfg: ModelConfig, prefix: str = "", causal: bool = False
     q = _heads(x @ lp[prefix + "wq"] + lp[prefix + "bq"], h)
     k = _heads(kv_src @ lp[prefix + "wk"], h)
     v = _heads(kv_src @ lp[prefix + "wv"] + lp[prefix + "bv"], h)
-    out = ops.flash_attention(q, k, v, causal=causal, plain=plain)
+    out = cm.attention(q, k, v, causal=causal, plain=plain)
     return out.reshape(x.shape) @ lp[prefix + "wo"] + lp[prefix + "bo"], (k, v)
 
 
@@ -243,11 +242,11 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, plain: bool = False):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache.index_copy_(1, write_at, _heads(h @ lp["wk"], h_heads))
         v_cache.index_copy_(1, write_at, _heads(h @ lp["wv"] + lp["bv"], h_heads))
-        attn = ops.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
+        attn = cm.decode_attention(q, k_cache, v_cache, cache_len, plain=plain)
         x = x + attn.reshape(b, 1, -1) @ lp["wo"] + lp["bo"]
         h = cm.layernorm(x, lp["ln_x_w"], lp["ln_x_b"])
         q = _heads(h @ lp["x_wq"] + lp["x_bq"], h_heads)
-        attn = ops.decode_attention(q, cache["xk"][i], cache["xv"][i], n_frames, plain=plain)
+        attn = cm.decode_attention(q, cache["xk"][i], cache["xv"][i], n_frames, plain=plain)
         x = _mlp_residual(x + attn.reshape(b, 1, -1) @ lp["x_wo"] + lp["x_bo"], lp)
     x = cm.layernorm(x, params["dec_ln_w"], params["dec_ln_b"])
     logits = cm.lm_logits(x, params["embed"])

@@ -29,6 +29,17 @@ def test_no_module_imports_jax_or_repro():
     assert not offenders, offenders
 
 
+def test_kernels_import_nothing_of_the_models():
+    """The kernels take the tuning knobs as arguments: no module of
+    ``repro_torch.kernels`` imports ``repro_torch.models`` (whose
+    ``tuning.ACTIVE`` is process-global state)."""
+    upward = re.compile(r"^\s*(?:import|from)\s+repro_torch\.models\b", re.M)
+    offenders = [f"{f.relative_to(SRC)}: {m.group(0).strip()}"
+                 for f in sorted((PKG / "kernels").rglob("*.py"))
+                 for m in upward.finditer(f.read_text())]
+    assert not offenders, offenders
+
+
 def test_every_module_imports_with_jax_and_repro_blocked():
     """Import each module in a fresh interpreter where ``jax`` and ``repro``
     cannot be imported."""
@@ -119,3 +130,33 @@ def test_scripts_exit_2_without_cuda(script, tmp_path):
                          env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert out.returncode == 2, out.stderr
     assert '"ok"' not in out.stdout
+
+
+def test_dryrun_makes_every_float_tensor_on_meta(monkeypatch):
+    """The dry-run needs no card and allocates nothing: with CUDA reported
+    absent, every floating-point tensor a cell's ops make (parameters,
+    optimizer state, caches, activations, gradients) lies on ``meta``, on a
+    world of one and on the fake 16 x 16 mesh."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch import dryrun
+
+    devices = set()
+
+    class Devices(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            devices.update(t.device.type for t in tree_leaves(out)
+                           if isinstance(t, torch.Tensor) and t.is_floating_point())
+            return out
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with Devices():
+        for world, shape in (((1, 1), "train:2x16"), (None, "train:32x16"),
+                             ((1, 1), "decode:2x16")):
+            r = dryrun.run_cell("hymba-1.5b", shape, False, world=world, smoke=True)
+            assert r["status"] == "ok", r.get("traceback")
+    assert devices == {"meta"}
+    assert "The only device is ``meta``" in " ".join(dryrun.__doc__.split())
