@@ -86,20 +86,29 @@ paths:
   Function's name or as having no backward; then qwen1.5-0.5b at
   full width through ``repro_torch.launch.train``'s ``Trainer`` (bf16,
   AdamW, batch 8 x 128, 20 steps, the controller on, a checkpoint every
-  10 steps): step 0 against the plain path beside its chaos floor leaf by
+  10 steps), which replays its step from one CUDA graph after 2 eager
+  steps: step 0 against the plain path beside its chaos floor leaf by
   leaf, the loss gate shown to fail an unmasked attention, K1 and
-  K2 launches per step as the remat implies, a fresh trainer over the
+  K2 launches per step as the remat implies (the capture none, a replay
+  one eager step's), a fresh trainer over the
   finished run resuming byte for byte and a restart from step 10
-  reproducing steps 11-20, with the step's median time, tokens/s, idle
-  share, peak memory, FLOP rate, bound and the checkpoints' times; then
-  hymba-1.5b (2 x 2,048 tokens, 10 steps), rwkv6-3b (8 x 128, 10 steps) and
-  whisper-tiny (8 x 128 over 1,500 frames, 20 steps) the same way without
+  reproducing steps 11-20; then an eager run of ``make_train_step``'s
+  function from the same seed, which the graphed run's losses and final
+  trees equal bit for bit (or, where two eager runs differ, within their
+  spread, measured in the same call); the replayed step's and the eager
+  step's median time, tokens/s, card-active time and peak memory side by
+  side, each step's idle share as the card's share of its profiled steps'
+  span on the host clock, the FLOP rate, bound and the checkpoints' times; the
+  sharded step on a world of one held to the eager run; then
+  hymba-1.5b (2 x 2,048 tokens, 6 steps), rwkv6-3b (8 x 128, 6 steps) and
+  whisper-tiny (8 x 128 over 1,500 frames, 10 steps) the same way without
   checkpoints, each step 0 against the plain path beside its chaos floors
   (hymba over the first 256 tokens a row; rwkv6-3b, chaotic in bf16, by its
   loss over its first 4 layers and its backward kernel inside the whole
   model), every loss finite, launches per step exact (K5 and K6 twice a layer
-  with the remat, their backward kernels once), with the same step
-  measurements;
+  with the remat, their backward kernels once), with the same graphed-
+  against-eager check and step measurements (the eager step of hymba-1.5b
+  and rwkv6-3b timed, not profiled);
 * dry-run: the runs the train and serve phases measure (the qwen1.5-0.5b,
   hymba-1.5b, rwkv6-3b and whisper-tiny train steps, llama-13b's 4-slot
   decode step) traced on the meta device by ``repro_torch.launch.dryrun``
@@ -1150,22 +1159,27 @@ def profile_steps(fn, steps: int = 3) -> dict:
     versions of this script read it) and as the time in which at least one runs (their intervals'
     union: a kernel launched early by programmatic dependent launch, as
     cuBLAS's may be, overlaps the one before it, and the sum counts the
-    overlap twice), its device operations, and the kernels that take it."""
+    overlap twice), its device operations, and the kernels that take it;
+    beside them the host clock's span of the profiled calls from the first
+    one's start to the card's end (``wall_ms_per_step``) and the card's idle
+    share of that span, both sides from the same calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    active = []
+    active, wall_s = [], []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: active.append((p.key_averages(),
                                                          p.events()))) as prof:
         for _ in range(2):
+            t0 = time.perf_counter()
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
+            wall_s.append(time.perf_counter() - t0)
             prof.step()
     averages, events = active[0]
     spans = [(e.time_range.start, e.time_range.end) for e in events
@@ -1180,9 +1194,12 @@ def profile_steps(fn, steps: int = 3) -> dict:
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / steps
             launches[m.group(1)] = launches.get(m.group(1), 0) + e.count / steps
+    active_ms, wall_ms = covered(spans) / 1e3 / steps, wall_s[1] * 1e3 / steps
     return {
         "card_busy_ms_per_step": sum(e.self_device_time_total for e in on_card) / 1e3 / steps,
-        "card_active_ms_per_step": covered(spans) / 1e3 / steps,
+        "card_active_ms_per_step": active_ms,
+        "wall_ms_per_step": wall_ms,
+        "idle_share": 1 - active_ms / wall_ms,
         "device_ops_per_step": sum(e.count for e in on_card) / steps,
         "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
                                     for e in top},
@@ -4059,6 +4076,11 @@ RESUME_RTOL = 1e-3
 TRAIN_MODELS = {"hymba-1.5b": dict(batch=2, seq=2048, steps=6, step0_tokens=256),
                 "rwkv6-3b": dict(batch=8, seq=128, steps=6, step0_tokens=128, step0_layers=4),
                 "whisper-tiny": dict(batch=8, seq=128, steps=10, step0_tokens=128)}
+#: the models whose eager step is also profiled and split at its seams beside
+#: the replayed one (qwen1.5-0.5b's too); hymba-1.5b's and rwkv6-3b's eager
+#: steps, each near a second and tens of thousands of device operations, are
+#: timed only, to keep the script inside its limit
+EAGER_PROFILED = ("whisper-tiny",)
 #: step 0's gates for those runs, from the chaos floor measured in the same
 #: call, as qwen's were set from its readings: the kernel path's worst leaf
 #: within this many times the floor's worst leaf (where the sequence mixer
@@ -4661,20 +4683,182 @@ def train_launches(cfg, steps: int) -> dict[str, int]:
     return {k: steps * v for k, v in per_step.items()}
 
 
+def median_ms(step_s: list[float]) -> float:
+    """The median of host-clock step times (s), in ms."""
+    xs = sorted(step_s)
+    mid = len(xs) // 2
+    return 1e3 * (xs[mid] if len(xs) % 2 else (xs[mid - 1] + xs[mid]) / 2)
+
+
+def checksum(trainer) -> list[float]:
+    """Each leaf of the trainer's parameters and optimizer state summed in
+    float64, in the trees' order: what a step leaves behind, readable after
+    the trees are freed."""
+    import torch
+    from repro_torch.train.tree import leaves as tree_leaves
+    with torch.no_grad():
+        return torch.stack([t.double().sum() for t in tree_leaves(
+            {"p": trainer.params, "o": trainer.opt_state})]).tolist()
+
+
+def replayed_steps(trainer, report, dev, steps: int, per_step: dict[str, int]) -> dict:
+    """The graphed run's step: every step after the warm-up replayed and a
+    replay launching ``per_step`` (one eager step's launches); the replays'
+    median (steps WARMUP + 2 to the last: the step before them also
+    captured the graph), the capturing step's time, and 3 replays profiled
+    (:func:`profile_steps`) on batches past the run's, each ending in
+    ``float(loss)`` as a step of ``Trainer.run`` does."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train.trainer import WARMUP
+
+    graph = trainer.graph
+    if not (graph is not None and graph.eager_steps == WARMUP
+            and report.replayed_steps == graph.replays == steps - WARMUP):
+        raise AssertionError(f"train {trainer.cfg.name}: {report.replayed_steps} of {steps} "
+                             f"steps replayed, {graph and graph.eager_steps} eager")
+    if {k: n for k, n in graph.launches.items() if n and k != kernels.WGMMA} != per_step:
+        raise AssertionError(f"train {trainer.cfg.name}: a replay launches {graph.launches}, "
+                             f"an eager step {per_step}")
+    batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
+    it = itertools.cycle(batches)
+    prof = profile_steps(
+        lambda: float(graph(trainer.params, trainer.opt_state, next(it))[2]["loss"]), steps=3)
+    torch.cuda.synchronize()
+    return {"median_ms": median_ms(report.step_s[WARMUP + 1:]),
+            "capture_step_ms": 1e3 * report.step_s[WARMUP], "profile": prof,
+            "replays": graph.replays}
+
+
+def eager_run(cfg, dev, batch: int, seq: int, steps: int, measure: bool = True) -> dict:
+    """``make_train_step``'s function run eagerly from the graphed run's seed
+    on a trainer of its own, over the same steps and batches, timed as
+    ``Trainer.run`` times a step (host clock around the step ending in
+    ``float(loss)``): its losses, median (steps 3 to the last), peak memory
+    and :func:`checksum`; with ``measure``, then a step profiled (ending in
+    ``float(loss)``) and one split at its seams (:func:`step_parts`) past
+    the run's batches."""
+    import torch
+    from repro_torch.launch import train as launch_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = launch_train.TrainerConfig(steps=steps, checkpoint_dir=None, lr=TRAIN_RUN["lr"])
+    trainer = launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq,
+                                   controller=True, device=dev)
+    losses, step_s = [], []
+    for step in range(steps):
+        data = trainer.dataset.device_batch_at(step, dev)
+        t0 = time.monotonic()
+        trainer.params, trainer.opt_state, metrics = trainer.step_fn(
+            trainer.params, trainer.opt_state, data)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.monotonic() - t0)
+    out = {"losses": losses, "step_s": step_s, "median_ms": median_ms(step_s[2:]),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "checksum": checksum(trainer)}
+    if measure:
+        batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
+        it = itertools.cycle(batches)
+
+        def one_step():
+            trainer.params, trainer.opt_state, m = trainer.step_fn(
+                trainer.params, trainer.opt_state, next(it))
+            float(m["loss"])
+
+        out["profile"] = profile_steps(one_step, steps=1)
+        out["parts"] = step_parts(trainer, batches[:1])
+    del trainer, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_to_eager(name: str, graphed: dict, eager: dict, rerun: Callable[[], list]) -> dict:
+    """The graphed run's losses and checksum against the eager run's: equal
+    bit for bit, or, where a second eager run (``rerun()``, its losses) shows
+    that two eager runs differ, the losses within the eager runs' spread
+    (the largest relative difference of a step)."""
+    def spread(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    out = {"bitwise": graphed["losses"] == eager["losses"]
+           and graphed["checksum"] == eager["checksum"]}
+    if out["bitwise"]:
+        out.update(graphed_vs_eager=0.0, eager_vs_eager=None)
+        return out
+    again = rerun()
+    out.update(graphed_vs_eager=spread(graphed["losses"], eager["losses"]),
+               eager_vs_eager=spread(again, eager["losses"]), eager_rerun=again)
+    if again == eager["losses"] or not out["graphed_vs_eager"] <= out["eager_vs_eager"]:
+        raise AssertionError(f"train {name}: the graphed losses {graphed['losses']} against "
+                             f"the eager {eager['losses']} (a second eager run {again}; "
+                             f"checksums equal: {graphed['checksum'] == eager['checksum']})")
+    return out
+
+
+def held_line(held: dict) -> str:
+    if held["bitwise"]:
+        return ("losses and the final trees' checksums equal to the eager run's bit for bit "
+                "(no second eager run needed)")
+    return (f"losses within {held['graphed_vs_eager']:.3e} relative of the eager run's, inside "
+            f"the eager-versus-eager spread {held['eager_vs_eager']:.3e} (a second eager run)")
+
+
+def step_line(name: str, batch: int, seq: int, steps: int, graphed: dict, eager: dict,
+              flops: dict, bound: tuple, peak_gib: float) -> str:
+    """The train step's line: the replayed step beside the eager step of the
+    same call, each with its tokens/s and peak memory, and, where it was
+    profiled, its card-active time, device ops and the card's idle share of
+    the profiled steps' span on the host clock."""
+    from repro_torch.train.trainer import WARMUP
+
+    def card(p):
+        return (f"card active {p['card_active_ms_per_step']:.3f} ms a step (busy "
+                f"{p['card_busy_ms_per_step']:.3f}, {p['device_ops_per_step']:.0f} device ops) "
+                f"of {p['wall_ms_per_step']:.3f} ms profiled (host clock to the card's end), "
+                f"idle share {p['idle_share']:.3f}")
+
+    rp = graphed["profile"]
+    eager_card = (f"{card(eager['profile'])}; parts (CUDA events, one eager step) "
+                  f"{eager['parts']}" if "profile" in eager else "not profiled")
+    return (
+        f"train step {name}: replayed {graphed['median_ms']:.3f} ms (median of steps "
+        f"{WARMUP + 2}-{steps}, host clock around the step and float(loss); the "
+        f"capturing step {graphed['capture_step_ms']:.3f} ms), "
+        f"{batch * seq / graphed['median_ms'] * 1e3:.0f} tokens/s; {card(rp)}; peak "
+        f"{peak_gib:.2f} GiB | eager {eager['median_ms']:.3f} ms (steps 3-{steps}), "
+        f"{batch * seq / eager['median_ms'] * 1e3:.0f} tokens/s; peak "
+        f"{eager['peak_gib']:.2f} GiB; {eager_card} | "
+        f"replayed / eager {graphed['median_ms'] / eager['median_ms']:.3f}; model FLOPs "
+        f"{flops['flops'] / 1e12:.3f} T a step ({flops['recompute_flops'] / 1e12:.3f} T of it "
+        f"the remat recompute) = {flops['flops'] / graphed['median_ms'] / 1e9:.1f} TFLOP/s "
+        f"replayed, {flops['flops'] / graphed['median_ms'] / 1e9 / 989:.3f} of 989; "
+        f"recurrence {flops['recurrence_ops'] / 1e9:.1f} GFLOP f32; bound {bound[0]:.3f} ms by "
+        f"{bound[1]}; top kernels (replayed) {json.dumps(rp['top_kernels_ms_per_step'])}; "
+        f"ours {json.dumps(rp['repro_kernels_ms_per_step'])}")
+
+
 def train_model(name: str, dev) -> dict:
     """One of :data:`TRAIN_MODELS` at full width through
     ``repro_torch.launch.train``'s ``Trainer`` (bf16, ``for_arch``'s
-    optimizer, the controller on, no checkpoints): step 0 held to the plain
+    optimizer, the controller on, no checkpoints), which replays its step
+    from a CUDA graph after ``trainer.WARMUP`` eager steps: step 0 held to the plain
     path beside its chaos floor, the run's losses finite, its launches
-    exact (:func:`train_launches`), its step timed (host clock, CUDA events by
-    part), profiled and bounded (:func:`train_flops`: the bf16 FLOPs at 989
-    TFLOP/s, the recurrences' float32 work at 67 TFLOP/s, the optimizer's 30 B
-    a parameter at 3.35 TB/s; the largest of the three)."""
+    exact (:func:`train_launches`), its replayed step timed (host clock) and
+    profiled; then, with that trainer freed (rwkv6-3b's state fits once),
+    an eager run from the same seed (:func:`eager_run`), which the graphed
+    run is held to (:func:`hold_to_eager`) and timed beside; the step
+    bounded by :func:`train_flops` (the bf16 FLOPs at 989 TFLOP/s, the
+    recurrences' float32 work at 67 TFLOP/s, the optimizer's 30 B a
+    parameter at 3.35 TB/s; the largest of the three)."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
 
+    t_model = time.perf_counter()
     cfg, run = get_config(name), TRAIN_MODELS[name]
     batch, seq, steps = run["batch"], run["seq"], run["steps"]
     tc = launch_train.TrainerConfig(steps=steps, checkpoint_dir=None, lr=TRAIN_RUN["lr"])
@@ -4704,57 +4888,45 @@ def train_model(name: str, dev) -> dict:
     per_step = {k: n // steps for k, n in launches.items() if n}
     log(f"train {name} full width ({n_params / 1e9:.3f} B parameters, bf16, batch {batch} x "
         f"{seq}, for_arch's AdamW lr {TRAIN_RUN['lr']}, "
-        f"controller on, no checkpoints): {steps} steps, losses "
-        f"{[round(x, 4) for x in report.losses]}; launches {launches} = {steps} x {per_step}, "
-        f"all {wgmma} K2 launches on the tensor cores; peak {peak / 2**30:.2f} GiB; summary "
+        f"controller on, no checkpoints): {steps} steps, {report.replayed_steps} of them "
+        f"replayed from the CUDA graph, losses {[round(x, 4) for x in report.losses]}; "
+        f"launches {launches} = {steps} x {per_step} (the capture none), all {wgmma} K2 "
+        f"launches on the tensor cores; peak {peak / 2**30:.2f} GiB; summary "
         f"{json.dumps(summary)}")
-
-    step_s = sorted(report.step_s[2:])
-    mid = len(step_s) // 2
-    median_ms = 1e3 * (step_s[mid] if len(step_s) % 2 else (step_s[mid - 1] + step_s[mid]) / 2)
-    batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
-    it = itertools.cycle(batches)
-
-    def one_step():
-        trainer.params, trainer.opt_state, _ = trainer.step_fn(
-            trainer.params, trainer.opt_state, next(it))
-
-    prof = profile_steps(one_step, steps=3)
-    parts = step_parts(trainer, batches)
+    graphed = {"losses": report.losses, "checksum": checksum(trainer),
+               **replayed_steps(trainer, report, dev, steps, per_step)}
+    if name == TUNED_BWD_ARCH:
+        result["tuned_backward"] = tuned_backward(trainer, cfg, dev)
+    del trainer
+    eager = eager_run(cfg, dev, batch, seq, steps, measure=name in EAGER_PROFILED)
+    held = hold_to_eager(name, graphed, eager,
+                         lambda: eager_run(cfg, dev, batch, seq, steps, measure=False)["losses"])
+    log(f"train {name} graphed vs eager ({steps} steps from seed 0, one after the other): "
+        f"{held_line(held)}")
     flops = train_flops(cfg, batch, seq)
     opt_bytes = 30 * n_params
     bound = max((flops["flops"] / BF16_FLOPS_PER_S * 1e3, "operations (bf16)"),
                 (flops["recurrence_ops"] / F32_OPS_PER_S * 1e3, "operations (f32)"),
                 (opt_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    idle = 1 - prof["card_active_ms_per_step"] / median_ms
+    prof = graphed["profile"]
+    med = graphed["median_ms"]
     result["run"] = {
         "losses": report.losses, "launches": launches, "wgmma": wgmma,
-        "median_step_ms": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
-        "peak_gib": peak / 2**30, "card_idle_share": idle, "profile": prof, "parts": parts,
-        "flops": flops, "flop_rate_tflops": flops["flops"] / median_ms / 1e9,
-        "mfu": flops["flops"] / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+        "median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
+        "peak_gib": peak / 2**30, "card_idle_share": prof["idle_share"],
+        "profile": prof, "capture_step_ms": graphed["capture_step_ms"],
+        "replayed_steps": report.replayed_steps, "held_to_eager": held,
+        "eager": {k: v for k, v in eager.items() if k != "checksum"},
+        "flops": flops, "flop_rate_tflops": flops["flops"] / med / 1e9,
+        "mfu": flops["flops"] / (med / 1e3) / BF16_FLOPS_PER_S,
         "optimizer_bytes": opt_bytes, "bound_ms": bound[0], "bound_by": bound[1],
         "summary": summary, "params": n_params}
-    log(f"train step {name}: median {median_ms:.3f} ms over steps 3-{steps} (host clock "
-        f"around the step and float(loss)), {result['run']['tokens_per_s']:.0f} tokens/s; "
-        f"card active {prof['card_active_ms_per_step']:.3f} ms a step (busy "
-        f"{prof['card_busy_ms_per_step']:.3f}, {prof['device_ops_per_step']:.0f} device ops), "
-        f"idle share {idle:.3f}; parts (CUDA events) {parts}; peak {peak / 2**30:.2f} GiB; "
-        f"model FLOPs {flops['flops'] / 1e12:.3f} T a step ({flops['recompute_flops'] / 1e12:.3f} "
-        f"T of it the remat recompute) = {result['run']['flop_rate_tflops']:.1f} TFLOP/s, "
-        f"{result['run']['mfu']:.3f} of 989; recurrence {flops['recurrence_ops'] / 1e9:.1f} "
-        f"GFLOP f32; bound {bound[0]:.3f} ms by {bound[1]} (bf16 FLOPs "
-        f"{flops['flops'] / BF16_FLOPS_PER_S * 1e3:.3f} ms, f32 "
-        f"{flops['recurrence_ops'] / F32_OPS_PER_S * 1e3:.3f} ms, the optimizer's 30 B a "
-        f"parameter {opt_bytes / 1e9:.2f} GB {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
-        f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
-        f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
-    del batches, it
-    if name == TUNED_BWD_ARCH:
-        result["tuned_backward"] = tuned_backward(trainer, cfg, dev)
-    del trainer
+    log(step_line(name, batch, seq, steps, graphed, eager, flops, bound, peak / 2**30)
+        + f"; the optimizer's 30 B a parameter {opt_bytes / 1e9:.2f} GB "
+          f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"train {name}: {time.perf_counter() - t_model:.1f} s")
     return result
 
 
@@ -4790,14 +4962,14 @@ def world_of_one(dev):
 def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
     """The sharded train step on a 1 x 1 (data, model) mesh over an NCCL group
     of one rank: (a) ``Trainer`` with that mesh's ``DistContext`` (same seed,
-    batch and settings as the LOCAL run, no checkpoints) for DIST_STEPS steps,
-    its losses the LOCAL run's first ones bit for bit and its K1/K2 launches
-    DIST_STEPS x the LOCAL per-step counts; (b) the LOCAL run's checkpoint at
+    batch and settings as the LOCAL run, no checkpoints; its sharded step
+    eager) for DIST_STEPS steps, its losses the LOCAL eager run's first ones
+    bit for bit and its K1/K2 launches DIST_STEPS x the LOCAL per-step counts; (b) the LOCAL run's checkpoint at
     ``ckpt_dir`` restored onto the mesh by ``param_shardings`` and
     ``opt_shardings``, every leaf byte for byte; (c) ``compressed_psum`` over the
     world of one exactly ``dequantize(quantize(g + e))`` with the error buffer
-    exactly the rest. ``local``: the LOCAL run's ``losses``, ``per_step``
-    launches and ``step_s``."""
+    exactly the rest. ``local``: the LOCAL eager run's ``losses`` and
+    ``step_s`` (:func:`eager_run`) and the LOCAL ``per_step`` launches."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -4826,8 +4998,8 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
         launches = kernels.launch_counts()
         want = {k: DIST_STEPS * local["per_step"].get(k, 0) for k in launches}
         if report.losses != local["losses"][:DIST_STEPS]:
-            raise AssertionError(f"distributed losses {report.losses} != LOCAL "
-                                 f"{local['losses'][:DIST_STEPS]}")
+            raise AssertionError(f"distributed losses {report.losses} != the LOCAL eager "
+                                 f"run's {local['losses'][:DIST_STEPS]}")
         if launches != want:
             raise AssertionError(f"distributed launches {launches} != {want}")
         med = float(np.median(report.step_s)) * 1e3
@@ -4836,9 +5008,9 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
                         "step_s": report.step_s, "median_ms": med,
                         "local_median_ms_first5": local_med}
         log(f"distributed train {cfg.name} on a 1 x 1 (data, model) mesh over NCCL (world "
-            f"of one): {DIST_STEPS} steps, losses {report.losses} == the LOCAL run's first "
-            f"{DIST_STEPS} bit for bit; launches {launches} = {DIST_STEPS} x LOCAL per step; "
-            f"step median {med:.3f} ms (host clock, 5 steps), LOCAL's first 5 "
+            f"of one): {DIST_STEPS} steps, losses {report.losses} == the LOCAL eager run's "
+            f"first {DIST_STEPS} bit for bit; launches {launches} = {DIST_STEPS} x LOCAL per "
+            f"step; step median {med:.3f} ms (host clock, 5 steps), LOCAL eager's first 5 "
             f"{local_med:.3f} ms; steps {[round(x * 1e3, 3) for x in report.step_s]} ms")
         optimizer = trainer.optimizer
         del trainer
@@ -5204,15 +5376,20 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
     checks and the refusals; ``before_timed()`` (kept as
     ``result["dryrun_traces"]``); then qwen1.5-0.5b at full width through
     ``repro_torch.launch.train``'s ``Trainer`` (bf16, AdamW, the controller,
-    a checkpoint every 10 steps into a temporary directory), its step 0 held
-    to the plain path, its launches counted, both resumes checked, its step
-    timed, profiled and bounded."""
+    a checkpoint every 10 steps into a temporary directory; its step replayed
+    from a CUDA graph after ``trainer.WARMUP`` eager steps), its step 0 held
+    to the plain path, its launches counted, both resumes checked, its
+    replayed step timed and profiled; then an eager run from the same seed,
+    which the graphed run is held to and timed beside (:func:`eager_run`,
+    :func:`hold_to_eager`), the step bounded, and the distributed step held
+    to the eager run; then :func:`train_model` for each of TRAIN_MODELS."""
     import shutil
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import WARMUP
     from repro_torch.train.tree import leaves as tree_leaves
 
     t_phase = time.perf_counter()
@@ -5223,6 +5400,7 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
     log(f"train functions, f32 families and refusals: {time.perf_counter() - t_phase:.1f} s")
     result["dryrun_traces"] = before_timed()
 
+    t_qwen = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
     batch, seq = TRAIN_BATCH
     root = Path(tempfile.mkdtemp(prefix="repro_train_"))
@@ -5267,11 +5445,14 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
         if not (report.steps_run == steps and all(map(math.isfinite, report.losses))):
             raise AssertionError(f"train run: {report}")
         log(f"train {cfg.name} full width ({n_params / 1e9:.3f} B parameters, bf16, batch "
-            f"{batch} x {seq}, AdamW lr {TRAIN_RUN['lr']}, controller on): {steps} steps, losses "
+            f"{batch} x {seq}, AdamW lr {TRAIN_RUN['lr']}, controller on): {steps} steps, "
+            f"{report.replayed_steps} of them replayed from the CUDA graph, losses "
             f"{[round(x, 4) for x in report.losses]}; launches {launches} = {steps} x "
             f"{per_step} (forward 2 x {cfg.n_layers} + 1 norms and {cfg.n_layers} attentions, "
-            f"the backward's per-layer recompute 2 x {cfg.n_layers} and {cfg.n_layers} more), "
-            f"all {wgmma} K2 launches on the tensor cores; summary {json.dumps(summary)}")
+            f"the backward's per-layer recompute 2 x {cfg.n_layers} and {cfg.n_layers} more; "
+            f"the capture none), all {wgmma} K2 launches on the tensor cores; summary "
+            f"{json.dumps(summary)}")
+        graphed = {"losses": report.losses, "checksum": checksum(trainer)}
 
         # resume 1: the finished directory
         fresh = trainer_at(root / "run")
@@ -5294,6 +5475,7 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
         bitwise = all(torch.equal(a.detach(), b.detach())
                       for a, b in zip(tree_leaves(trainer.params), tree_leaves(again.params)))
         if not (rep2.resumed_from == mid and len(diffs) == steps - mid
+                and rep2.replayed_steps == steps - mid - WARMUP
                 and max(diffs) <= RESUME_RTOL):
             raise AssertionError(f"resume from step {mid}: {rep2.losses} vs "
                                  f"{report.losses[mid:]}")
@@ -5301,60 +5483,53 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"train resume: from step {steps}, steps_run 0 and parameters and optimizer state "
-            f"equal byte for byte; from step {mid}, steps {mid + 1}-{steps} losses within "
+            f"equal byte for byte; from step {mid} ({rep2.replayed_steps} steps replayed from "
+            f"the restart's own graph), steps {mid + 1}-{steps} losses within "
             f"{max(diffs):.2e} relative (tol {RESUME_RTOL}), final parameters "
             f"{'equal' if bitwise else 'not equal'} bit for bit; save "
             f"{[round(t, 3) for t in timings['save']]} s, restore "
             f"{[round(t, 3) for t in timings['restore']]} s")
 
-        # the step: its time, the card's share of it, its parts and its bound
-        step_s = sorted(report.step_s[2:])
-        median_ms = 1e3 * step_s[len(step_s) // 2] if len(step_s) % 2 else \
-            1e3 * (step_s[len(step_s) // 2 - 1] + step_s[len(step_s) // 2]) / 2
-        batches = [trainer.dataset.device_batch_at(steps + i, dev) for i in range(3)]
-        it = itertools.cycle(batches)
-
-        def one_step():
-            trainer.params, trainer.opt_state, _ = trainer.step_fn(
-                trainer.params, trainer.opt_state, next(it))
-
-        prof = profile_steps(one_step, steps=3)
-        parts = step_parts(trainer, batches)
+        # the step: replayed beside eager, the card's share of each, the parts
+        # and the bound
+        graphed.update(replayed_steps(trainer, report, dev, steps, per_step))
+        del trainer
+        eager = eager_run(cfg, dev, batch, seq, steps)
+        held = hold_to_eager(cfg.name, graphed, eager, lambda: eager_run(
+            cfg, dev, batch, seq, steps, measure=False)["losses"])
+        log(f"train {cfg.name} graphed vs eager ({steps} steps from seed 0, one after the "
+            f"other): {held_line(held)}")
+        prof, med = graphed["profile"], graphed["median_ms"]
         flops = train_flops(cfg, batch, seq)
         opt_bytes = 30 * n_params
         bound = max((flops["flops"] / BF16_FLOPS_PER_S * 1e3, "operations"),
                     (opt_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-        idle = 1 - prof["card_active_ms_per_step"] / median_ms
         result["run"] = {
             "losses": report.losses, "launches": launches, "wgmma": wgmma,
-            "median_step_ms": median_ms, "tokens_per_s": batch * seq / (median_ms / 1e3),
-            "peak_gib": peak / 2**30, "card_idle_share": idle, "profile": prof,
-            "parts": parts, "flops": flops, "flop_rate_tflops": flops["flops"] / median_ms / 1e9,
-            "mfu": flops["flops"] / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+            "median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
+            "peak_gib": peak / 2**30,
+            "card_idle_share": prof["idle_share"], "profile": prof,
+            "capture_step_ms": graphed["capture_step_ms"],
+            "replayed_steps": report.replayed_steps, "held_to_eager": held,
+            "eager": {k: v for k, v in eager.items() if k != "checksum"},
+            "flops": flops, "flop_rate_tflops": flops["flops"] / med / 1e9,
+            "mfu": flops["flops"] / (med / 1e3) / BF16_FLOPS_PER_S,
             "optimizer_bytes": opt_bytes, "bound_ms": bound[0], "bound_by": bound[1],
             "save_s": timings["save"], "restore_s": timings["restore"], "summary": summary,
             "resume_max_rel": max(diffs), "resume_bitwise": bitwise,
         }
-        log(f"train step {cfg.name}: median {median_ms:.3f} ms over steps 3-{steps} (host clock "
-            f"around the step and float(loss)), {result['run']['tokens_per_s']:.0f} tokens/s; "
-            f"card active {prof['card_active_ms_per_step']:.3f} ms a step (busy "
-            f"{prof['card_busy_ms_per_step']:.3f}, {prof['device_ops_per_step']:.0f} device ops), "
-            f"idle share {idle:.3f}; parts (CUDA events) {parts}; peak "
-            f"{peak / 2**30:.2f} GiB; model FLOPs {flops['flops'] / 1e12:.3f} T a step "
-            f"({flops['layer_matmul_params'] / 1e6:.1f} M layer matmul parameters + the tied "
-            f"head, {flops['recompute_flops'] / 1e12:.3f} T of it the remat recompute) = "
-            f"{result['run']['flop_rate_tflops']:.1f} TFLOP/s, {result['run']['mfu']:.3f} of "
-            f"989; bound {bound[0]:.3f} ms by {bound[1]} (FLOPs "
-            f"{flops['flops'] / BF16_FLOPS_PER_S * 1e3:.3f} ms, the optimizer's 30 B a "
-            f"parameter {opt_bytes / 1e9:.2f} GB {opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); "
-            f"top kernels {json.dumps(prof['top_kernels_ms_per_step'])}; ours "
-            f"{json.dumps(prof['repro_kernels_ms_per_step'])}")
-        del trainer, batches
+        log(step_line(cfg.name, batch, seq, steps, graphed, eager, flops, bound, peak / 2**30)
+            + f" ({flops['layer_matmul_params'] / 1e6:.1f} M layer matmul parameters + the "
+              f"tied head; FLOPs {flops['flops'] / BF16_FLOPS_PER_S * 1e3:.3f} ms, the "
+              f"optimizer's 30 B a parameter {opt_bytes / 1e9:.2f} GB "
+              f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
         gc.collect()
         torch.cuda.empty_cache()
+        log(f"train {cfg.name}: {time.perf_counter() - t_qwen:.1f} s")
+        # the sharded step is eager: it is held to the eager run
         result["dist"] = distributed_step(
-            cfg, dev, {"losses": report.losses, "per_step": per_step, "step_s": report.step_s},
-            root / "run")
+            cfg, dev, {"losses": eager["losses"], "per_step": per_step,
+                       "step_s": eager["step_s"]}, root / "run")
     finally:
         ckpt.save, ckpt.restore = originals
         shutil.rmtree(root, ignore_errors=True)

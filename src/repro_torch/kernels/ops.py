@@ -81,6 +81,15 @@ def _backward_masks(sq: int, sk: int, causal: bool, window: int, groups: int, sc
     return bias, keep.to(dtype) * scale
 
 
+def _masks(*key) -> tuple:
+    """:func:`_backward_masks`, built anew while a CUDA graph is captured:
+    the graph then reads masks of its own pool at every replay, where the
+    cache may drop the ones it holds when other shapes come through."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return _backward_masks.__wrapped__(*key)
+    return _backward_masks(*key)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """K2 with its gradient, in the model's (B, S, H, d) layout. Forward: the
     kernel wrapper; it saves q, k, v and the output O. Backward in f32 (f64
@@ -137,8 +146,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             rows = slice(i, i + qb) if blocked else slice(None)
             n = qb if blocked else sq
             qr, dor, outr = (t[:, :, rows].reshape(b * kvh, g * n, d) for t in (qh, doh, oh))
-            bias, keep_scale = _backward_masks(n, sk, ctx.causal, ctx.window, g, scale,
-                                               q.device, acc, i)
+            bias, keep_scale = _masks(n, sk, ctx.causal, ctx.window, g, scale, q.device, acc, i)
             p = torch.softmax(torch.baddbmm(bias, qr, kh.transpose(1, 2), alpha=scale), dim=-1)
             dp = torch.bmm(dor, vh.transpose(1, 2))
             if ctx.probs_bf16:

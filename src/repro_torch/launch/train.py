@@ -1,8 +1,9 @@
 """Training launcher, as the JAX package's ``launch/train.py``.
 
 The execution-idle telemetry + Algorithm-1 controller are first-class
-flags. Runs on the card by default; ``--device cpu --smoke`` trains a
-smoke-size model on the CPU.
+flags. Runs on the card by default, where the trainer replays its step
+from a CUDA graph after two eager steps; ``--device cpu --smoke`` trains a
+smoke-size model on the CPU, eagerly.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --steps 20 --batch 8 --seq 128 --controller --checkpoint-dir /tmp/ck
@@ -54,9 +55,11 @@ def main(argv: list[str] | None = None) -> dict:
 
 
 def summarize(trainer: Trainer, report: TrainReport) -> dict:
-    """The run's JSON summary: losses, resume, stragglers, wall time, the
-    telemetry's execution-idle shares (``analyze_job`` on the sampler's
-    rows) and the controller's downscales."""
+    """The run's JSON summary: losses, resume, stragglers, the steps
+    replayed from the CUDA graph (every step after the first two on the
+    card, none on the CPU), wall time, the telemetry's execution-idle
+    shares (``analyze_job`` on the sampler's rows) and the controller's
+    downscales."""
     frame = trainer.sampler.frame()
     telemetry = {}
     if len(frame):
@@ -75,6 +78,7 @@ def summarize(trainer: Trainer, report: TrainReport) -> dict:
         "loss_first": round(report.losses[0], 4) if report.losses else None,
         "resumed_from": report.resumed_from,
         "stragglers": report.straggler_events,
+        "replayed_steps": report.replayed_steps,
         "wall_s": round(report.wall_s, 1),
         "telemetry": telemetry,
         "controller_downscales": (trainer.controller.stats.downscale_events

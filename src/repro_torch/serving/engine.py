@@ -36,9 +36,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ExecutionIdleController
 from repro_torch.core.power_model import SimulatedDevice, get_platform
-from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels.graphs import StepGraph
 from repro_torch.models import api
 from repro_torch.serving.latency import LatencyStats, Request
 from repro_torch.telemetry.sampler import RuntimeSampler
@@ -68,31 +68,6 @@ def clone_cache(cache):
     if isinstance(cache, list):
         return [clone_cache(v) for v in cache]
     return cache.clone()
-
-
-class StepGraph:
-    """One step function captured into a CUDA graph: a replay reads its
-    input from ``tokens`` and writes its result to ``out``, both at fixed
-    addresses. ``launches`` is what one replay launches of each kernel
-    (:func:`repro_torch.kernels.captured_launches`), added to the counters
-    at every replay."""
-
-    def __init__(self, fn, tokens: torch.Tensor, stream: torch.cuda.Stream):
-        self.tokens = tokens
-        self.graph = torch.cuda.CUDAGraph()
-        with kernels.captured_launches() as launches, \
-                torch.cuda.graph(self.graph, stream=stream):
-            self.out = fn(tokens)
-        self.launches = launches
-
-    def __call__(self, tokens: torch.Tensor):
-        if tokens.shape != self.tokens.shape:     # copy_ would broadcast
-            raise ValueError(f"tokens {tuple(tokens.shape)}; the graph was captured "
-                             f"for {tuple(self.tokens.shape)}")
-        self.tokens.copy_(tokens)
-        self.graph.replay()
-        kernels.count_replay(self.launches)
-        return self.out
 
 
 @dataclasses.dataclass
@@ -164,15 +139,17 @@ class ServingEngine:
                 self._prefill_eager(prefill_in)
             del scratch
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graphs["decode"] = StepGraph(self._decode_eager, decode_in, stream)
-        self.graphs["prefill"] = StepGraph(self._prefill_eager, prefill_in, stream)
+        self.graphs["decode"] = StepGraph(lambda ins: self._decode_eager(ins["tokens"]),
+                                          {"tokens": decode_in}, stream)
+        self.graphs["prefill"] = StepGraph(lambda ins: self._prefill_eager(ins["tokens"]),
+                                           {"tokens": prefill_in}, stream)
 
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:
         """One batched decode step on the engine's cache: (n_slots, 1)
         tokens, logits (n_slots, 1, V). On the card a replay of the decode
         graph, whose logits tensor the next replay overwrites."""
         if "decode" in self.graphs:
-            return self.graphs["decode"](tokens)
+            return self.graphs["decode"]({"tokens": tokens})
         return self._decode_eager(tokens)
 
     def prefill(self, tokens: torch.Tensor):
@@ -180,7 +157,7 @@ class ServingEngine:
         (1, 1, V)). On the card a replay of the prefill graph, whose outputs
         the next replay overwrites."""
         if "prefill" in self.graphs:
-            return self.graphs["prefill"](tokens)
+            return self.graphs["prefill"]({"tokens": tokens})
         return self._prefill_eager(tokens)
 
     @contextlib.contextmanager

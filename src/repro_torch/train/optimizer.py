@@ -13,16 +13,17 @@ API:
     new_params, new_state, stats = opt.step(params, grads, state)
     specs = opt.state_specs(param_spec_tree, abstract_params)
 
-Gradients are clipped by their global norm in f32 first. The step updates
-the state's tensors and the parameters in place, under ``torch.no_grad()``:
-the parameters become the master weights cast back to their dtype, as the
-reference's step returns them, and the new trees are the ones passed in
-(``count`` a new 0-d int32 tensor). State trees mirror the parameter tree,
-so the parameters' specs apply leaf-wise (factored statistics drop one dim
-and inherit the compatible prefix of the spec). Under a mesh the trees are
-DTensors placed so, and the same step runs on them: DTensor reduces what a
-norm, a mean or a factored statistic needs over the ranks that share a
-leaf.
+Gradients are clipped by their global norm in f32, a leaf at a time. The
+step updates the state's tensors and the parameters in place, under
+``torch.no_grad()``: the parameters become the master weights cast back to
+their dtype, as the reference's step returns them, and the new trees are
+the ones passed in, ``count`` (a 0-d int32 tensor) advanced in place too: a
+CUDA graph captured on the trees reads and writes the same tensors at every
+replay. State trees mirror the parameter tree, so the parameters' specs
+apply leaf-wise (factored statistics drop one dim and inherit the
+compatible prefix of the spec). Under a mesh the trees are DTensors placed
+so, and the same step runs on them: DTensor reduces what a norm, a mean or
+a factored statistic needs over the ranks that share a leaf.
 """
 from __future__ import annotations
 
@@ -44,10 +45,14 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.stack([g.float().square().sum() for g in leaves(tree)]).sum().sqrt()
 
 
-def _clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float):
+    """The factor that clips ``grads`` by their global norm to ``max_norm``,
+    and the norm. The steps apply it a leaf at a time (``g.float() *
+    scale``), so that one leaf's f32 gradient is alive at a time, not the
+    whole tree's: a CUDA graph's capture cannot free cached memory to
+    make room."""
     norm = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return map_up_to(lambda g: g.float() * scale, grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
 def _master(params):
@@ -71,13 +76,14 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def step(params, grads, state):
-        grads, gnorm = _clip_by_global_norm(grads, grad_clip)
-        count = state["count"] + 1
+        scale, gnorm = _clip_scale(grads, grad_clip)
+        count = state["count"].add_(1)
         c = count.float()
         bc1 = 1.0 - b1 ** c
         bc2 = 1.0 - b2 ** c
 
         def upd(p, g, master, m, v):
+            g = g.float() * scale
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g.square())
             u = (m / bc1) / ((v / bc2).sqrt() + eps)
@@ -85,7 +91,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
             p.copy_(master)
 
         map_up_to(upd, params, grads, state["master"], state["m"], state["v"])
-        return params, dict(state, count=count), {"grad_norm": gnorm}
+        return params, state, {"grad_norm": gnorm}
 
     def state_specs(param_specs, abstract_params):
         return {"master": param_specs, "m": param_specs, "v": param_specs,
@@ -116,11 +122,11 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def step(params, grads, state):
-        grads, gnorm = _clip_by_global_norm(grads, grad_clip)
-        count = state["count"] + 1
-        beta2 = 1.0 - count.float() ** (-decay)
+        scale, gnorm = _clip_scale(grads, grad_clip)
+        beta2 = 1.0 - state["count"].add_(1).float() ** (-decay)
 
         def upd(p, g, master, st):
+            g = g.float() * scale
             g2 = g.square() + eps
             if _factored(g.shape):
                 vr, vc = st["vr"], st["vc"]
@@ -137,7 +143,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             p.copy_(master)
 
         map_up_to(upd, params, grads, state["master"], state["stats"])
-        return params, dict(state, count=count), {"grad_norm": gnorm}
+        return params, state, {"grad_norm": gnorm}
 
     def state_specs(param_specs, abstract_params):
         def stats_spec(leaf, spec):

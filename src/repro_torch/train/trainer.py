@@ -8,10 +8,14 @@ downscales the (simulated) device clocks during sustained input-pipeline or
 checkpoint stalls — a training-side guard against PCIe/NIC-preceded
 execution-idle (§4.5).
 
-A step runs eagerly on the device: the loss forward (K1 and K2 inside their
-autograd Functions on the card), the backward, the global-norm clip and the
-optimizer update. ``float(loss)`` is the step's synchronisation point, as in
-the reference, so the step time is the host's clock around all of it.
+A step is the loss forward (K1, K2, K5 and K6 inside their autograd
+Functions on the card), the backward, the global-norm clip and the optimizer
+update. On the card ``run`` replays it from one CUDA graph
+(:class:`TrainStepGraph`), as the reference jit-compiles it: two eager
+steps, then a capture, then a replay a step. On the CPU, and under a
+``dist`` with a mesh, every step runs eagerly. ``float(loss)`` is the step's
+synchronisation point, as in the reference, so the step time is the host's
+clock around all of it.
 
 Under a ``dist`` with a mesh (one process a rank, every rank running the
 same steps), parameters, optimizer state and the batch are DTensors placed
@@ -49,6 +53,7 @@ from repro_torch.core.power_model import SimulatedDevice, get_platform
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import LOCAL, DistContext
+from repro_torch.kernels.graphs import StepGraph
 from repro_torch.models import api
 from repro_torch.telemetry.sampler import RuntimeSampler
 from repro_torch.train import checkpoint as ckpt
@@ -82,6 +87,8 @@ class TrainReport:
     wall_s: float
     #: each step's time on the host clock (s), the straggler rule's input
     step_s: list[float] = dataclasses.field(default_factory=list)
+    #: steps replayed from the CUDA graph (the rest ran eagerly)
+    replayed_steps: int = 0
 
 
 def train_shardings(cfg: ModelConfig, optimizer, dist: DistContext) -> dict:
@@ -183,6 +190,63 @@ def _sharded_step(cfg: ModelConfig, optimizer, dist: DistContext):
     return step_fn
 
 
+#: eager steps on the capture stream before the step is captured, as the
+#: serving engine's ``WARMUP_RUNS``
+WARMUP = 2
+
+
+class TrainStepGraph:
+    """A step function of :func:`make_train_step` on one pair of trees,
+    replayed from a :class:`~repro_torch.kernels.graphs.StepGraph` after
+    ``WARMUP`` eager steps.
+
+    The first ``WARMUP`` calls are real steps, run eagerly on the capture
+    stream so that what a first step sets up (cuBLAS's handle and workspace
+    for that stream, the kernel library, the launch plans, the kernels'
+    shared-memory attributes) exists before capture; they run on the trees
+    themselves, not on a copy, which the largest models have no room for.
+    The next call frees the cached blocks, captures the step with the batch
+    as the graph's inputs (a capture launches nothing, so it advances no
+    state) and replays it, as does every call after it. The optimizer
+    updates every leaf in place, ``count`` included, so the trees the graph
+    was captured on hold the current step after every replay: the caller
+    keeps passing them, and a call with other trees raises. There is no
+    eager fallback."""
+
+    def __init__(self, step_fn, device: torch.device):
+        self.step_fn = step_fn
+        self.stream = torch.cuda.Stream(device)
+        self.graph: StepGraph | None = None
+        self.eager_steps = 0
+        self.replays = 0
+
+    @property
+    def launches(self) -> dict[str, int]:
+        """What one replay launches of each kernel."""
+        return self.graph.launches
+
+    def __call__(self, params, opt_state, batch: dict):
+        if self.graph is None and self.eager_steps < WARMUP:
+            current = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = self.step_fn(params, opt_state, batch)
+            current.wait_stream(self.stream)
+            self.eager_steps += 1
+            return out
+        if self.graph is None:
+            torch.cuda.synchronize(self.stream.device)
+            torch.cuda.empty_cache()       # the warm-up's blocks, before the graph's pool
+            inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+            self.graph = StepGraph(lambda b: self.step_fn(params, opt_state, b), inputs,
+                                   self.stream)
+        if params is not self.graph.out[0] or opt_state is not self.graph.out[1]:
+            raise ValueError("the trees are not the ones the step was captured on")
+        out = self.graph(batch)
+        self.replays += 1
+        return out
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
                  dist: DistContext = LOCAL, global_batch: int = 8,
@@ -200,6 +264,9 @@ class Trainer:
         self.sampler = RuntimeSampler(self.device, job_id=1)
         self.controller = (ExecutionIdleController(self.device)
                            if controller else None)
+        #: the step's CUDA graph of the last ``run`` on the card (None on the
+        #: CPU and under a mesh, where every step runs eagerly)
+        self.graph: TrainStepGraph | None = None
         gen = torch.Generator(device=self.torch_device).manual_seed(seed)
         self.params = api.init_params(gen, cfg, ep_size=dist.ep_size)
         self.opt_state = self.optimizer.init(self.params)
@@ -236,6 +303,11 @@ class Trainer:
             self.params, self.opt_state, start_step = ckpt.restore(
                 tc.checkpoint_dir, self.params, self.opt_state)
             resumed_from = start_step
+        # made after the restore, which rebinds the trees the graph is captured on
+        self.graph = (TrainStepGraph(self.step_fn, self.torch_device)
+                      if self.torch_device.type == "cuda" and not self.dist.enabled
+                      else None)
+        step_fn = self.step_fn if self.graph is None else self.graph
 
         self.sampler.load_program()
         losses: list[float] = []
@@ -249,8 +321,7 @@ class Trainer:
             fetch_s = time.monotonic() - fetch_t0
 
             step_t0 = time.monotonic()
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
+            self.params, self.opt_state, metrics = step_fn(self.params, self.opt_state, batch)
             loss = float(metrics["loss"])
             step_s = time.monotonic() - step_t0
             losses.append(loss)
@@ -282,4 +353,5 @@ class Trainer:
             telemetry_rows=len(self.sampler.frame()),
             wall_s=time.monotonic() - t0,
             step_s=step_times,
+            replayed_steps=0 if self.graph is None else self.graph.replays,
         )
