@@ -1162,7 +1162,8 @@ def profile_steps(fn, steps: int = 3) -> dict:
     overlap twice), its device operations, and the kernels that take it;
     beside them the host clock's span of the profiled calls from the first
     one's start to the card's end (``wall_ms_per_step``) and the card's idle
-    share of that span, both sides from the same calls."""
+    share of that span, both sides from the same calls; and the NCCL kernels
+    among the operations (names starting ``nccl``), by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1194,6 +1195,7 @@ def profile_steps(fn, steps: int = 3) -> dict:
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / steps
             launches[m.group(1)] = launches.get(m.group(1), 0) + e.count / steps
+    nccl = [e for e in on_card if e.key.lower().startswith("nccl")]
     active_ms, wall_ms = covered(spans) / 1e3 / steps, wall_s[1] * 1e3 / steps
     return {
         "card_busy_ms_per_step": sum(e.self_device_time_total for e in on_card) / 1e3 / steps,
@@ -1205,6 +1207,8 @@ def profile_steps(fn, steps: int = 3) -> dict:
                                     for e in top},
         "repro_kernels_ms_per_step": ours,
         "repro_launches_per_step": launches,
+        "nccl_ops_per_step": sum(e.count for e in nccl) / steps,
+        "nccl_kernels": sorted({e.key[:60] for e in nccl}),
     }
 
 
@@ -4692,13 +4696,15 @@ def median_ms(step_s: list[float]) -> float:
 
 def checksum(trainer) -> list[float]:
     """Each leaf of the trainer's parameters and optimizer state summed in
-    float64, in the trees' order: what a step leaves behind, readable after
-    the trees are freed."""
+    float64, in the trees' order (a DTensor leaf whole): what a step leaves
+    behind, readable after the trees are freed."""
     import torch
+    from torch.distributed.tensor import DTensor
     from repro_torch.train.tree import leaves as tree_leaves
     with torch.no_grad():
-        return torch.stack([t.double().sum() for t in tree_leaves(
-            {"p": trainer.params, "o": trainer.opt_state})]).tolist()
+        return torch.stack([(t.full_tensor() if isinstance(t, DTensor) else t).double().sum()
+                            for t in tree_leaves({"p": trainer.params,
+                                                  "o": trainer.opt_state})]).tolist()
 
 
 def replayed_steps(trainer, report, dev, steps: int, per_step: dict[str, int]) -> dict:
@@ -4730,9 +4736,11 @@ def replayed_steps(trainer, report, dev, steps: int, per_step: dict[str, int]) -
             "replays": graph.replays}
 
 
-def eager_run(cfg, dev, batch: int, seq: int, steps: int, measure: bool = True) -> dict:
+def eager_run(cfg, dev, batch: int, seq: int, steps: int, measure: bool = True,
+              dist=None) -> dict:
     """``make_train_step``'s function run eagerly from the graphed run's seed
-    on a trainer of its own, over the same steps and batches, timed as
+    on a trainer of its own (under ``dist``'s mesh where given), over the
+    same steps and batches, timed as
     ``Trainer.run`` times a step (host clock around the step ending in
     ``float(loss)``): its losses, median (steps 3 to the last), peak memory
     and :func:`checksum`; with ``measure``, then a step profiled (ending in
@@ -4745,8 +4753,8 @@ def eager_run(cfg, dev, batch: int, seq: int, steps: int, measure: bool = True) 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     tc = launch_train.TrainerConfig(steps=steps, checkpoint_dir=None, lr=TRAIN_RUN["lr"])
-    trainer = launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq,
-                                   controller=True, device=dev)
+    trainer = launch_train.Trainer(cfg, tc, global_batch=batch, seq_len=seq, controller=True,
+                                   device=dev, **({} if dist is None else {"dist": dist}))
     losses, step_s = [], []
     for step in range(steps):
         data = trainer.dataset.device_batch_at(step, dev)
@@ -4930,13 +4938,16 @@ def train_model(name: str, dev) -> dict:
     return result
 
 
-#: steps of the sharded train step on a mesh of one rank (the LOCAL run's first)
-DIST_STEPS = 5
+#: steps of the sharded train step on a mesh of one rank (the LOCAL run's
+#: first): trainer.WARMUP eager, then a capture and a replay a step
+DIST_STEPS = 6
 #: what one card leaves unchecked of distribution (tests/test_torch_distributed.py
-#: holds each on gloo groups of 2 and 4 CPU processes)
+#: holds each on gloo groups of 2 and 4 CPU processes, eagerly)
 DIST_UNCHECKED = ("collectives across two or more ranks on NCCL", "a model axis above 1",
                   "the expert-parallel all-to-alls and capacity drops across ranks",
-                  "the 16 x 16 and 2 x 16 x 16 meshes")
+                  "the 16 x 16 and 2 x 16 x 16 meshes",
+                  "the sharded step's CUDA graph across two or more ranks (gloo has no graphs)",
+                  "every collective a world of one does not launch inside the graph")
 
 
 @contextlib.contextmanager
@@ -4959,17 +4970,52 @@ def world_of_one(dev):
         shutil.rmtree(d, ignore_errors=True)
 
 
+def captured_psum(group, g, e) -> dict:
+    """``compressed_psum({"g": g}, group, {"g": e})`` eagerly, then, after an
+    eager call on the capture stream, captured into a CUDA graph
+    (``StepGraph``, as the trainer's) and replayed twice on the same inputs:
+    the eager call's sum and error buffer, each replay's (copies), and the
+    graph."""
+    import torch
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.kernels.graphs import StepGraph
+
+    def fn(x):
+        summed, err = compressed_psum({"g": x["g"]}, group, {"g": x["e"]})
+        return summed["g"], err["g"]
+
+    inputs = {"g": g, "e": e}
+    eager = fn(inputs)
+    current, stream = torch.cuda.current_stream(g.device), torch.cuda.Stream(g.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        fn(inputs)
+    current.wait_stream(stream)
+    graph = StepGraph(fn, {k: torch.empty_like(v) for k, v in inputs.items()}, stream)
+    replays = [tuple(t.clone() for t in graph(inputs)) for _ in range(2)]
+    return {"eager": eager, "replays": replays, "graph": graph}
+
+
 def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
     """The sharded train step on a 1 x 1 (data, model) mesh over an NCCL group
     of one rank: (a) ``Trainer`` with that mesh's ``DistContext`` (same seed,
-    batch and settings as the LOCAL run, no checkpoints; its sharded step
-    eager) for DIST_STEPS steps, its losses the LOCAL eager run's first ones
-    bit for bit and its K1/K2 launches DIST_STEPS x the LOCAL per-step counts; (b) the LOCAL run's checkpoint at
-    ``ckpt_dir`` restored onto the mesh by ``param_shardings`` and
-    ``opt_shardings``, every leaf byte for byte; (c) ``compressed_psum`` over the
-    world of one exactly ``dequantize(quantize(g + e))`` with the error buffer
-    exactly the rest. ``local``: the LOCAL eager run's ``losses`` and
-    ``step_s`` (:func:`eager_run`) and the LOCAL ``per_step`` launches."""
+    batch and settings as the LOCAL run, no checkpoints) for DIST_STEPS
+    steps, the last DIST_STEPS - WARMUP replayed from its CUDA graph, its
+    losses the LOCAL eager run's first ones bit for bit, every leaf's local
+    tensor where it was, its K1/K2 launches DIST_STEPS x the LOCAL per-step
+    counts (a replay's one step's), its replayed step timed and profiled
+    (:func:`replayed_steps`: device ops and NCCL kernels a replay); then an
+    eager sharded run from the same seed (:func:`eager_run`), which the
+    graphed run is held to (:func:`hold_to_eager`) and timed beside, with
+    the LOCAL replayed step of the same call; (b) the LOCAL run's checkpoint
+    at ``ckpt_dir`` restored onto the mesh by ``param_shardings`` and
+    ``opt_shardings``, every leaf byte for byte; (c) ``compressed_psum`` over
+    the world of one exactly ``dequantize(quantize(g + e))`` with the error
+    buffer exactly the rest, and captured in a CUDA graph whose two replays
+    equal the eager call bit for bit (:func:`captured_psum`). ``local``: the
+    LOCAL eager run's ``losses`` and ``step_s`` (:func:`eager_run`), the
+    LOCAL ``per_step`` launches, and its replayed step's ``replayed_ms``
+    median and ``replayed_ops`` device ops."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -4979,8 +5025,8 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
     from repro_torch.launch import train as launch_train
     from repro_torch.models import api
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.trainer import train_shardings
-    from repro_torch.train.tree import flatten
+    from repro_torch.train.trainer import WARMUP, train_shardings
+    from repro_torch.train.tree import flatten, leaves as tree_leaves
 
     t_step = time.perf_counter()
     batch, seq = TRAIN_BATCH
@@ -4991,6 +5037,13 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
                                         lr=TRAIN_RUN["lr"])
         trainer = launch_train.Trainer(cfg, tc, dist=dist, global_batch=batch, seq_len=seq,
                                        controller=True, device=dev)
+        optimizer = trainer.optimizer
+
+        def local_tensors():      # views, which keep their storage from being reused
+            return [t.to_local() for t in tree_leaves({"p": trainer.params,
+                                                       "o": trainer.opt_state})]
+
+        before = local_tensors()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         report = trainer.run()
@@ -5002,20 +5055,51 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
                                  f"run's {local['losses'][:DIST_STEPS]}")
         if launches != want:
             raise AssertionError(f"distributed launches {launches} != {want}")
-        med = float(np.median(report.step_s)) * 1e3
-        local_med = float(np.median(local["step_s"][:DIST_STEPS])) * 1e3
-        out["train"] = {"losses": report.losses, "launches": launches,
-                        "step_s": report.step_s, "median_ms": med,
-                        "local_median_ms_first5": local_med}
-        log(f"distributed train {cfg.name} on a 1 x 1 (data, model) mesh over NCCL (world "
-            f"of one): {DIST_STEPS} steps, losses {report.losses} == the LOCAL eager run's "
-            f"first {DIST_STEPS} bit for bit; launches {launches} = {DIST_STEPS} x LOCAL per "
-            f"step; step median {med:.3f} ms (host clock, 5 steps), LOCAL eager's first 5 "
-            f"{local_med:.3f} ms; steps {[round(x * 1e3, 3) for x in report.step_s]} ms")
-        optimizer = trainer.optimizer
-        del trainer
+        moved = [i for i, (a, b) in enumerate(zip(before, local_tensors()))
+                 if a.data_ptr() != b.data_ptr()]
+        if moved:
+            raise AssertionError(f"distributed: {len(moved)} leaves' local tensors moved: "
+                                 f"{moved[:5]}")
+        graphed = {"losses": report.losses, "checksum": checksum(trainer),
+                   **replayed_steps(trainer, report, dev, DIST_STEPS, local["per_step"])}
+        n_leaves = len(before)
+        del trainer, before
         gc.collect()
         torch.cuda.empty_cache()
+        log(f"distributed train {cfg.name} on a 1 x 1 (data, model) mesh over NCCL (world "
+            f"of one): {DIST_STEPS} steps, {report.replayed_steps} of them replayed from the "
+            f"sharded step's CUDA graph, losses {report.losses} == the LOCAL eager run's "
+            f"first {DIST_STEPS} bit for bit; all {n_leaves} leaves' local tensors at their "
+            f"addresses after the run; launches {launches} = {DIST_STEPS} x LOCAL per step "
+            f"(the capture none, a replay {local['per_step']}); steps "
+            f"{[round(x * 1e3, 3) for x in report.step_s]} ms")
+        eager = eager_run(cfg, dev, batch, seq, DIST_STEPS, measure=False, dist=dist)
+        held = hold_to_eager(f"{cfg.name} sharded", graphed, eager, lambda: eager_run(
+            cfg, dev, batch, seq, DIST_STEPS, measure=False, dist=dist)["losses"])
+        log(f"distributed train graphed vs eager sharded ({DIST_STEPS} steps from seed 0, "
+            f"one after the other): {held_line(held)}")
+        prof = graphed["profile"]
+        nccl = prof["nccl_ops_per_step"]
+        out["train"] = {"losses": report.losses, "launches": launches,
+                        "step_s": report.step_s, "replayed_steps": report.replayed_steps,
+                        "median_ms": graphed["median_ms"],
+                        "capture_step_ms": graphed["capture_step_ms"], "profile": prof,
+                        "held_to_eager": held, "eager_median_ms": eager["median_ms"],
+                        "eager_step_s": eager["step_s"],
+                        "local_replayed_ms": local["replayed_ms"],
+                        "local_replayed_ops": local["replayed_ops"]}
+        log(f"distributed step {cfg.name}: replayed {graphed['median_ms']:.3f} ms (median of "
+            f"steps {WARMUP + 2}-{DIST_STEPS}, host clock around the step and float(loss); the "
+            f"capturing step {graphed['capture_step_ms']:.3f} ms) | eager sharded "
+            f"{eager['median_ms']:.3f} ms (steps 3-{DIST_STEPS}) | LOCAL replayed "
+            f"{local['replayed_ms']:.3f} ms, {local['replayed_ops']:.0f} device ops a replay "
+            f"(the train phase of this call) | replayed / eager "
+            f"{graphed['median_ms'] / eager['median_ms']:.3f}; a replay profiled: "
+            f"{prof['device_ops_per_step']:.0f} device ops, {nccl:.0f} of them NCCL kernels "
+            f"{prof['nccl_kernels']}, card active {prof['card_active_ms_per_step']:.3f} of "
+            f"{prof['wall_ms_per_step']:.3f} ms (idle share {prof['idle_share']:.3f})"
+            + ("" if nccl else "; the card ran no collective inside the graph (NCCL over one "
+               "rank launched no kernel), so this step checks no captured collective kernel"))
 
         sh = train_shardings(cfg, optimizer, dist)
         like_p = api.abstract_params(cfg)
@@ -5051,9 +5135,21 @@ def distributed_step(cfg, dev, local: dict, ckpt_dir: Path) -> dict:
         if not (torch.equal(summed["g"], exact) and torch.equal(err["g"], g + e - exact)):
             raise AssertionError("distributed compressed_psum over a world of one is not "
                                  "dequantize(quantize(g + e))")
+        cap = captured_psum(dist.mesh.get_group("data"), g, e)
+        if not all(torch.equal(a, b) for r in cap["replays"] for a, b in zip(r, cap["eager"])):
+            raise AssertionError("distributed compressed_psum: a replay of its CUDA graph "
+                                 "differs from the eager call")
+        pprof = profile_steps(lambda: cap["graph"]({"g": g, "e": e}), steps=1)
+        out["psum_graph"] = {"profile": pprof}
         log("distributed compressed_psum over the world of one: the sum is exactly "
             "dequantize(quantize(g + e)) and the error buffer exactly g + e less it "
-            f"(3 x 1000 f32, {q.shape[0]} blocks of 256)")
+            f"(3 x 1000 f32, {q.shape[0]} blocks of 256); captured in a CUDA graph and "
+            f"replayed twice, sum and error buffer equal to the eager call's bit for bit; a "
+            f"replay {pprof['device_ops_per_step']:.0f} device ops, "
+            f"{pprof['nccl_ops_per_step']:.0f} NCCL kernels {pprof['nccl_kernels']}"
+            + ("" if pprof["nccl_ops_per_step"] else " (its all-gathers over one rank "
+               "launched no NCCL kernel in the graph)"))
+        del cap
     out["s"] = time.perf_counter() - t_step
     log(f"distributed: what one card leaves unchecked, held on gloo groups of 2 and 4 CPU "
         f"processes by tests/test_torch_distributed.py instead: {'; '.join(DIST_UNCHECKED)}")
@@ -5526,10 +5622,12 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"train {cfg.name}: {time.perf_counter() - t_qwen:.1f} s")
-        # the sharded step is eager: it is held to the eager run
+        # the sharded step, graphed, is held to the LOCAL eager run and to an
+        # eager sharded run, and timed beside the LOCAL replayed step
         result["dist"] = distributed_step(
             cfg, dev, {"losses": eager["losses"], "per_step": per_step,
-                       "step_s": eager["step_s"]}, root / "run")
+                       "step_s": eager["step_s"], "replayed_ms": med,
+                       "replayed_ops": prof["device_ops_per_step"]}, root / "run")
     finally:
         ckpt.save, ckpt.restore = originals
         shutil.rmtree(root, ignore_errors=True)

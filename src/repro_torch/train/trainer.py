@@ -12,10 +12,12 @@ A step is the loss forward (K1, K2, K5 and K6 inside their autograd
 Functions on the card), the backward, the global-norm clip and the optimizer
 update. On the card ``run`` replays it from one CUDA graph
 (:class:`TrainStepGraph`), as the reference jit-compiles it: two eager
-steps, then a capture, then a replay a step. On the CPU, and under a
-``dist`` with a mesh, every step runs eagerly. ``float(loss)`` is the step's
-synchronisation point, as in the reference, so the step time is the host's
-clock around all of it.
+steps, then a capture, then a replay a step. Under a ``dist`` with a mesh
+each rank does the same with the sharded step, its DTensor redistributions
+and NCCL collectives inside its graph, as the reference jit-compiles it with
+shardings and donated trees. On the CPU (gloo included) every step runs
+eagerly. ``float(loss)`` is the step's synchronisation point, as in the
+reference, so the step time is the host's clock around all of it.
 
 Under a ``dist`` with a mesh (one process a rank, every rank running the
 same steps), parameters, optimizer state and the batch are DTensors placed
@@ -27,7 +29,9 @@ only and stay sharded over ``model`` for the expert-parallel dispatch. Each
 rank runs its own batch rows; outside the dispatch the ``model`` axis
 computes the same thing on every rank. The gradients, averaged over the
 batch axes, are placed back as the parameters are, clipped by the global
-norm of the whole tree, and each rank updates its own shard.
+norm of the whole tree, and each rank updates its own shard, in place:
+every DTensor leaf keeps its local tensor, ``count`` included, so a graph
+captured on the trees reads and writes the same tensors at every replay.
 
 Fault tolerance:
 * step-atomic checkpoints every ``checkpoint_every`` steps (train.checkpoint),
@@ -41,6 +45,7 @@ read (``distributed.compression`` has the reduction).
 from __future__ import annotations
 
 import dataclasses
+import operator
 import time
 
 import numpy as np
@@ -210,13 +215,16 @@ class TrainStepGraph:
     state) and replays it, as does every call after it. The optimizer
     updates every leaf in place, ``count`` included, so the trees the graph
     was captured on hold the current step after every replay: the caller
-    keeps passing them, and a call with other trees raises. There is no
-    eager fallback."""
+    keeps passing them (or the trees the step returned, which the sharded
+    step builds anew around the same leaves), and a call with other leaves
+    raises, as does a capture of a step that does not return the leaves it
+    was given. There is no eager fallback."""
 
     def __init__(self, step_fn, device: torch.device):
         self.step_fn = step_fn
         self.stream = torch.cuda.Stream(device)
         self.graph: StepGraph | None = None
+        self._leaves: list = []
         self.eager_steps = 0
         self.replays = 0
 
@@ -240,11 +248,20 @@ class TrainStepGraph:
             inputs = {k: torch.empty_like(v) for k, v in batch.items()}
             self.graph = StepGraph(lambda b: self.step_fn(params, opt_state, b), inputs,
                                    self.stream)
-        if params is not self.graph.out[0] or opt_state is not self.graph.out[1]:
+            self._leaves = leaves(self.graph.out[:2])
+            if not self._captured_on(params, opt_state):
+                raise RuntimeError("the step did not return the leaves it was given: a "
+                                   "replay would read them and write others")
+        if not self._captured_on(params, opt_state):
             raise ValueError("the trees are not the ones the step was captured on")
         out = self.graph(batch)
         self.replays += 1
         return out
+
+    def _captured_on(self, params, opt_state) -> bool:
+        """Whether the trees hold the leaves the captured step returned."""
+        given = leaves((params, opt_state))
+        return len(given) == len(self._leaves) and all(map(operator.is_, given, self._leaves))
 
 
 class Trainer:
@@ -265,7 +282,7 @@ class Trainer:
         self.controller = (ExecutionIdleController(self.device)
                            if controller else None)
         #: the step's CUDA graph of the last ``run`` on the card (None on the
-        #: CPU and under a mesh, where every step runs eagerly)
+        #: CPU, where every step runs eagerly)
         self.graph: TrainStepGraph | None = None
         gen = torch.Generator(device=self.torch_device).manual_seed(seed)
         self.params = api.init_params(gen, cfg, ep_size=dist.ep_size)
@@ -305,8 +322,7 @@ class Trainer:
             resumed_from = start_step
         # made after the restore, which rebinds the trees the graph is captured on
         self.graph = (TrainStepGraph(self.step_fn, self.torch_device)
-                      if self.torch_device.type == "cuda" and not self.dist.enabled
-                      else None)
+                      if self.torch_device.type == "cuda" else None)
         step_fn = self.step_fn if self.graph is None else self.graph
 
         self.sampler.load_program()

@@ -189,6 +189,59 @@ def train_worker(rank: int, payload) -> dict:
     return out
 
 
+def inplace_worker(rank: int, payload) -> dict:
+    """Two sharded steps of ``make_train_step``'s function on a CPU
+    ``Trainer``'s trees under each case's mesh, and the same two steps on
+    copies of the trees: after each step, the leaves whose DTensor is not
+    the one passed in or whose local tensor is not the same object at the
+    same address (``count`` included; none, for a graph to be captured on
+    them); the leaves that differ from the copies' after both steps; then
+    one ``Trainer.run`` step on the CPU (no graph, nothing replayed)."""
+    from repro_torch.launch.mesh import make_local_dist
+    from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step
+    from repro_torch.train.tree import flatten, leaves, unflatten
+
+    def local_leaves(params, state):
+        with torch.no_grad():       # to_local() is then the DTensor's own local tensor
+            return [(path, t, t.to_local())
+                    for path, t in flatten({"params": params, "opt_state": state})]
+
+    out = {}
+    for case in payload["cases"]:
+        dist = make_local_dist(*case["mesh"])
+        if dist.mesh.get_coordinate() is None:
+            continue
+        cfg = smoke_f32(case["arch"], **case["wide"])
+        tr = Trainer(cfg, TrainerConfig(steps=1), dist=dist, global_batch=payload["batch"],
+                     seq_len=payload["seq"], device="cpu")
+        params, state = tr.params, tr.opt_state
+        first = [(path, t, local, local.data_ptr())
+                 for path, t, local in local_leaves(params, state)]
+        copies = [unflatten(tree, [t.detach().clone() for t in leaves(tree)])
+                  for tree in (params, state)]
+        step = make_train_step(cfg, tr.optimizer, dist)
+        moved = []
+        for i in range(2):
+            batch = tr.dataset.device_batch_at(i, "cpu")
+            params, state, _ = step(params, state, batch)
+            moved.append([path for (path, t, local, ptr), (_, now, now_local)
+                          in zip(first, local_leaves(params, state))
+                          if not (now is t and now_local is local and now_local.data_ptr() == ptr)])
+            copies[0], copies[1], _ = step(*copies, batch)
+        differ = [path for (path, a), (_, b) in zip(flatten({"p": params, "s": state}),
+                                                    flatten({"p": copies[0], "s": copies[1]}))
+                  if not torch.equal(a.full_tensor(), b.full_tensor())]
+        count = int(state["count"].full_tensor())
+        report = tr.run()
+        out[case["id"]] = {
+            "paths": [path for path, _, _, _ in first], "moved": moved, "differ": differ,
+            "count": count, "sharded": sum(any(pl.is_shard() for pl in t.placements)
+                                           for _, t, _, _ in first),
+            "replayed_steps": report.replayed_steps, "graph": tr.graph is not None,
+            "steps_run": report.steps_run}
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # the what-if config axis
 # --------------------------------------------------------------------------- #

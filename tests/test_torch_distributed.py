@@ -494,6 +494,45 @@ def test_sharded_train_step_matches_reference(train_runs, arch, mesh):
         assert case not in port[r]
 
 
+#: the optimizers ``for_arch`` picks: AdamW (qwen) and Adafactor (the VLM,
+#: widened so that some leaves factor, as tests/test_torch_train_graphs.py's)
+INPLACE_ARCHS = {"qwen1.5-0.5b": {}, "llama-3.2-vision-90b": dict(d_model=128, d_ff=256)}
+INPLACE_CASES = [(arch, mesh) for arch in INPLACE_ARCHS for mesh in TRAIN_MESHES]
+
+
+@pytest.fixture(scope="module")
+def inplace_runs(tmp_path_factory):
+    """The port's sharded step on each mesh (one group of 4 ranks), two steps
+    on a CPU trainer's trees and on copies of them, then a trainer run."""
+    cases = [{"id": _case_id(arch, mesh), "arch": arch, "mesh": mesh,
+              "wide": INPLACE_ARCHS[arch]} for arch, mesh in INPLACE_CASES]
+    return W.run_world(W.inplace_worker, 4, tmp_path_factory.mktemp("inplace"),
+                       dict(batch=2, seq=16, cases=cases))
+
+
+@pytest.mark.parametrize("arch,mesh", INPLACE_CASES, ids=[_case_id(*c) for c in INPLACE_CASES])
+def test_sharded_step_keeps_every_local_tensor_in_place(inplace_runs, arch, mesh):
+    """What a CUDA graph of the sharded step needs of it: after each of two
+    steps every DTensor leaf of the parameters and the optimizer state,
+    ``count`` included, is the DTensor passed in with the same local tensor
+    at the same address; the trees hold what two steps on copies compute;
+    and a ``Trainer`` under a gloo mesh steps eagerly (no graph, no step
+    replayed)."""
+    case = _case_id(arch, mesh)
+    ranks = range(4) if mesh == (2, 2) else range(2)
+    for r in ranks:
+        got = inplace_runs[r][case]
+        assert got["moved"] == [[], []], (r, got["moved"])
+        assert got["differ"] == [], (r, got["differ"])
+        assert got["count"] == 2 and "['opt_state']['count']" in got["paths"]
+        assert got["sharded"] > 0
+        assert got["steps_run"] == 1 and got["replayed_steps"] == 0 and not got["graph"]
+        if arch == "llama-3.2-vision-90b":      # Adafactor's factored statistics
+            assert any("['vr']" in path for path in got["paths"])
+    for r in set(range(4)) - set(ranks):
+        assert case not in inplace_runs[r]
+
+
 # --------------------------------------------------------------------------- #
 # the what-if config axis
 # --------------------------------------------------------------------------- #
