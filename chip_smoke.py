@@ -1163,7 +1163,9 @@ def profile_steps(fn, steps: int = 3) -> dict:
     beside them the host clock's span of the profiled calls from the first
     one's start to the card's end (``wall_ms_per_step``) and the card's idle
     share of that span, both sides from the same calls; and the NCCL kernels
-    among the operations (names starting ``nccl``), by name."""
+    among the operations (names starting ``nccl``), by name. The train
+    step's marks (``repro::mark_*``, empty kernels that only label the
+    timeline) are left out of every tally."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1183,10 +1185,13 @@ def profile_steps(fn, steps: int = 3) -> dict:
             wall_s.append(time.perf_counter() - t0)
             prof.step()
     averages, events = active[0]
+
+    def counted(name):
+        return not name.startswith("ProfilerStep") and "repro::mark_" not in name
+
     spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
-    on_card = [e for e in averages if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")]
+             if e.device_type == DeviceType.CUDA and counted(e.name)]
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA and counted(e.key)]
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]
     ours: dict[str, float] = {}
     launches: dict[str, float] = {}

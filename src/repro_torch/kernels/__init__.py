@@ -25,6 +25,10 @@ graph and launches nothing, and a replay launches the graph's kernels
 without calling any wrapper. :func:`captured_launches` and
 :func:`count_replay` keep the counts true across both.
 
+:func:`mark` launches the empty kernels that mark the train step's parts
+on the card's timeline (:mod:`repro_torch.kernels.marks`); they are counted
+nowhere.
+
 A kernel that cannot be built, loaded or launched raises
 :class:`KernelError` (a ``RuntimeError``).
 """
@@ -37,6 +41,7 @@ from repro_torch.kernels import (decode_attention, downscale_replay,
                                  flash_attention, rmsnorm, run_replay, rwkv6_scan,
                                  ssm_scan)
 from repro_torch.kernels._build import KernelError  # noqa: F401
+from repro_torch.kernels.marks import mark  # noqa: F401
 
 #: the kernel modules, by kernel name
 KERNEL_MODULES = {

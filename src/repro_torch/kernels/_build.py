@@ -59,6 +59,7 @@ SIGNATURES = {
                    _I, _P],
     "repro_ssm_scan_bwd": [_P] * 16 + [_I] * 8 + [_P],
     "repro_wkv6_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    "repro_mark": [_I, _P],
 }
 #: element type codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

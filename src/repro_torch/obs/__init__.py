@@ -21,21 +21,20 @@ traces + process-pool transport), :mod:`~repro_torch.obs.prom` (text
 exposition, linter, stdlib HTTP endpoint), :mod:`~repro_torch.obs.report`
 (stage-tree reports).
 """
-from repro_torch.obs.metrics import (DEGRADATION_FAMILIES, IR_APPEND_FAMILIES,
-                                     LIVE_FAMILIES, REGISTRY, Counter, Gauge,
-                                     Histogram, MetricsRegistry, counter,
-                                     default_buckets, disable, enable, enabled,
-                                     fallback, gauge, init_degradation_metrics,
-                                     init_ir_append_metrics, init_live_metrics,
-                                     observe)
+from repro_torch.obs.metrics import (DEGRADATION_FAMILIES, LIVE_FAMILIES,
+                                     REGISTRY, Counter, Gauge, Histogram,
+                                     MetricsRegistry, counter, default_buckets,
+                                     disable, enable, enabled, fallback, gauge,
+                                     init_degradation_metrics,
+                                     init_live_metrics, observe)
 from repro_torch.obs.prom import (lint_exposition, render_prometheus,
                                   start_http_server, write_textfile)
 from repro_torch.obs.report import stage_breakdown, stage_report
 from repro_torch.obs.spans import (SpanNode, SpanRecord, absorb,
                                    call_with_obs, clear_spans,
                                    dump_spans_jsonl, format_span_tree,
-                                   load_spans_jsonl, span, span_tree, spans,
-                                   stage_totals, worker_token)
+                                   load_spans_jsonl, profiling, span, span_tree,
+                                   spans, stage_totals, trace_us, worker_token)
 
 
 def reset() -> None:
@@ -45,14 +44,14 @@ def reset() -> None:
 
 
 __all__ = [
-    "DEGRADATION_FAMILIES", "IR_APPEND_FAMILIES", "LIVE_FAMILIES",
+    "DEGRADATION_FAMILIES", "LIVE_FAMILIES",
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "SpanNode", "SpanRecord", "absorb", "call_with_obs", "clear_spans",
     "counter", "default_buckets", "disable", "dump_spans_jsonl", "enable",
     "enabled", "fallback", "format_span_tree", "gauge",
-    "init_degradation_metrics", "init_ir_append_metrics",
-    "init_live_metrics", "lint_exposition", "load_spans_jsonl", "observe",
-    "render_prometheus", "reset", "span", "span_tree", "spans",
-    "stage_breakdown", "stage_report", "stage_totals", "start_http_server",
-    "worker_token", "write_textfile",
+    "init_degradation_metrics", "init_live_metrics", "lint_exposition",
+    "load_spans_jsonl", "observe", "profiling", "render_prometheus", "reset",
+    "span", "span_tree", "spans", "stage_breakdown", "stage_report",
+    "stage_totals", "start_http_server", "trace_us", "worker_token",
+    "write_textfile",
 ]

@@ -286,26 +286,6 @@ def init_degradation_metrics() -> None:
     _init_families(DEGRADATION_FAMILIES)
 
 
-# ------------------------------------------------- incremental-IR metrics
-#: the incremental IR-append families (name, kind, help) — emitted by
-#: :meth:`repro_torch.whatif.ir.IRBuilder.extend`, preregistered zero-valued
-#: by :func:`init_ir_append_metrics`.
-IR_APPEND_FAMILIES: tuple[tuple[str, str, str], ...] = (
-    ("repro_ir_appends_total", "counter",
-     "incremental IR extends (appends folded into an existing RunIR)"),
-    ("repro_ir_append_rows_total", "counter",
-     "telemetry rows folded into existing RunIRs by incremental extends"),
-    ("repro_ir_suffix_rebuild_fraction", "gauge",
-     "rows whose replay aggregates were re-derived / total rows, last extend"),
-)
-
-
-def init_ir_append_metrics() -> None:
-    """Pre-register the incremental-IR families (zero-valued) so an
-    exposition from a run that never appended still exposes them."""
-    _init_families(IR_APPEND_FAMILIES)
-
-
 # ------------------------------------------------- live-controller metrics
 #: the live fleet controller's families (name, kind, help) — emitted by
 #: :mod:`repro_torch.live`, preregistered zero-valued by

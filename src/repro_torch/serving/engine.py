@@ -22,6 +22,18 @@ CPU both steps run eagerly.
 On the card each prefill and decode phase ends with a synchronisation, so
 the sampler's wall-clock phases — and hence the telemetry rows and the
 controller's decisions — cover the card's time, not just the launches.
+
+``submit`` and ``decode_tick`` open :func:`repro_torch.obs.span` spans, which
+cost a check each unless obs is enabled or a profiler runs (then they land
+in its trace, on the kernels' clock): ``engine.submit`` (attributes
+``req_id``, ``slot``) over ``engine.stage`` (the prompt padded and copied to
+the card), ``engine.prefill`` (the phase: its events, the graph's replay,
+the synchronisation), ``engine.splice_cache`` and ``engine.first_token``
+(the argmax and its copy to the host); ``engine.decode_tick`` over
+``engine.stage``, ``engine.decode``, ``engine.read_tokens`` (the argmax and
+its copy to the host) and ``engine.controller`` (the signals and Algorithm
+1's step). ``decode_tick``'s own time outside them is the slots'
+bookkeeping.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ExecutionIdleController
 from repro_torch.core.power_model import SimulatedDevice, get_platform
@@ -163,9 +176,10 @@ class ServingEngine:
     @contextlib.contextmanager
     def _phase(self, name: str, compute_util: float,
                hbm_util: float) -> Iterator[None]:
-        """A sampler phase that ends only when the card's work has ended."""
+        """A sampler phase that ends only when the card's work has ended,
+        inside the span ``engine.<name>``."""
         with self.sampler.phase(name, compute_util=compute_util,
-                                hbm_util=hbm_util):
+                                hbm_util=hbm_util), obs.span(f"engine.{name}"):
             if self.torch_device.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -224,41 +238,50 @@ class ServingEngine:
 
     def submit(self, request: Request, prompt_tokens: np.ndarray) -> bool:
         """Prefill + admit into a slot. Returns False if no slot free."""
-        slot = self._free_slot()
-        if slot is None:
-            return False
-        bucket = self.bucket
-        toks = np.zeros((1, bucket), np.int64)
-        n = min(len(prompt_tokens), bucket)
-        toks[0, -n:] = prompt_tokens[-n:]
-        tokens = torch.from_numpy(toks).to(self.torch_device)
-        with self._phase("prefill", compute_util=0.9, hbm_util=0.4):
-            new_cache, logits = self.prefill(tokens)
-        self._splice_cache(slot, new_cache)
-        s = self.slots[slot]
-        s.active = True
-        s.request = request
-        s.generated = 0
-        s.last_token = int(torch.argmax(logits[0, -1]))
-        request.start_s = self.sampler.now
-        return True
+        with obs.span("engine.submit", req_id=request.req_id) as sp:
+            slot = self._free_slot()
+            if slot is None:
+                return False
+            sp.set(slot=slot)
+            with obs.span("engine.stage"):
+                bucket = self.bucket
+                toks = np.zeros((1, bucket), np.int64)
+                n = min(len(prompt_tokens), bucket)
+                toks[0, -n:] = prompt_tokens[-n:]
+                tokens = torch.from_numpy(toks).to(self.torch_device)
+            with self._phase("prefill", compute_util=0.9, hbm_util=0.4):
+                new_cache, logits = self.prefill(tokens)
+            with obs.span("engine.splice_cache"):
+                self._splice_cache(slot, new_cache)
+            with obs.span("engine.first_token"):
+                first = int(torch.argmax(logits[0, -1]))
+            s = self.slots[slot]
+            s.active = True
+            s.request = request
+            s.generated = 0
+            s.last_token = first
+            request.start_s = self.sampler.now
+            return True
 
     def decode_tick(self) -> int:
         """One batched decode step over all slots. Returns #active slots."""
-        active = [i for i, s in enumerate(self.slots) if s.active]
-        if not active:
-            self.sampler.idle(1.0)
-            if self.controller is not None:
-                sig = self._controller_signals()
-                self.controller.step(self.sampler.now,
-                                     sig if sig is not None
-                                     else {"sm": 0.0, "dram": 0.0})
-            return 0
-        toks = np.array([[s.last_token] for s in self.slots], np.int64)
-        tokens = torch.from_numpy(toks).to(self.torch_device)
+        with obs.span("engine.decode_tick"):
+            active = [i for i, s in enumerate(self.slots) if s.active]
+            if active:
+                self._decode_active(active)
+            else:
+                self.sampler.idle(1.0)
+            self._control(idle=not active)
+            return len(active)
+
+    def _decode_active(self, active: list[int]) -> None:
+        with obs.span("engine.stage"):
+            toks = np.array([[s.last_token] for s in self.slots], np.int64)
+            tokens = torch.from_numpy(toks).to(self.torch_device)
         with self._phase("decode", compute_util=0.5, hbm_util=0.9):
             logits = self.decode(tokens)
-        next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        with obs.span("engine.read_tokens"):
+            next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         for i in active:
             s = self.slots[i]
             s.last_token = int(next_tokens[i])
@@ -271,14 +294,20 @@ class ServingEngine:
                 self.completed.append(s.request)
                 s.active = False
                 s.request = None
-        if self.controller is not None:
+
+    def _control(self, idle: bool) -> None:
+        """Algorithm 1's step on the newest telemetry row. Before the first
+        row flushes (sub-second warm decode ticks) a tick that decoded skips
+        the step — fabricated zeros would read as low activity and downscale
+        clocks mid-decode — and an idle tick steps on zero activity."""
+        if self.controller is None:
+            return
+        with obs.span("engine.controller"):
             sig = self._controller_signals()
-            # sig is None before the first row flushes (sub-second warm
-            # decode ticks): skip — fabricated zeros would read as low
-            # activity and downscale clocks mid-decode
+            if sig is None and idle:
+                sig = {"sm": 0.0, "dram": 0.0}
             if sig is not None:
                 self.controller.step(self.sampler.now, sig)
-        return len(active)
 
     # ------------------------------------------------------------------ #
     def run(self, requests: list[Request], prompts: dict[int, np.ndarray],

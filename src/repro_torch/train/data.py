@@ -6,7 +6,8 @@ step])``, tokens first, then frames (encdec) or vision (vlm): the same
 arrays, bit for bit, as the reference's, on any device and after any
 restart. A configurable host-side latency emulates input-pipeline stalls
 (the paper's PCIe/NIC-preceded execution-idle states come largely from
-exactly this path, §4.5).
+exactly this path, §4.5). ``device_batch_at`` opens the
+:func:`repro_torch.obs.span` ``data.device_batch_at``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 
 
@@ -51,6 +53,7 @@ class SyntheticDataset:
                         device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
         """:meth:`batch_at` copied to ``device``: tokens and labels as int64
         (the models' index type), frames and vision as f32."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                    device, torch.int64 if v.dtype == np.int32 else torch.float32)
-                for k, v in self.batch_at(step).items()}
+        with obs.span("data.device_batch_at"):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                        device, torch.int64 if v.dtype == np.int32 else torch.float32)
+                    for k, v in self.batch_at(step).items()}

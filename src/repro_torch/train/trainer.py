@@ -41,6 +41,16 @@ Fault tolerance:
 
 ``TrainerConfig.grad_compression`` is kept and, as in the reference, never
 read (``distributed.compression`` has the reduction).
+
+Tracing: both step functions launch :func:`repro_torch.kernels.mark`'s
+``forward``, ``backward``, ``update`` and ``done`` marks on the card, which a
+capture records, so a profiled replay shows where each part of the step
+begins. On the host, :class:`TrainStepGraph`'s call opens the
+:func:`repro_torch.obs.span` ``trainer.step_graph`` (attribute ``mode``:
+``eager``, ``capture`` or ``replay``), ``_telemetry_tick`` opens
+``trainer.telemetry`` over ``trainer.controller``, and the dataset's
+``device_batch_at`` opens ``data.device_batch_at``; no span is opened inside
+a captured function.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch import kernels, obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ExecutionIdleController
 from repro_torch.core.power_model import SimulatedDevice, get_platform
@@ -156,14 +167,19 @@ def make_train_step(cfg: ModelConfig, optimizer, dist: DistContext = LOCAL):
         return _sharded_step(cfg, optimizer, dist)
 
     def step_fn(params, opt_state, batch):
+        dev = batch["tokens"].device
+        kernels.mark("forward", dev)
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
         loss, metrics = api.loss_fn(params, batch, cfg)
+        kernels.mark("backward", dev)
         grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        kernels.mark("update", dev)
         params, opt_state, stats = optimizer.step(params, unflatten(params, grads),
                                                   opt_state)
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        kernels.mark("done", dev)
         return params, opt_state, dict(metrics, **stats)
 
     return step_fn
@@ -176,6 +192,8 @@ def _sharded_step(cfg: ModelConfig, optimizer, dist: DistContext):
         if batch["tokens"].shape[0] % dist.dp_size:
             raise ValueError(f"a global batch of {batch['tokens'].shape[0]} rows does not "
                              f"divide over the {dist.dp_size} ranks of the batch axes")
+        dev = batch["tokens"].device
+        kernels.mark("forward", dev)
         params = place(params, sh["params"])
         opt_state = place(opt_state, sh["opt_state"])
         rows = {k: sh["batch"][k].place(v).to_local() for k, v in batch.items()}
@@ -184,12 +202,15 @@ def _sharded_step(cfg: ModelConfig, optimizer, dist: DistContext):
         for t in flat:
             t.requires_grad_(True)
         loss, metrics = api.loss_fn(work, rows, cfg, dist=dist)
+        kernels.mark("backward", dev)
         grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
         grads = map_up_to(lambda g, p, expert: _reduce(g, p, dist, expert),
                           unflatten(work, grads), params, sh["experts"])
+        kernels.mark("update", dev)
         params, opt_state, stats = optimizer.step(params, grads, opt_state)
         metrics = {k: _batch_mean(torch.as_tensor(v), dist) for k, v in metrics.items()}
         stats = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in stats.items()}
+        kernels.mark("done", dev)
         return params, opt_state, dict(metrics, **stats)
 
     return step_fn
@@ -234,7 +255,13 @@ class TrainStepGraph:
         return self.graph.launches
 
     def __call__(self, params, opt_state, batch: dict):
-        if self.graph is None and self.eager_steps < WARMUP:
+        mode = ("replay" if self.graph is not None
+                else "eager" if self.eager_steps < WARMUP else "capture")
+        with obs.span("trainer.step_graph", mode=mode):
+            return self._step(mode, params, opt_state, batch)
+
+    def _step(self, mode: str, params, opt_state, batch: dict):
+        if mode == "eager":
             current = torch.cuda.current_stream(self.stream.device)
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
@@ -242,7 +269,7 @@ class TrainStepGraph:
             current.wait_stream(self.stream)
             self.eager_steps += 1
             return out
-        if self.graph is None:
+        if mode == "capture":
             torch.cuda.synchronize(self.stream.device)
             torch.cuda.empty_cache()       # the warm-up's blocks, before the graph's pool
             inputs = {k: torch.empty_like(v) for k, v in batch.items()}
@@ -296,21 +323,23 @@ class Trainer:
     def _telemetry_tick(self, busy_s: float, idle_s: float) -> None:
         if not self.tc.telemetry:
             return
-        s = self.sampler
-        if busy_s > 0:
-            s.busy(busy_s, compute_util=self.tc.step_compute_util,
-                   hbm_util=self.tc.step_hbm_util)
-        if idle_s > 0:
-            s.idle(idle_s, pcie_gbs=0.2, cpu_util=0.4)  # input-pipeline wait
-        if self.controller is not None:
-            frame = s.frame()
-            if len(frame):
-                row = frame.row(len(frame) - 1)
-                self.controller.step(s.now, {
-                    "sm": float(row["sm"]) / 100.0,
-                    "dram": float(row["dram"]) / 100.0,
-                    "pcie_rx": float(row["pcie_rx"]),
-                })
+        with obs.span("trainer.telemetry"):
+            s = self.sampler
+            if busy_s > 0:
+                s.busy(busy_s, compute_util=self.tc.step_compute_util,
+                       hbm_util=self.tc.step_hbm_util)
+            if idle_s > 0:
+                s.idle(idle_s, pcie_gbs=0.2, cpu_util=0.4)  # input-pipeline wait
+            if self.controller is not None:
+                with obs.span("trainer.controller"):
+                    # the newest row alone (O(1)), as the serving engine reads it
+                    row = s.last_row()
+                    if row is not None:
+                        self.controller.step(s.now, {
+                            "sm": float(row["sm"]) / 100.0,
+                            "dram": float(row["dram"]) / 100.0,
+                            "pcie_rx": float(row["pcie_rx"]),
+                        })
 
     def run(self) -> TrainReport:
         tc = self.tc
