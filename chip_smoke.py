@@ -240,7 +240,13 @@ REPLACES = {
     # no TPU kernel: the reference differentiates its lax.scan with XLA
     "ssm_scan_bwd": "src/repro/models/hymba.py:113",
     "wkv6_bwd": "src/repro/models/rwkv.py:160",
+    # no TPU kernel: the reference differentiates its attention's einsums with XLA
+    "flash_attention_bwd_dq": "src/repro/models/common.py:123",
+    "flash_attention_bwd_dkv": "src/repro/models/common.py:123",
 }
+#: the source of each kernel not in a file of its own name
+SOURCES = {"flash_attention_bwd_dq": "flash_attention_bwd",
+           "flash_attention_bwd_dkv": "flash_attention_bwd"}
 #: K2's cases at Sq != Sk or without the causal mask: (Sq, Sk, H, KV, d,
 #: causal, window)
 CROSS_CASES = ((65, 1500, 20, 20, 64, False, 0), (1500, 1500, 20, 20, 64, False, 0),
@@ -4200,9 +4206,110 @@ def check_train_functions(dev) -> dict:
                 lambda: torch.autograd.grad(ref, ins, dy, retain_graph=True)),
         }
     log(f"time train functions (eager, CUDA events, bf16 at qwen1.5-0.5b's shapes; forward = "
-        f"the kernel inside the Function, backward = its analytic gradient in PyTorch ops): "
-        f"{json.dumps(times)}")
-    return {"errors": errs, "times": times}
+        f"the kernel inside the Function, backward = RMSNorm's analytic gradient in PyTorch "
+        f"ops, attention's K2′ kernels): {json.dumps(times)}")
+    return {"errors": errs, "times": times, "attention_backward": time_attention_backward(dev)}
+
+
+#: K2′ checked and timed at qwen1.5-0.5b's training shape and hymba-1.5b's
+#: layer at its train cell's 2 x 2,048 tokens, in a 1,024-token window layer
+#: and a global one: (B, S, H, KV, d, window), causal. The last is the main
+#: path's shape of the kernels' summary rows
+BWD_TIME_CASES = ((8, 128, 16, 16, 64, 0), (2, 2048, 25, 5, 64, 1024), (2, 2048, 25, 5, 64, 0))
+#: normwise gates of K2′'s gradients, as tests/test_torch_attention_kernels.py
+#: sets them: against the ops backward (f32 P and dS; the kernels round both
+#: to bf16 as operands), and against their own arithmetic in PyTorch
+#: (``flash_attention_backward_plain``: sums in another order)
+BWD_VS_OPS_TOL = 1e-2
+BWD_VS_PLAIN_TOL = 2e-3
+#: the products each K2′ kernel does over the kept pairs: dQ S, dP and dS K;
+#: dK/dV Sᵀ, dPᵀ, Pᵀ dO and dSᵀ Q
+BWD_KERNEL_PRODUCTS = {"flash_attention_bwd_dq": 3, "flash_attention_bwd_dkv": 4}
+#: each K2′ kernel's name in a profile (``repro::<name>``)
+BWD_PROFILE_NAMES = {"flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                     "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def time_attention_backward(dev) -> dict:
+    """K2′ (``flash_attention.flash_attention_backward``: the dQ kernel, then
+    the dK/dV kernel) at :data:`BWD_TIME_CASES`: its gradients against the
+    ops backward and its own arithmetic in PyTorch, normwise
+    (:data:`BWD_VS_OPS_TOL`, :data:`BWD_VS_PLAIN_TOL`), and a second call's
+    bits; the pair timed eagerly (CUDA events) and each kernel under the
+    profiler, beside the bound at 989 TFLOP/s bf16 of the five products
+    over the pairs the mask keeps (S, dV, dP, dQ, dK) and of the seven the
+    two kernels do (S and dP in each); beside the ops backward on the same
+    inputs (``ops.attention_backward_ops``, f32, every pair); and the
+    launches one backward makes. Returns the cases, and at the last case
+    each kernel's row for the kernels' summary (``kernels``) and its max
+    abs error against the plain arithmetic (``errors``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def normwise(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    out, rows, errors = {}, {}, {}
+    for (b, s, h, kv, d, window) in BWD_TIME_CASES:
+        q, do = (torch.randn((b, s, h, d), generator=g, device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, s, kv, d), generator=g, device=dev).bfloat16() for _ in range(2))
+        hq, hk, hv, hdo = (t.transpose(1, 2) for t in (q, k, v, do))
+        o, lse = fa.flash_attention_lse(hq, hk, hv, causal=True, window=window)
+
+        def kernel():
+            return fa.flash_attention_backward(hq, hk, hv, o, lse, hdo, causal=True,
+                                               window=window)
+
+        label = str((b, s, h, kv, d, window))
+        before = kernels.launch_counts()
+        grads = kernel()
+        after = kernels.launch_counts()
+        same = all(map(torch.equal, grads, kernel()))
+        opsb = ops.attention_backward_ops(q, k, v, o.transpose(1, 2), do, True, window)
+        vs_ops = [normwise(a.transpose(1, 2), w) for a, w in zip(grads, opsb)]
+        del opsb
+        plain = fa.flash_attention_backward_plain(hq, hk, hv, o, lse, hdo, causal=True,
+                                                  window=window)
+        vs_plain = [normwise(a, p) for a, p in zip(grads, plain)]
+        abs_err = [float((a.float() - p.float()).abs().max()) for a, p in zip(grads, plain)]
+        del plain
+        if not (same and max(vs_ops) <= BWD_VS_OPS_TOL and max(vs_plain) <= BWD_VS_PLAIN_TOL):
+            raise AssertionError(f"attention backward {label}: same bits {same}, normwise "
+                                 f"(dq, dk, dv) vs ops {vs_ops}, vs plain {vs_plain}")
+        pairs = attention_pairs(s, s, True, window)
+        product_ms = 2 * b * h * pairs * d / BF16_FLOPS_PER_S * 1e3
+        prof = profile_steps(kernel, steps=5)["repro_kernels_ms_per_step"]
+        per_kernel = {n: prof.get(p) for n, p in BWD_PROFILE_NAMES.items()}
+        ops_ms = cuda_ms(lambda: ops.attention_backward_ops(
+            q, k, v, o.transpose(1, 2), do, True, window), iters=5, warmup=1)
+        pair = timed(kernel, 20)
+        out[label] = {
+            "kernels_ms": pair["call_ms"], "kernels_graph_ms": pair["ms"],
+            "profiled_ms": per_kernel,
+            "bound_5_products_ms": 5 * product_ms, "bound_7_products_ms": 7 * product_ms,
+            "ops_ms": ops_ms, "vs_ops": vs_ops, "vs_plain": vs_plain,
+            "launches": {n: after[n] - before[n] for n in after if after[n] != before[n]}}
+        if (b, s, h, kv, d, window) == BWD_TIME_CASES[-1]:
+            n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do, o, *grads))
+            shape = f"q, dO, O {tuple(q.shape)}, k, v {tuple(k.shape)} bf16, causal"
+            for name, products in BWD_KERNEL_PRODUCTS.items():
+                rows[name] = dict(
+                    shape=shape, kernel={"ms": per_kernel[name], "call_ms": pair["call_ms"]},
+                    plain={"ms": ops_ms, "call_ms": ops_ms}, library=None,
+                    bound=bound_ms(n_bytes, products * product_ms * BF16_FLOPS_PER_S / 1e3))
+            errors["flash_attention_bwd_dq"] = abs_err[0]
+            errors["flash_attention_bwd_dkv"] = max(abs_err[1:])
+        del q, k, v, do, o, lse, grads
+    torch.cuda.empty_cache()
+    log(f"time attention backward (K2′ kernels vs the ops backward, bf16, causal; the pair "
+        f"eager and replayed, each kernel profiled; bounds at 989 TFLOP/s over the kept "
+        f"pairs; gradients normwise (dq, dk, dv) vs ops (tol {BWD_VS_OPS_TOL}) and vs plain "
+        f"(tol {BWD_VS_PLAIN_TOL}), a second call the same bits; card {nvidia_smi_line()}): "
+        f"{json.dumps(out)}")
+    return {"cases": out, "kernels": rows, "errors": errors}
 
 
 def train_family_f32(name: str, dev) -> dict:
@@ -4676,19 +4783,28 @@ def train_launches(cfg, steps: int) -> dict[str, int]:
     forward and again in the backward's recompute, a backward kernel once;
     whisper's encoder is not rematerialised. K1 per RMSNorm (dense 2 a
     layer, hybrid 4, + the final norm, forward only), K2 per attention
-    (whisper's decoder self and cross), K5/K6 and their backwards per layer."""
+    (whisper's decoder self and cross), K5/K6 and their backwards per layer;
+    K2′'s dQ and dK/dV kernels once an attention's backward where
+    ``backward_route`` gives the kernels (bf16 at d ≤ 128)."""
+    import torch
     from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import backward_route
     n = cfg.n_layers
     per_step = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    attn_bwd = 0
     if cfg.family in ("dense", "hybrid"):
         norms = 4 if cfg.family == "hybrid" else 2
         per_step.update(rmsnorm=2 * norms * n + 1, flash_attention=2 * n)
+        attn_bwd = n
     if cfg.family == "hybrid":
         per_step.update(ssm_scan=2 * n, ssm_scan_bwd=n)
     if cfg.family == "rwkv":
         per_step.update(wkv6=2 * n, wkv6_bwd=n)
     if cfg.family == "encdec":
         per_step["flash_attention"] = cfg.n_enc_layers + 2 * 2 * n
+        attn_bwd = cfg.n_enc_layers + 2 * n
+    if backward_route("cuda", getattr(torch, cfg.dtype), cfg.resolved_head_dim) == "kernels":
+        per_step.update(flash_attention_bwd_dq=attn_bwd, flash_attention_bwd_dkv=attn_bwd)
     return {k: steps * v for k, v in per_step.items()}
 
 
@@ -5169,7 +5285,11 @@ DRYRUN_CELLS = {"qwen1.5-0.5b": "train:8x128", "hymba-1.5b": "train:2x2048",
                 "rwkv6-3b": "train:8x128", "whisper-tiny": "train:8x128",
                 "llama-13b": "decode:4x256"}
 #: the tuned backward at full width: hymba-1.5b's train run, its parameters
-#: and first batch, one forward and backward with these knobs and one without
+#: and first batch, one forward and backward with these knobs and one without.
+#: Since K2′ the card's bf16 backward reads no knob (it never builds P whole),
+#: so the three passes give the same gradients there and the gates below
+#: hold at 0 against 0; the ops backward that the knobs block runs on the CPU
+#: and in f32
 TUNED_BWD_ARCH = "hymba-1.5b"
 TUNED_BWD_KNOBS = dict(attn_block_remat=True, q_block=512)
 #: the floor the tuned backward's gradients are gated against: the same
@@ -5286,9 +5406,10 @@ def tuned_layer_check(cfg, dev, batch: int, seq: int) -> dict:
     """``ops.FlashAttentionFunction``'s backward with :data:`TUNED_BWD_KNOBS`
     against without, at one layer's shapes of ``cfg`` (bf16, causal, the
     window and global), on random inputs: each gradient's normwise
-    difference within :data:`TUNED_LAYER_TOL`. And with ``attn_probs_bf16``
-    on the card, where K2 keeps P in f32 and so the backward does too: the
-    output and the gradients equal the baseline's bit for bit."""
+    difference within :data:`TUNED_LAYER_TOL` (0 on the card, where K2′
+    reads no knob). And with ``attn_probs_bf16`` on the card, where the
+    knob acts on the plain path only: the output and the gradients equal
+    the baseline's bit for bit."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import tuning
@@ -5539,8 +5660,8 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
         peak = torch.cuda.max_memory_allocated(dev)
         summary = launch_train.summarize(trainer, report)
         steps = TRAIN_RUN["steps"]
-        per_step = {"rmsnorm": 4 * cfg.n_layers + 1, "flash_attention": 2 * cfg.n_layers}
-        want = {k: (steps * per_step[k] if k in per_step else 0) for k in launches}
+        want = train_launches(cfg, steps)
+        per_step = {k: n // steps for k, n in want.items() if n}
         if launches != want or wgmma != launches["flash_attention"]:
             raise AssertionError(f"train launches {launches} (tensor cores {wgmma}) != {want}")
         if not (report.steps_run == steps and all(map(math.isfinite, report.losses))):
@@ -5550,8 +5671,8 @@ def train(dev, before_timed: Callable[[], dict]) -> dict:
             f"{report.replayed_steps} of them replayed from the CUDA graph, losses "
             f"{[round(x, 4) for x in report.losses]}; launches {launches} = {steps} x "
             f"{per_step} (forward 2 x {cfg.n_layers} + 1 norms and {cfg.n_layers} attentions, "
-            f"the backward's per-layer recompute 2 x {cfg.n_layers} and {cfg.n_layers} more; "
-            f"the capture none), all {wgmma} K2 launches on the tensor cores; summary "
+            f"the backward's per-layer recompute 2 x {cfg.n_layers} and {cfg.n_layers} more, "
+            f"K2′'s two kernels once an attention; the capture none), all {wgmma} K2 launches on the tensor cores; summary "
             f"{json.dumps(summary)}")
         graphed = {"losses": report.losses, "checksum": checksum(trainer)}
 
@@ -5736,6 +5857,9 @@ def main() -> int:
         f"{sum(b['cold_ms'] for b in k4['buckets']):.5f} ms each after an L2-sized read, "
         f"{prof_k4} ms in the profiled 10^4 evaluate")
     errs.update({name: t["max_abs_err"] for name, t in wtimes.items()})
+    abwd = tresult["functions"]["attention_backward"]
+    times.update(abwd["kernels"])
+    errs.update(abwd["errors"])
     # each main path ran with the counts set to 0 just before it
     launches = dict.fromkeys(kernels.KERNEL_MODULES, 0)
     train_runs = [tresult["run"]] + [m["run"] for m in tresult["models"].values()]
@@ -5758,7 +5882,7 @@ def main() -> int:
         lib = t["library"]
         row = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errs[name],

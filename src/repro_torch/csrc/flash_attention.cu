@@ -39,7 +39,11 @@
 // them (the causal diagonal, the window's edge, the ragged end). Q arrives
 // once by TMA; out-of-range rows and keys arrive as zeros. The grid is one
 // dimension, every head's last q tile first: the longest causal rows start
-// first and the short ones fill the tail.
+// first and the short ones fill the tail. The training forward is the
+// instantiation kLse = true of the same kernel: it also stores each row's
+// log-sum-exp (base 2, f32), from which the backward kernels
+// (flash_attention_bwd.cu) recompute P; the serving prefill launches
+// kLse = false, whose code has no such store.
 //
 // f32: the CUDA cores (flash_f32_kernel). The tensor cores take f32 only
 // rounded to tf32 (about 1e-3 relative), which would break the f32 checks
@@ -52,10 +56,7 @@
 // lane accumulates d/32 output columns of the 8 rows, reusing each V load 8
 // times. K rows are padded by one float in shared memory so the 32 lanes
 // read 32 banks.
-#include <stdio.h>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "flash_tc.cuh"
 
 namespace repro {
 
@@ -215,36 +216,15 @@ static cudaError_t launch_f32(const FlashParams& p, int b, int h, cudaStream_t s
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kTcRows = 64;                     // q rows per CTA = keys per tile
-constexpr int kTcConsumers = 128;               // one warpgroup
-constexpr int kTcThreads = kTcConsumers + 32;   // and one producer warp
-
-template <int D>
-struct TcLayout {
-  static constexpr int PW = D < 64 ? D : 64;       // elements in a panel row
-  static constexpr int RB = PW * 2;                // its bytes: the swizzle span
-  static constexpr int PANEL = kTcRows * RB;       // one panel of a 64-row tile
-  static constexpr int NPANEL = D / PW;
-  static constexpr int TILE = PANEL * NPANEL;      // a 64-row tile, 64 * D * 2 bytes
-  static constexpr int STAGES = D <= 64 ? 3 : 2;
-  static constexpr uint32_t SWIZZLE = RB == 128 ? 1 : 2;  // descriptor code: 128 B, 64 B
-  // Q, the K and V rings, 2 * STAGES + 1 mbarriers, and room to align to 1 KB
-  static constexpr int SMEM = TILE * (1 + 2 * STAGES) + 8 * (2 * STAGES + 1) + 1024;
-  static constexpr int MIN_BLOCKS = D >= 256 ? 1 : (D == 128 ? 2 : 3);
-};
-
 struct FlashTcParams {
   void* o;
   int64_t os[3];       // strides of o's axes (batch, head, seq)
   int heads, batch, sq, sk, q_per_kv;
   float scale_log2;    // 1/sqrt(d) * log2(e): the softmax runs in base 2
   int causal, window;
+  float* lse;          // training only: (batch, heads, 64-row tiles * 64) f32, each row's
+                       // log-sum-exp in base 2 of its scaled scores, for the backward
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // The online softmax of one 64 x 64 score tile on the accumulator
 // fragments, in base 2: this thread holds columns 8 jb + 2 quad + {0, 1} of
@@ -297,7 +277,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2],
   }
 }
 
-template <int D>
+// kLse, the training forward's instantiation, also stores each row's
+// log-sum-exp m + log2(l) (+inf for a row that kept no key, so that the
+// backward's P = 2^(s - lse) is 0 there) for every row of its tile, the
+// padding past Sq too; the serving prefill launches kLse = false.
+template <int D, bool kLse = false>
 __global__ void __launch_bounds__(kTcThreads, TcLayout<D>::MIN_BLOCKS)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const FlashTcParams p) {
@@ -449,6 +433,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if constexpr (kLse) {
+      if (quad == 0)
+        p.lse[(size_t(b) * p.heads + head) * (gridDim.x / per_qt * kTcRows) + qi] =
+            l > 0.f ? m_run[r] + log2f(l) : __int_as_float(0x7f800000);
+    }
     if (qi >= p.sq) continue;
     l = fmaxf(l, 1e-30f);
     __nv_bfloat16* orow = out + qi * p.os[2];
@@ -463,64 +452,61 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 static cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              const FlashTcParams& p, int b, int h, cudaStream_t stream) {
   constexpr int kSmem = TcLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_tc_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(flash_tc_kernel<D, kLse>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const int n_qt = (p.sq + kTcRows - 1) / kTcRows;
-  flash_tc_kernel<D><<<n_qt * h * b, kTcThreads, kSmem, stream>>>(tq, tk, tv, p);
+  flash_tc_kernel<D, kLse><<<n_qt * h * b, kTcThreads, kSmem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// A bf16 (batch, rows, heads, d) view, element strides (batch, head, seq),
-// as a 4-D tensor map of 64-row boxes one panel wide, swizzled as wgmma reads
-// them. Rows and heads past the ends load as zeros.
-static bool encode_tile_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
-                            int batch, const int64_t* st) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) {
-    fprintf(stderr, "repro: cuTensorMapEncodeTiled not found in the driver\n");
-    return false;
+// The bf16 launch behind both entry points: the serving prefill's (lse
+// null) and the training forward's.
+static int flash_bf16(const void* q, const void* k, const void* v, void* o,
+                      const int64_t* strides, int b, int h, int kv, int sq, int sk, int d,
+                      float scale, int causal, int window, float* lse, void* stream) {
+  if (kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode_tile_map(&tq, q, d, sq, h, b, strides) ||
+      !encode_tile_map(&tk, k, d, sk, kv, b, strides + 3) ||
+      !encode_tile_map(&tv, v, d, sk, kv, b, strides + 6))
+    return cudaErrorInvalidValue;
+  FlashTcParams p;
+  p.o = o;
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  p.heads = h;
+  p.batch = b;
+  p.sq = sq;
+  p.sk = sk;
+  p.q_per_kv = h / kv;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.causal = causal;
+  p.window = window;
+  p.lse = lse;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr) {
+    switch (d) {
+      case 32: return launch_tc<32, true>(tq, tk, tv, p, b, h, s);
+      case 64: return launch_tc<64, true>(tq, tk, tv, p, b, h, s);
+      case 128: return launch_tc<128, true>(tq, tk, tv, p, b, h, s);
+      default: return cudaErrorInvalidValue;  // the backward kernels take d <= 128
+    }
   }
-  const int pw = d < 64 ? d : 64;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(rows), cuuint64_t(heads),
-                              cuuint64_t(batch)};
-  // a dimension of size 1 is never stepped: give it a legal stride
-  const cuuint64_t strides[3] = {rows > 1 ? cuuint64_t(st[2]) * 2 : cuuint64_t(d) * 2,
-                                 heads > 1 ? cuuint64_t(st[1]) * 2 : cuuint64_t(d) * 2,
-                                 batch > 1 ? cuuint64_t(st[0]) * 2 : cuuint64_t(d) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(pw), cuuint32_t(kTcRows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        pw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) fprintf(stderr, "repro: cuTensorMapEncodeTiled failed (CUresult %d)\n", int(r));
-  return r == CUDA_SUCCESS;
+  switch (d) {
+    case 32: return launch_tc<32, false>(tq, tk, tv, p, b, h, s);
+    case 64: return launch_tc<64, false>(tq, tk, tv, p, b, h, s);
+    case 128: return launch_tc<128, false>(tq, tk, tv, p, b, h, s);
+    case 256: return launch_tc<256, false>(tq, tk, tv, p, b, h, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace repro
@@ -566,29 +552,18 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
                                           const int64_t* strides, int b, int h, int kv, int sq,
                                           int sk, int d, float scale, int causal, int window,
                                           void* stream) {
-  if (kv <= 0 || h % kv != 0) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  if (!repro::encode_tile_map(&tq, q, d, sq, h, b, strides) ||
-      !repro::encode_tile_map(&tk, k, d, sk, kv, b, strides + 3) ||
-      !repro::encode_tile_map(&tv, v, d, sk, kv, b, strides + 6))
-    return cudaErrorInvalidValue;
-  repro::FlashTcParams p;
-  p.o = o;
-  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
-  p.heads = h;
-  p.batch = b;
-  p.sq = sq;
-  p.sk = sk;
-  p.q_per_kv = h / kv;
-  p.scale_log2 = scale * 1.4426950408889634f;
-  p.causal = causal;
-  p.window = window;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return repro::launch_tc<32>(tq, tk, tv, p, b, h, s);
-    case 64: return repro::launch_tc<64>(tq, tk, tv, p, b, h, s);
-    case 128: return repro::launch_tc<128>(tq, tk, tv, p, b, h, s);
-    case 256: return repro::launch_tc<256>(tq, tk, tv, p, b, h, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return repro::flash_bf16(q, k, v, o, strides, b, h, kv, sq, sk, d, scale, causal, window,
+                           nullptr, stream);
+}
+
+// The training forward: the same, and each row's log-sum-exp in base 2 into
+// lse, (b, h, 64-row tiles * 64) f32, for the backward
+// (flash_attention_bwd.cu). d is 32, 64 or 128.
+extern "C" int repro_flash_attention_bf16_lse(const void* q, const void* k, const void* v,
+                                              void* o, const int64_t* strides, int b, int h,
+                                              int kv, int sq, int sk, int d, float scale,
+                                              int causal, int window, float* lse,
+                                              void* stream) {
+  return repro::flash_bf16(q, k, v, o, strides, b, h, kv, sq, sk, d, scale, causal, window, lse,
+                           stream);
 }

@@ -1,7 +1,8 @@
 // Hopper primitives for the port's kernels, written out in PTX: loads from
 // shared memory by byte address, 16- and 4-byte cp.async, warp-level
-// tensor-core products (ldmatrix, mma.sync), mbarriers, TMA tile loads, and
-// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors.
+// tensor-core products (ldmatrix, mma.sync), mbarriers, TMA tile and bulk
+// loads, named barriers, and warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors.
 // Built for sm_90a.
 #pragma once
 
@@ -133,6 +134,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory by
+// the TMA unit, both 16-byte aligned; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads') over `threads` threads of the
+// block, a multiple of 32: orders their shared-memory accesses
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

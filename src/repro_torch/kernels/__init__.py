@@ -11,14 +11,17 @@ counted. The cap-bucket scan and the cooldown chain refuse ``meta``. Each kernel
 a plain integer ``LAUNCHES``, and the selective scan's and the WKV
 recurrence's backward kernels theirs in ``BWD_LAUNCHES``; prefill attention
 also counts, in ``WGMMA_LAUNCHES``, the launches that took its tensor-core
-kernel.
+kernel, and its two backward kernels in ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` (keys ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv`` of :func:`launch_counts`).
 
 The serving path runs RMSNorm, prefill attention and decode attention, and,
 for hymba and RWKV-6, the Mamba selective scan and the WKV recurrence; the
 what-if replay (:mod:`repro_torch.whatif.backend`) runs the cap-bucket scan
 and the Algorithm-1 cooldown chain. Training runs RMSNorm, prefill attention,
 the selective scan and the WKV recurrence inside autograd Functions
-(:mod:`repro_torch.kernels.ops`), the last two with their backward kernels.
+(:mod:`repro_torch.kernels.ops`), the last two with their backward kernels,
+and prefill attention with its own in bf16 at head dims up to 128.
 
 A wrapper called while a CUDA graph is captured records its kernel into the
 graph and launches nothing, and a replay launches the graph's kernels
@@ -54,9 +57,13 @@ KERNEL_MODULES = {
     "wkv6": rwkv6_scan,
     "ssm_scan_bwd": ssm_scan,
     "wkv6_bwd": rwkv6_scan,
+    "flash_attention_bwd_dq": flash_attention,
+    "flash_attention_bwd_dkv": flash_attention,
 }
 #: the counter of each kernel whose module counts it elsewhere than in ``LAUNCHES``
-COUNTERS = {"ssm_scan_bwd": "BWD_LAUNCHES", "wkv6_bwd": "BWD_LAUNCHES"}
+COUNTERS = {"ssm_scan_bwd": "BWD_LAUNCHES", "wkv6_bwd": "BWD_LAUNCHES",
+            "flash_attention_bwd_dq": "BWD_DQ_LAUNCHES",
+            "flash_attention_bwd_dkv": "BWD_DKV_LAUNCHES"}
 #: the key of ``flash_attention.WGMMA_LAUNCHES`` in a graph's launch record
 WGMMA = "flash_attention_wgmma"
 

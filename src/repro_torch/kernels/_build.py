@@ -47,6 +47,9 @@ SIGNATURES = {
                                   _F, _I, _I, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _P],
+    "repro_flash_attention_bf16_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _F, _I, _I, _P, _P],
+    "repro_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P],
     "repro_cap_bucket_scan": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,

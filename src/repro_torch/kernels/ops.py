@@ -12,8 +12,10 @@ prefill attention, the selective scan and the WKV recurrence run inside
 :class:`RMSNormFunction`, :class:`FlashAttentionFunction`,
 :class:`SsmScanFunction` and :class:`Wkv6Function`: the forward is the
 kernel wrapper (the plain version on a CPU tensor); the backward is the
-analytic gradient in PyTorch ops for the first two and a backward kernel
-for the recurrences (their plain backwards on a CPU tensor). Only the
+analytic gradient in PyTorch ops for RMSNorm, backward kernels for the
+recurrences (their plain backwards on a CPU tensor), and for attention the
+two backward kernels K2′ where ``flash_attention.backward_route`` says so
+(CUDA, bf16, d ≤ 128), else the analytic gradient in PyTorch ops. Only the
 training loss reaches them; inference, whose inputs require no grad, calls
 the wrappers as before. Decode attention, the cap-bucket scan and the
 cooldown chain have no backward: their wrappers refuse a CUDA tensor that
@@ -90,84 +92,119 @@ def _masks(*key) -> tuple:
     return _backward_masks(*key)
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """K2 with its gradient, in the model's (B, S, H, d) layout. Forward: the
-    kernel wrapper; it saves q, k, v and the output O. Backward in f32 (f64
-    for f64 inputs), each kv head's group of g q heads stacked as g * Sq
-    rows so that every product is one batched matmul: P = softmax(QKᵀ/√d)
-    recomputed under the forward's mask (causal, window, Sq ≠ Sk) as an
-    additive bias, dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)),
-    dQ = dS K/√d, dK = dSᵀ Q/√d; the products over the stacked rows sum dK
-    and dV over the group's q heads.
+def attention_backward_ops(q, k, v, out, dout, causal: bool, window: int, q_block: int = 0,
+                           probs_bf16: bool = False) -> tuple:
+    """K2's backward in PyTorch ops, in the model's (B, S, H, d) layout, for
+    the calls :func:`repro_torch.kernels.flash_attention.backward_route`
+    gives ``"ops"``: in f32 (f64 for f64 inputs), each kv head's group of g
+    q heads stacked as g * Sq rows so that every product is one batched
+    matmul: P = softmax(QKᵀ/√d) recomputed under the forward's mask (causal,
+    window, Sq ≠ Sk) as an additive bias, dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘
+    (dP − rowsum(dO ∘ O)), dQ = dS K/√d, dK = dSᵀ Q/√d; the products over
+    the stacked rows sum dK and dV over the group's q heads.
 
-    Under ``knobs`` (:class:`repro_torch.kernels.ref.AttentionKnobs`, which
-    the models layer sets from its tuning knobs): with ``block_remat`` P and
-    dS are rebuilt a block of ``q_block`` query rows at a time (where Sq is
-    a multiple longer than one block), dK and dV summed over the blocks, as
+    With ``q_block`` (``block_remat`` under the tuning knobs) P and dS are
+    rebuilt a block of ``q_block`` query rows at a time (where Sq is a
+    multiple longer than one block), dK and dV summed over the blocks, as
     the reference's per-block ``jax.checkpoint`` rebuilds them. With
-    ``probs_bf16``, where the forward ran the plain version (which casts P
-    to bf16 before PV), the backward is autograd's through that cast, as the
-    reference's is: P rounded to bf16 for dV, dP rounded to bf16, and the
-    softmax's row term Σ dP ∘ P taken from them (O is the rounded P's
-    product, so rowsum(dO ∘ O) no longer equals it). K2 keeps P in f32, so
-    on the card the backward keeps it too. With the default knobs, one
-    block in f32."""
+    ``probs_bf16`` (the plain forward, which casts P to bf16 before PV) the
+    backward is autograd's through that cast, as the reference's is: P
+    rounded to bf16 for dV, dP rounded to bf16, and the softmax's row term Σ
+    dP ∘ P taken from them (O is the rounded P's product, so rowsum(dO ∘ O)
+    no longer equals it). Otherwise one block in f32."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    acc = acc_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+
+    def heads(t):  # (B, S, N, d) -> (B * KV, N // KV, S, d) in acc: one copy
+        n, t_s = t.shape[2], t.shape[1]
+        return t.new_empty((b, n, t_s, d), dtype=acc).copy_(t.transpose(1, 2)).view(
+            b * kvh, n // kvh, t_s, d)
+
+    qh, doh, oh = map(heads, (q, dout, out))
+    kh, vh = (heads(t)[:, 0] for t in (k, v))
+    qb = q_block
+    blocked = qb and sq > qb and sq % qb == 0
+    dqs, dk, dv = [], None, None
+    for i in range(0, sq, qb) if blocked else (0,):
+        rows = slice(i, i + qb) if blocked else slice(None)
+        n = qb if blocked else sq
+        qr, dor, outr = (t[:, :, rows].reshape(b * kvh, g * n, d) for t in (qh, doh, oh))
+        bias, keep_scale = _masks(n, sk, causal, window, g, scale, q.device, acc, i)
+        p = torch.softmax(torch.baddbmm(bias, qr, kh.transpose(1, 2), alpha=scale), dim=-1)
+        dp = torch.bmm(dor, vh.transpose(1, 2))
+        if probs_bf16:
+            dv_r = torch.bmm(p.to(torch.bfloat16).to(acc).transpose(1, 2), dor)
+            dp = dp.to(torch.bfloat16).to(acc)
+            rowsum = (dp * p).sum(dim=-1, keepdim=True)
+        else:
+            dv_r = torch.bmm(p.transpose(1, 2), dor)
+            rowsum = _fa.softmax_delta_plain(outr, dor)[..., None]
+        # dS, in place of dP; a masked score is a constant: no gradient (a
+        # row masked whole averages V)
+        ds = dp.sub_(rowsum).mul_(p).mul_(keep_scale)
+        dqs.append(torch.bmm(ds, kh).view(b * kvh, g, n, d))
+        dk_r = torch.bmm(ds.transpose(1, 2), qr)
+        dk, dv = (dk_r, dv_r) if dk is None else (dk + dk_r, dv + dv_r)
+    dq = (dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=2)).view(b, h, sq, d).transpose(1, 2)
+    dk = dk.view(b, kvh, sk, d).transpose(1, 2)
+    dv = dv.view(b, kvh, sk, d).transpose(1, 2)
+    return (dq.to(q.dtype, memory_format=torch.contiguous_format),
+            dk.to(k.dtype, memory_format=torch.contiguous_format),
+            dv.to(v.dtype, memory_format=torch.contiguous_format))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K2 with its gradient, in the model's (B, S, H, d) layout. The forward
+    picks the backward from its inputs
+    (:func:`repro_torch.kernels.flash_attention.backward_route`):
+
+    ``"kernels"`` (CUDA, bf16, d 32, 64 or 128): the forward is K2's
+    tensor-core kernel in its instantiation that keeps each row's
+    log-sum-exp, saved with q, k, v and O; the backward is K2′, the dQ and
+    dK/dV kernels, which recompute P tile by tile from it
+    (:func:`repro_torch.kernels.flash_attention.flash_attention_backward`).
+    ``knobs`` do not act on it.
+
+    ``"ops"`` (the CPU and ``meta``, f32 and f64, d 256): the forward is the
+    kernel wrapper (the plain version on the CPU), saving q, k, v and O; the
+    backward is :func:`attention_backward_ops` under ``knobs``
+    (:class:`repro_torch.kernels.ref.AttentionKnobs`, which the models layer
+    sets from its tuning knobs): ``block_remat`` blocks it by ``q_block``,
+    and ``probs_bf16`` where the forward ran the plain version (which casts
+    P to bf16 before PV). On the card the f32 kernel keeps P in f32, so
+    there the backward keeps it too."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, knobs=NO_KNOBS):
-        out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=causal, window=window, knobs=knobs).transpose(1, 2)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.route = _fa.backward_route(q.device.type, q.dtype, q.shape[-1])
         ctx.causal, ctx.window = causal, window
+        heads = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        if ctx.route == "kernels":
+            out, lse = _fa.flash_attention_lse(*heads, causal=causal, window=window)
+            out = out.transpose(1, 2)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        out = _fa.flash_attention(*heads, causal=causal, window=window,
+                                  knobs=knobs).transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out)
         ctx.q_block = knobs.q_block if knobs.block_remat else 0
         ctx.probs_bf16 = knobs.probs_bf16 and q.device.type in _build.PLAIN_DEVICES
         return out
 
     @staticmethod
     def backward(ctx, dout):
+        if ctx.route == "kernels":
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = _fa.flash_attention_backward(
+                *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
+                _build.aligned(dout).transpose(1, 2), causal=ctx.causal, window=ctx.window)
+            return (*(t.transpose(1, 2) for t in grads), None, None, None)
         q, k, v, out = ctx.saved_tensors
-        b, sq, h, d = q.shape
-        sk, kvh = k.shape[1], k.shape[2]
-        g = h // kvh
-        acc = acc_dtype(q.dtype)
-        scale = 1.0 / math.sqrt(d)
-
-        def heads(t):  # (B, S, N, d) -> (B * KV, N // KV, S, d) in acc: one copy
-            n, t_s = t.shape[2], t.shape[1]
-            return t.new_empty((b, n, t_s, d), dtype=acc).copy_(t.transpose(1, 2)).view(
-                b * kvh, n // kvh, t_s, d)
-
-        qh, doh, oh = map(heads, (q, dout, out))
-        kh, vh = (heads(t)[:, 0] for t in (k, v))
-        qb = ctx.q_block
-        blocked = qb and sq > qb and sq % qb == 0
-        dqs, dk, dv = [], None, None
-        for i in range(0, sq, qb) if blocked else (0,):
-            rows = slice(i, i + qb) if blocked else slice(None)
-            n = qb if blocked else sq
-            qr, dor, outr = (t[:, :, rows].reshape(b * kvh, g * n, d) for t in (qh, doh, oh))
-            bias, keep_scale = _masks(n, sk, ctx.causal, ctx.window, g, scale, q.device, acc, i)
-            p = torch.softmax(torch.baddbmm(bias, qr, kh.transpose(1, 2), alpha=scale), dim=-1)
-            dp = torch.bmm(dor, vh.transpose(1, 2))
-            if ctx.probs_bf16:
-                dv_r = torch.bmm(p.to(torch.bfloat16).to(acc).transpose(1, 2), dor)
-                dp = dp.to(torch.bfloat16).to(acc)
-                rowsum = (dp * p).sum(dim=-1, keepdim=True)
-            else:
-                dv_r = torch.bmm(p.transpose(1, 2), dor)
-                rowsum = (dor * outr).sum(dim=-1, keepdim=True)
-            # dS, in place of dP; a masked score is a constant: no gradient (a
-            # row masked whole averages V)
-            ds = dp.sub_(rowsum).mul_(p).mul_(keep_scale)
-            dqs.append(torch.bmm(ds, kh).view(b * kvh, g, n, d))
-            dk_r = torch.bmm(ds.transpose(1, 2), qr)
-            dk, dv = (dk_r, dv_r) if dk is None else (dk + dk_r, dv + dv_r)
-        dq = (dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=2)).view(b, h, sq, d).transpose(1, 2)
-        dk = dk.view(b, kvh, sk, d).transpose(1, 2)
-        dv = dv.view(b, kvh, sk, d).transpose(1, 2)
-        return (dq.to(q.dtype, memory_format=torch.contiguous_format),
-                dk.to(k.dtype, memory_format=torch.contiguous_format),
-                dv.to(v.dtype, memory_format=torch.contiguous_format), None, None, None)
+        return (*attention_backward_ops(q, k, v, out, dout, ctx.causal, ctx.window,
+                                        ctx.q_block, ctx.probs_bf16), None, None, None)
 
 
 class SsmScanFunction(torch.autograd.Function):

@@ -19,10 +19,12 @@ model code. Their readers:
   ``cache_specs(data_only=)``.
 
 The Hopper kernels read none: K2 (prefill attention) and K3 (decode
-attention) group GQA by construction and keep their probabilities in f32,
-as the Pallas kernels do; so on the card the attention backward keeps P in
-f32 too. The kernels package reads no knob itself: it takes them as
-arguments.
+attention) group GQA by construction, keep their softmax statistics in f32
+and, in bf16, round P to bf16 only as the PV product's operand; K2's
+backward kernels (bf16 at head dims up to 128) never build P whole, so
+``q_block`` and ``attn_block_remat`` act on the card only on the backward
+in PyTorch ops (f32 and d 256). The kernels package reads no knob itself:
+it takes them as arguments.
 """
 from __future__ import annotations
 

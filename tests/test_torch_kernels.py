@@ -226,7 +226,9 @@ def test_cpu_tensors_never_launch():
     assert tk.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
                                   "decode_attention": 0, "cap_bucket_scan": 0,
                                   "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0,
-                                  "ssm_scan_bwd": 0, "wkv6_bwd": 0}
+                                  "ssm_scan_bwd": 0, "wkv6_bwd": 0,
+                                  "flash_attention_bwd_dq": 0,
+                                  "flash_attention_bwd_dkv": 0}
 
 
 # --------------------------------------------------------------------------- #
@@ -264,7 +266,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     assert {k: after[k] - before[k] for k in after} == {
         "rmsnorm": 1, "flash_attention": 4, "decode_attention": 8,
         "cap_bucket_scan": 0, "downscale_replay": 0, "ssm_scan": 0, "wkv6": 0,
-        "ssm_scan_bwd": 0, "wkv6_bwd": 0}
+        "ssm_scan_bwd": 0, "wkv6_bwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
 
 
 @pytest.mark.gpu

@@ -13,7 +13,8 @@ On the card (``gpu``, skipped elsewhere), for each family with a loss at
 smoke size: 6 steps of the graphed trainer across its warm-up equal an
 eager run of ``make_train_step``'s function from the same seed bit for bit,
 losses and final trees; the capture adds no launch and each replay adds one
-eager step's launches. The file imports no JAX at module level, so it also
+eager step's launches, among them one dQ and one dK/dV launch of K2's
+backward a hymba layer. The file imports no JAX at module level, so it also
 collects on a machine without it.
 """
 import dataclasses
@@ -230,6 +231,11 @@ def test_graphed_trainer_equals_the_eager_step_on_card(cuda, arch):
     assert replayed == launched
     assert {k: n for k, n in graph.launches.items() if k != kernels.WGMMA} == \
         {k: n // STEPS for k, n in launched.items()}
+    # K2′: one dQ and one dK/dV launch a K2 call's backward (bf16 at these
+    # head dims), one a layer in hymba's step
+    assert graph.launches["flash_attention_bwd_dq"] == graph.launches["flash_attention_bwd_dkv"]
+    if arch == "hymba-1.5b":
+        assert graph.launches["flash_attention_bwd_dkv"] == cfg.n_layers
     # only the warm-up read the masks' cache: the capture built its own
     assert (graphed_masks.hits + graphed_masks.misses) * STEPS == \
         (eager_masks.hits + eager_masks.misses) * trainer_mod.WARMUP
